@@ -15,17 +15,34 @@ Phases, one JSON line each; any failure exits non-zero:
              on the CSR of the same matrix (CUDA events, median of 20).
   dia        `dia_spmm` the same way on the road graph (DIA band, w=1)
              and on a w=5 band at 4096 nodes.
+  sddmm      `sddmm_blocks` at rank 10 on MSDR's two learned-adjacency
+             patterns (CLI graph: 128 blocks; road graph: 382 blocks)
+             and on a ragged 1000-node one: f32 and bf16 e1/e2, a NaN
+             in e1. Times the kernel, the plain version and
+             `torch.sparse.sampled_addmm` on the pattern's entries.
+  dvals      `spmm_dvals` on the same two patterns at F = 1024 (batch 8
+             x the 128-wide z of MSDR) and a ragged F: f32 and bf16 g/x,
+             pad blocks zero, a NaN in x. Times the kernel, the plain
+             version and `torch.sparse.sampled_addmm` on every slot of
+             the stored blocks (and, labelled, on the pattern entries).
   cli        `python -m gptst_tpu_torch.run -mode ori -model TGCN` at
              16,384 nodes from a PEMS08.npz of that size written into a
              temporary directory: the block-CSR main path.
   dia_model  TGCN train steps through the library on the road graph's
              DIA support: the DIA main path.
-  profile    `torch.profiler` over 2 TGCN train steps on each graph:
-             device time by kernel group and the device busy share.
+  msdr_cli   `python -m gptst_tpu_torch.run -mode ori -model MSDR` at
+             16,384 nodes, batch 8: the learned-adjacency main path
+             (`bsr_spmm`, `sddmm`, `spmm_dvals`).
+  msdr_model MSDR train steps through the library on the road graph
+             (DIA static supports, the 382-block pattern).
+  profile    `torch.profiler` over 2 TGCN train steps on each graph and
+             2 MSDR train steps on the CLI graph: device time by kernel
+             group and the device busy share.
   reference  a small ragged graph (1000 nodes) with and without RCM
-             (DIA and block-CSR): the TGCN forward and gradients with
-             the kernels on the card against the plain versions on the
-             CPU.
+             (DIA and block-CSR): the TGCN and MSDR (learned sparse
+             adjacency, random nonzero weights) forward and gradients
+             with the kernels on the card against the plain versions on
+             the CPU.
 
 Before the last line: one JSON object with every kernel's launches on
 its main path, error, times and bound, and the card's name and power
@@ -48,8 +65,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("build", "bsr", "dia", "cli", "dia_model", "profile",
-          "reference")
+PHASES = ("build", "bsr", "dia", "sddmm", "dvals", "cli", "dia_model",
+          "msdr_cli", "msdr_model", "profile", "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores and
 # HBM3 bandwidth
@@ -60,11 +77,18 @@ N_BIG = 16384
 BATCH, UNITS = 16, 100
 F_WIDE = BATCH * UNITS          # the h aggregations of a TGCN step
 F_NARROW = BATCH * 1            # the x aggregation (input_base_dim 1)
+# MSDR at its published width: rnn_units 64, so z = [x ‖ h] is 128 wide
+MSDR_BATCH = 8
+F_MSDR = MSDR_BATCH * 128       # every aggregation of an MSDR step
+ADAPT_RANK = 10
 
 # rtol of a bf16 output: a different summation order may flip the
 # final rounding by one bf16 ulp (2^-8 relative, up to 2^-7 of the
-# value); f32 outputs differ only by summation order
-TOL = {"f32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 1e-6)}
+# value); f32 outputs differ only by summation order. d block_vals sums
+# ~1000 products of N(0, 1) values per slot in another order than the
+# plain version's batched product, hence its atol.
+TOL = {"f32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 1e-6),
+       "dvals": (1e-5, 1e-4)}
 
 
 def emit(phase: str, **kw) -> None:
@@ -103,6 +127,48 @@ def road_support(n: int, band: int, device):
     deg = np.bincount(r, minlength=n).astype(np.float64)
     vals = (1.0 / np.sqrt(deg[r] * deg[c])).astype(np.float32)
     return make_support_coo(r, c, vals, n, reorder=False, device=device)
+
+
+def msdr_cli_graph(n: int, device, seed: int = 0):
+    """MSDR's static supports and learned-adjacency pattern on the graph
+    the CLI synthesizes, built as `models/build.py:_build_msdr` builds
+    them."""
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph
+    from gptst_tpu_torch.models.build import msdr_adapt_pattern
+    from gptst_tpu_torch.models.predictors.msdr import (
+        dual_random_walk_supports,
+    )
+    from gptst_tpu_torch.ops.graph_conv import make_support
+
+    mats = dual_random_walk_supports(random_sensor_graph(n, avg_degree=6,
+                                                         seed=seed))
+    return (tuple(make_support(m, device=device) for m in mats),
+            msdr_adapt_pattern(mats[0], n, device))
+
+
+def msdr_road_graph(device):
+    """MSDR's dual random-walk supports of the road graph from its edge
+    list ([(D^-1 A)^T, (D^-1 A^T)^T], no RCM, DIA band + COO tail) and
+    the learned-adjacency pattern of the first one's blocked edges, as
+    the JAX package's bench builds them (f32 values here)."""
+    import numpy as np
+
+    from gptst_tpu_torch.kernels.sddmm import SDDMMPattern
+    from gptst_tpu_torch.kernels.spmm import BlockCSR, coo_split_mask
+    from gptst_tpu_torch.ops.graph_conv import make_support_coo
+
+    n = N_BIG
+    r, c = road_graph_edges(n, 16, 48)
+    deg_out = np.maximum(np.bincount(r, minlength=n), 1)
+    deg_in = np.maximum(np.bincount(c, minlength=n), 1)
+    v1 = (1.0 / deg_out[r]).astype(np.float32)
+    sups = (make_support_coo(c, r, v1, n, reorder=False, device=device),
+            make_support_coo(r, c, (1.0 / deg_in[c]).astype(np.float32), n,
+                             reorder=False, device=device))
+    assert all(s.dia is not None for s in sups)
+    mk = coo_split_mask(c, r, n)
+    return sups, SDDMMPattern.from_bcsr(BlockCSR.from_coo(
+        c[mk], r[mk], v1[mk], n, device=device))
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -183,7 +249,7 @@ def kernel_cases(name, kernel, plain, structs, n, seed):
     return main_err
 
 
-def phase_build() -> None:
+def phase_build(rec: dict) -> None:
     from gptst_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
@@ -335,7 +401,153 @@ def phase_dia(rec: dict) -> None:
          dense_block_fma_tflops=block_flops / ms / 1e9)
 
 
-def phase_cli(rec: dict) -> None:
+def phase_sddmm(rec: dict) -> None:
+    import torch
+
+    from gptst_tpu_torch.kernels import sddmm as S
+
+    rec["_msdr"] = {"cli_graph": msdr_cli_graph(N_BIG, "cuda"),
+                    "road_graph": msdr_road_graph("cuda")}
+    pats = rec["_patterns"] = {k: g[1] for k, g in rec["_msdr"].items()}
+    pats["ragged_1000"] = msdr_cli_graph(1000, "cuda", seed=3)[1]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, p in pats.items():
+        real = int(p.ptr[-1])
+        e1 = torch.randn(p.n, ADAPT_RANK, device="cuda", generator=gen)
+        e2 = torch.randn(ADAPT_RANK, p.n, device="cuda", generator=gen)
+        # a NaN outside row tile 0 (the pad blocks' tile): it reaches
+        # every slot of its row in its row tile's blocks, masked or not
+        r = p.n - 3
+        e1n = e1.clone()
+        e1n[r, 4] = float("nan")
+        cases = [("f32", e1, e2), ("bf16", e1.bfloat16(), e2.bfloat16()),
+                 ("f32_bf16", e1, e2.bfloat16()), ("nan_in_e1", e1n, e2)]
+        for cname, a, b in cases:
+            got = S.sddmm_blocks(p, a, b)
+            torch.cuda.synchronize()
+            err = compare(got, S.sddmm_plain(p, a, b), "f32")
+            assert not got[real:].any(), "pad blocks not zero"
+            nan_slots = int(torch.isnan(got).sum())
+            if cname == "nan_in_e1":
+                assert nan_slots == int((p.row_ids == r // p.tile).sum()) \
+                    * p.tile, nan_slots
+            emit("sddmm", pattern=name, case=cname, max_abs_err=err,
+                 nan_slots=nan_slots, tol=dict(zip(("rtol", "atol"),
+                                                   TOL["f32"])))
+            if name == "cli_graph" and cname == "f32":
+                main_err = err
+        if name == "ragged_1000":
+            continue
+        nnz = int(p.mask.sum())
+        csr = csr_of(p.mask, p.row_ids.long(), p.cols.long(), p.tile, p.n)
+        ms = time_ms(lambda: S.sddmm_blocks(p, e1, e2))
+        plain_ms = time_ms(lambda: S.sddmm_plain(p, e1, e2))
+        lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(csr, e1, e2,
+                                                            beta=0.0))
+        # the function's own work: rank-10 dots at the pattern entries;
+        # its bytes: mask in and blocks out (pad blocks included), the
+        # embeddings and the block indices, each once
+        flops = 2 * nnz * ADAPT_RANK
+        nbytes = (2 * p.mask.numel() * 4 + 2 * p.n * ADAPT_RANK * 4
+                  + 2 * p.nnzb * 4)
+        line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    **bound(flops, nbytes))
+        emit("sddmm", pattern=name, case="timing", nnzb=real,
+             pattern_nnz=nnz, flops=flops, bytes=nbytes, **line,
+             achieved_bytes_per_s=nbytes / ms * 1e3)
+        if name == "cli_graph":
+            rec["sddmm"] = dict(
+                name="sddmm", route="cuda",
+                source="gptst_tpu_torch/csrc/sddmm.cu",
+                replaces="gptst_tpu/kernels/sddmm.py:116 (_sddmm_kernel)",
+                max_abs_err=main_err, **line)
+
+
+def phase_dvals(rec: dict) -> None:
+    import torch
+
+    from gptst_tpu_torch.kernels import spmm as K
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for name, p in rec["_patterns"].items():
+        real, n, tb = int(p.ptr[-1]), p.n, p.tile
+        a = K.BlockCSR(block_ptr=p.ptr, block_cols=p.cols, block_vals=p.mask,
+                       n=n, n_pad=p.n_pad, tile=tb)
+        for f in (F_MSDR, 1000):
+            g = torch.randn(n, f, device="cuda", generator=gen)
+            x = torch.randn(n, f, device="cuda", generator=gen)
+            # a NaN in x at node r reaches column r % TB of exactly the
+            # blocks whose column tile holds r
+            r = n // 3
+            xn = x.clone()
+            xn[r, 7] = float("nan")
+            cases = [("f32", g, x), ("bf16", g.bfloat16(), x.bfloat16()),
+                     ("bf16_g", g.bfloat16(), x), ("nan_in_x", g, xn)]
+            for cname, gg, xx in cases:
+                got = K.spmm_dvals(a, gg, xx)
+                torch.cuda.synchronize()
+                err = compare(got, K.spmm_dvals_plain(a, gg, xx), "dvals")
+                assert not got[real:].any(), "pad blocks not zero"
+                nan_slots = int(torch.isnan(got).sum())
+                if cname == "nan_in_x":
+                    assert nan_slots == int((p.cols[:real] == r // tb).sum()) \
+                        * tb, nan_slots
+                emit("dvals", pattern=name, case=f"F{f}_{cname}",
+                     max_abs_err=err, nan_slots=nan_slots,
+                     tol=dict(zip(("rtol", "atol"), TOL["dvals"])))
+                if name == "cli_graph" and f == F_MSDR and cname == "f32":
+                    main_err = err
+        if name == "ragged_1000":
+            continue
+        g = torch.randn(n, F_MSDR, device="cuda", generator=gen)
+        x = torch.randn(n, F_MSDR, device="cuda", generator=gen)
+        xt = x.t().contiguous()
+        rows, cols = p.row_ids[:real].long(), p.cols[:real].long()
+        slots = csr_of(torch.ones_like(p.mask[:real]), rows, cols, tb, n)
+        edges = csr_of(p.mask[:real], rows, cols, tb, n)
+        ms = time_ms(lambda: K.spmm_dvals(a, g, x))
+        plain_ms = time_ms(lambda: K.spmm_dvals_plain(a, g, x))
+        lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(slots, g, xt,
+                                                            beta=0.0))
+        lib_edges_ms = time_ms(lambda: torch.sparse.sampled_addmm(
+            edges, g, xt, beta=0.0))
+        # the function computes every slot of each stored block (the
+        # softmax mask zeroes most of them downstream, which is not this
+        # function's business): 2 * TB^2 * F FLOPs per real block; bytes
+        # of g, x, the blocks out (pad blocks included) and the indices
+        flops = 2 * real * tb * tb * F_MSDR
+        nbytes = (2 * n * F_MSDR * 4 + p.mask.numel() * 4
+                  + (p.ptr.numel() + p.nnzb) * 4)
+        line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    **bound(flops, nbytes))
+        emit("dvals", pattern=name, case="timing", shape=[n, F_MSDR],
+             nnzb=real, slots=real * tb * tb,
+             pattern_nnz=int(edges.values().numel()), flops=flops,
+             bytes=nbytes, **line,
+             library_ms_pattern_entries_only=lib_edges_ms,
+             achieved_tflops=flops / ms / 1e9)
+        if name == "cli_graph":
+            rec["spmm_dvals"] = dict(
+                name="spmm_dvals", route="cuda",
+                source="gptst_tpu_torch/csrc/spmm_dvals.cu",
+                replaces="gptst_tpu/kernels/spmm.py:604 (_dvals_kernel)",
+                max_abs_err=main_err, **line)
+    # MSDR's batch-major layout: every aggregation folds its (B, N, Z)
+    # operand into the kernels' node-major (N, B*Z) with a copy and
+    # unfolds the result; `spmm_dvals` folds g and x
+    z = torch.randn(MSDR_BATCH, N_BIG, 128, device="cuda", generator=gen)
+    zf = K._fold(z, N_BIG)
+    rec["_fold_ms"] = {"fold": time_ms(lambda: K._fold(z, N_BIG)),
+                       "unfold": time_ms(lambda: K._unfold(zf, z))}
+    emit("dvals", case="fold", shape=list(z.shape), **rec["_fold_ms"])
+
+
+def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
+    """`gptst_tpu_torch.run.main` with `-mode ori -model <model>` at
+    16,384 nodes from a PEMS08.npz of that size and `num_steps` time
+    steps. Checks the losses and metrics are finite and returns what
+    the phase line reports, with the launches of the whole run and of
+    its train steps alone."""
     import numpy as np
     import torch
 
@@ -343,71 +555,130 @@ def phase_cli(rec: dict) -> None:
     from gptst_tpu_torch.data.synthetic import synthesize_raw_series
     from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
     from gptst_tpu_torch.run import main
+    from gptst_tpu_torch.train.trainer import Trainer
+
+    in_steps = dict.fromkeys(LAUNCHES, 0)
+    train_batch = Trainer._train_batch
+
+    def counted(self, *args):
+        before = dict(LAUNCHES)
+        out = train_batch(self, *args)
+        for k in in_steps:
+            in_steps[k] += LAUNCHES[k] - before[k]
+        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         spec = dataclasses.replace(get_dataset_spec("PEMS08"),
                                    num_nodes=N_BIG)
         os.makedirs(os.path.join(tmp, "data", "PEMS08"))
         np.savez(os.path.join(tmp, "data", "PEMS08", "PEMS08.npz"),
-                 data=synthesize_raw_series(spec, num_steps=600, seed=0))
+                 data=synthesize_raw_series(spec, num_steps=num_steps,
+                                            seed=0))
         metrics = os.path.join(tmp, "metrics.json")
         torch.cuda.reset_peak_memory_stats()
+        Trainer._train_batch = counted
         reset_launch_counts()
         t0 = time.perf_counter()
-        main(["-dataset", "PEMS08", "-mode", "ori", "-model", "TGCN",
-              "-num_nodes", str(N_BIG), "-data_root",
-              os.path.join(tmp, "data"), "-batch_size", str(BATCH),
-              "-epochs", "2", "-lr_decay", "False", "-early_stop", "False",
-              "-log_dir", os.path.join(tmp, "save"), "-log_step", "1000",
-              "-metrics_out", metrics])
-        torch.cuda.synchronize()
+        try:
+            main(["-dataset", "PEMS08", "-mode", "ori", "-model", model,
+                  "-num_nodes", str(N_BIG), "-data_root",
+                  os.path.join(tmp, "data"), "-batch_size", str(batch),
+                  "-epochs", str(epochs), "-lr_decay", "False",
+                  "-early_stop", "False", "-log_dir",
+                  os.path.join(tmp, "save"), "-log_step", "1000",
+                  "-metrics_out", metrics])
+            torch.cuda.synchronize()
+        finally:
+            Trainer._train_batch = train_batch
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         with open(metrics) as f:
             rep = json.load(f)
-    assert launches["bsr_spmm"] > 0 and launches["dia_spmm"] == 0, launches
     vals = np.asarray(rep["per_horizon"] + [rep["average"]], np.float64)
     assert np.isfinite(vals).all() and np.isfinite(rep["history"]).all()
     steps = rep["steps_per_epoch"]
-    ms_step = [s / steps * 1e3 for s in rep["epoch_seconds"]]
+    return dict(
+        nodes=N_BIG, batch=batch, epochs=epochs, time_steps=num_steps,
+        steps_per_epoch=steps,
+        ms_per_step_by_epoch=[s / steps * 1e3 for s in rep["epoch_seconds"]],
+        samples_per_s_last_epoch=steps * batch / rep["epoch_seconds"][-1],
+        train_loss_by_epoch=rep["history"], test_average=rep["average"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches,
+        launches_per_train_step={k: v / (epochs * steps)
+                                 for k, v in in_steps.items()},
+        wall_s=wall)
+
+
+def phase_cli(rec: dict) -> None:
+    line = run_cli("TGCN", BATCH, num_steps=600)
+    launches = line["launches"]
+    assert launches["bsr_spmm"] > 0 and launches["dia_spmm"] == 0, launches
     rec["bsr_spmm"]["launches"] = launches["bsr_spmm"]
-    emit("cli", nodes=N_BIG, batch=BATCH, rnn_units=UNITS, epochs=2,
-         steps_per_epoch=steps, ms_per_step_by_epoch=ms_step,
-         samples_per_s_epoch2=steps * BATCH / rep["epoch_seconds"][-1],
-         train_loss_by_epoch=rep["history"], test_average=rep["average"],
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches,
-         launches_per_step=launches["bsr_spmm"] / (2 * steps),
-         wall_s=wall)
+    emit("cli", model="TGCN", rnn_units=UNITS, **line)
 
 
-def tgcn_train_steps(sup, warm: int, steps: int, trace: str | None = None):
-    """Train steps of a TGCN (published widths, batch 16, random
-    weights and data from seed 0) on `sup` through the port's library.
-    Returns the losses, ms per timed step, the kernel launches of all
-    steps, and (with `trace`) the timed steps' profiler trace."""
+def phase_msdr_cli(rec: dict) -> None:
+    line = run_cli("MSDR", MSDR_BATCH, num_steps=300)
+    launches = line["launches"]
+    for k in ("bsr_spmm", "sddmm", "spmm_dvals"):
+        assert launches[k] > 0, launches
+    rec["sddmm"]["launches"] = launches["sddmm"]
+    rec["spmm_dvals"]["launches"] = launches["spmm_dvals"]
+    # the fold copies of a train step: timed calls x counted calls
+    per, fold = line["launches_per_train_step"], rec["_fold_ms"]
+    fold_ms = ((per["bsr_spmm"] + per["dia_spmm"])
+               * (fold["fold"] + fold["unfold"])
+               + 2 * per["spmm_dvals"] * fold["fold"])
+    emit("msdr_cli", model="MSDR", rnn_units=64, **line,
+         fold_ms_per_train_step_estimate=fold_ms)
+
+
+def tgcn_net():
+    """TGCN at its published widths, random weights from seed 0."""
+    import torch
+
+    from gptst_tpu_torch.models.predictors.tgcn import TGCN, TGCNConfig
+
+    return TGCN(TGCNConfig(num_nodes=N_BIG), dim_in=1, dim_out=1, horizon=12,
+                generator=torch.Generator().manual_seed(0)).to("cuda")
+
+
+def msdr_net():
+    """MSDR at its published widths (rnn_units 64, 2 layers, pre_k 4,
+    adapt_rank 10), random weights from seed 0."""
+    import torch
+
+    from gptst_tpu_torch.models.predictors.msdr import MSDR, MSDRConfig
+
+    return MSDR(MSDRConfig(num_nodes=N_BIG), dim_in=1, dim_out=1,
+                generator=torch.Generator().manual_seed(0)).to("cuda")
+
+
+def train_steps(model: str, net, graph: tuple, batch: int, warm: int,
+                steps: int, trace: str | None = None):
+    """Train steps of `net` (TGCN or MSDR) bound to its graph arguments,
+    through the port's library, on random data from seed 0. Returns the
+    losses, ms per timed step, the kernel launches of all steps, and
+    (with `trace`) the timed steps' profiler trace."""
     import numpy as np
     import torch
 
     from gptst_tpu_torch.config.config import default_config
     from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
     from gptst_tpu_torch.models.build import GraphPredictor, predictor_forward
-    from gptst_tpu_torch.models.predictors.tgcn import TGCN, TGCNConfig
     from gptst_tpu_torch.train.loss import build_loss
     from gptst_tpu_torch.train.step import make_loss_terms, train_step
     from gptst_tpu_torch.train.trainer import make_optimizer
 
-    cfg = default_config("PEMS08", mode="ori", model="TGCN",
-                         num_nodes=N_BIG, batch_size=BATCH, lr_decay=False)
-    net = TGCN(TGCNConfig(num_nodes=N_BIG), dim_in=1, dim_out=1,
-               horizon=cfg.horizon,
-               generator=torch.Generator().manual_seed(0)).to("cuda")
-    model = predictor_forward(cfg, GraphPredictor(net, sup))
+    cfg = default_config("PEMS08", mode="ori", model=model,
+                         num_nodes=N_BIG, batch_size=batch, lr_decay=False)
+    model = predictor_forward(cfg, GraphPredictor(net, *graph))
     opt = make_optimizer(cfg, model.parameters(), steps_per_epoch=10)
     loss_terms = make_loss_terms(
         model, build_loss("mask_mae", 200.0, 100.0, 0.0, False), cfg)
     rng = np.random.default_rng(0)
-    shape = (BATCH, cfg.lag, N_BIG, 3)
+    shape = (batch, cfg.lag, N_BIG, 3)
     x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     y = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     reset_launch_counts()
@@ -439,7 +710,8 @@ def phase_dia_model(rec: dict) -> None:
     rec["_supports"]["road_graph"] = sup
     torch.cuda.reset_peak_memory_stats()
     warm, steps = 2, 5
-    losses, ms, launches = tgcn_train_steps(sup, warm, steps)
+    losses, ms, launches = train_steps("TGCN", tgcn_net(), (sup,), BATCH,
+                                       warm, steps)
     assert launches["dia_spmm"] > 0 and launches["bsr_spmm"] == 0, launches
     rec["dia_spmm"]["launches"] = launches["dia_spmm"]
     emit("dia_model", nodes=N_BIG, batch=BATCH, rnn_units=UNITS,
@@ -450,9 +722,31 @@ def phase_dia_model(rec: dict) -> None:
          launches_per_step=launches["dia_spmm"] / (warm + steps))
 
 
-# kernel-name fragments -> what they are on the TGCN step
+def phase_msdr_model(rec: dict) -> None:
+    import torch
+
+    sups, pat = rec["_msdr"]["road_graph"]
+    torch.cuda.reset_peak_memory_stats()
+    warm, steps = 2, 3
+    losses, ms, launches = train_steps("MSDR", msdr_net(), (sups, pat),
+                                       MSDR_BATCH, warm, steps)
+    for k in ("dia_spmm", "bsr_spmm", "sddmm", "spmm_dvals"):
+        assert launches[k] > 0, launches
+    emit("msdr_model", graph="road_graph_edges(16384, 16, 48)",
+         nodes=N_BIG, batch=MSDR_BATCH, rnn_units=64,
+         pattern_nnzb=int(pat.ptr[-1]),
+         steps=warm + steps, ms_per_step=ms,
+         samples_per_s=MSDR_BATCH / ms * 1e3, losses=losses,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches,
+         launches_per_step={k: v / (warm + steps)
+                            for k, v in launches.items()})
+
+
+# kernel-name fragments -> what they are on the TGCN and MSDR steps
 KERNEL_GROUPS = (
     ("bsr_spmm_kernel", "bsr_spmm"), ("dia_spmm_kernel", "dia_spmm"),
+    ("sddmm_kernel", "sddmm"), ("spmm_dvals_kernel", "spmm_dvals"),
     ("indexFunc", "index_add_ (COO tail scatter, RCM gather backward)"),
     ("indexSelect", "index_select (COO tail gather, RCM permutation)"),
     ("gemm", "dense matmul"), ("xmma", "dense matmul"),
@@ -463,11 +757,17 @@ KERNEL_GROUPS = (
 
 def phase_profile(rec: dict) -> None:
     """Device time by kernel group and device busy share of 2 profiled
-    TGCN train steps on each graph (after 1 warm-up step)."""
+    train steps (after 1 warm-up step): TGCN on each graph, MSDR on the
+    CLI graph."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    for name, sup in rec["_supports"].items():
+    runs = [(f"tgcn_{name}", "TGCN", tgcn_net, (sup,), BATCH)
+            for name, sup in rec["_supports"].items()]
+    runs.append(("msdr_cli_graph", "MSDR", msdr_net,
+                 rec["_msdr"]["cli_graph"], MSDR_BATCH))
+    for name, model, make_net, graph, batch in runs:
         path = os.path.join(OUT_DIR, f"trace_{name}.json")
-        _, ms, _ = tgcn_train_steps(sup, 1, 2, trace=path)
+        _, ms, _ = train_steps(model, make_net(), graph, batch, 1, 2,
+                               trace=path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         kern = [e for e in events if e.get("ph") == "X"
@@ -477,48 +777,107 @@ def phase_profile(rec: dict) -> None:
             g = next((v for k, v in KERNEL_GROUPS if k in e["name"]), "other")
             groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3 / 2
         busy = sum(groups.values())
-        emit("profile", graph=name, ms_per_step_profiled=ms,
+        emit("profile", run=name, ms_per_step_profiled=ms,
              device_ms_per_step=busy, device_busy_share=busy / ms,
              kernels_per_step=len(kern) / 2,
              device_ms_by_group=dict(sorted(groups.items(),
                                             key=lambda kv: -kv[1])))
 
 
-def phase_reference() -> None:
+def reference_grads(make_net, graph_on, x, dev: str) -> dict:
+    """The prediction and every parameter gradient of mean(pred^2), by
+    name, with the network and its graph on `dev`."""
+    net = make_net().to(dev)
+    pred = net(x.to(dev), *graph_on(dev))
+    pred.square().mean().backward()
+    return {"pred": pred.detach().cpu(), **{
+        k: p.grad.cpu() for k, p in net.named_parameters()}}
+
+
+def phase_reference(rec: dict) -> None:
+    """TGCN: rtol/atol 1e-4. MSDR: rtol 1e-4 and an atol of 1e-4 of each
+    tensor's largest entry plus 1e-7 (its gradients are small under a
+    mean loss, and an absolute 1e-4 would not see a wrong learned-
+    adjacency backward); att_b's gradient, zero in exact arithmetic (it
+    shifts all pre_k logits of a softmax), is rounding noise and is held
+    to an atol of 1e-5, as in the CPU parity tests."""
+    import copy
+
     import numpy as np
     import torch
 
     from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.models.build import msdr_adapt_pattern
+    from gptst_tpu_torch.models.predictors.msdr import (
+        MSDR, MSDRConfig, dual_random_walk_supports,
+    )
     from gptst_tpu_torch.models.predictors.tgcn import TGCN, TGCNConfig
     from gptst_tpu_torch.ops.graph_conv import make_support
 
     n, b = 1000, 4
-    adj = sym_adj(random_sensor_graph(n, avg_degree=6, seed=3))
+    base = random_sensor_graph(n, avg_degree=6, seed=3)
+    adj = sym_adj(base)
+    mats = dual_random_walk_supports(base)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((b, 12, n, 1), np.float32))
+    tgcn = TGCN(TGCNConfig(num_nodes=n), dim_in=1, dim_out=1, horizon=12,
+                generator=torch.Generator().manual_seed(0))
+    # MSDR with every weight nonzero: at its init W, b, R and the
+    # attention are zero, and the gradients into gconv_w and the node
+    # embeddings (the SDDMM and d block_vals path) would be zero too.
+    # The weights are kept where float32 is well conditioned, so that
+    # the comparison measures the kernels and not cancellation: noise of
+    # std 0.02 (at 0.1 the 64 x 64 W amplifies the recurrence over 24
+    # steps, |pred| ~ 1e5 at 1000 nodes), and node embeddings at 0.3 of
+    # their init scale (at 1.0 the rank-10 scores spread by ~10 and the
+    # unshifted block-row softmax puts ~all weight on one entry, where
+    # its gradient is a difference of nearly equal terms).
+    msdr = MSDR(MSDRConfig(num_nodes=n), dim_in=1, dim_out=1,
+                generator=torch.Generator().manual_seed(0))
+    noise = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for k, p in msdr.named_parameters():
+            if k.startswith("nodevec"):
+                p.mul_(0.3)
+            p.add_(0.02 * torch.randn(p.shape, generator=noise))
     paths = set()
     for reorder in (True, False):   # RCM gives a band, no RCM block-CSR
-        out = {}
-        for dev in ("cpu", "cuda"):
-            sup = make_support(adj, dense_threshold=0, reorder=reorder,
-                               device=dev)
-            path = "dia_spmm" if sup.dia is not None else "bsr_spmm"
-            net = TGCN(TGCNConfig(num_nodes=n), dim_in=1, dim_out=1,
-                       horizon=12,
-                       generator=torch.Generator().manual_seed(0)).to(dev)
-            pred = net(x.to(dev), sup)
-            pred.square().mean().backward()
-            out[dev] = [pred.detach().cpu()] + [
-                p.grad.cpu() for p in net.parameters()]
-        errs = []
-        for want, got in zip(out["cpu"], out["cuda"]):
-            errs.append(float((got - want).abs().max()))
-            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-        paths.add(path)
-        emit("reference", nodes=n, batch=b, reorder=reorder, kernel=path,
-             pred_max_abs_err=errs[0], grad_max_abs_err=max(errs[1:]),
-             tol={"rtol": 1e-4, "atol": 1e-4})
-    assert paths == {"dia_spmm", "bsr_spmm"}, paths
+        cases = {
+            "TGCN": (lambda: copy.deepcopy(tgcn), lambda dev: (make_support(
+                adj, dense_threshold=0, reorder=reorder, device=dev),)),
+            "MSDR": (lambda: copy.deepcopy(msdr), lambda dev: (
+                tuple(make_support(m, dense_threshold=0, reorder=reorder,
+                                   device=dev) for m in mats),
+                msdr_adapt_pattern(mats[0], n, dev))),
+        }
+        for model, (make_net, graph_on) in cases.items():
+            want = reference_grads(make_net, graph_on, x, "cpu")
+            reset_launch_counts()
+            got = reference_grads(make_net, graph_on, x, "cuda")
+            ran = sorted(k for k, v in LAUNCHES.items() if v)
+            errs = {}
+            for k, w in want.items():
+                atol = (1e-4 if model == "TGCN" else 1e-5
+                        if k.endswith("att_b")
+                        else 1e-4 * float(w.abs().max()) + 1e-7)
+                errs[k] = float((got[k] - w).abs().max())
+                torch.testing.assert_close(got[k], w, rtol=1e-4, atol=atol,
+                                           msg=lambda m: f"{model} {k}: {m}")
+            if model == "MSDR":
+                assert {"sddmm", "spmm_dvals", "bsr_spmm"} <= set(ran), ran
+                assert all(bool(want[k].abs().max() > 0) for k in want
+                           if k.startswith(("nodevec", "encoder.0.gconv_w")))
+            paths.update(ran)
+            emit("reference", model=model, nodes=n, batch=b, reorder=reorder,
+                 kernels=ran, pred_max_abs_err=errs.pop("pred"),
+                 grad_max_abs_err=max(errs.values()),
+                 nodevec_grad_scale=min(
+                     (float(want[k].abs().max()) for k in want
+                      if k.startswith("nodevec")), default=None),
+                 tol={"rtol": 1e-4, "atol": "1e-4" if model == "TGCN"
+                      else "1e-4 * max|want| + 1e-7 (att_b: 1e-5)"})
+    assert {"dia_spmm", "bsr_spmm", "sddmm", "spmm_dvals"} <= paths, paths
 
 
 def main() -> int:
@@ -544,13 +903,10 @@ def main() -> int:
     rec: dict = {"_supports": {}}
     for name in PHASES:
         t0 = time.perf_counter()
-        fn = globals()[f"phase_{name}"]
-        if name in ("bsr", "dia", "cli", "dia_model", "profile"):
-            fn(rec)
-        else:
-            fn()
+        globals()[f"phase_{name}"](rec)
         emit(name, done=True, seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": [rec["bsr_spmm"], rec["dia_spmm"]]}))
+    print(json.dumps({"kernels": [rec[k] for k in (
+        "bsr_spmm", "dia_spmm", "sddmm", "spmm_dvals")]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

@@ -1,6 +1,8 @@
 // Shared tile loop of the two graph-aggregation kernels (bsr_spmm.cu,
-// dia_spmm.cu): one CUDA block owns a (BM rows x BN features) piece of
-// an output row tile and accumulates, block by block of the adjacency,
+// dia_spmm.cu); its constants, dtype helpers and `dispatch` also serve
+// sddmm.cu and spmm_dvals.cu. One CUDA block owns a (BM rows x BN
+// features) piece of an output row tile and accumulates, block by block
+// of the adjacency,
 //
 //     acc += vals_block[r0:r0+BM, :] . X[col_tile*TB : col_tile*TB+TB, f0:f0+BN]
 //

@@ -30,6 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "dia_spmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sddmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "spmm_dvals": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

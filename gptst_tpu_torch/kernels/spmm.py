@@ -10,6 +10,9 @@ node axis with A stored in (TB x TB) blocks. Three representations:
   * `COOTail` — straggler edges in nearly empty blocks, a gather plus
     `index_add_` (`coo_matmul`).
 
+When the block values are learned (`kernels/sddmm.adaptive_support`),
+their gradient is `spmm_dvals`, run by `csrc/spmm_dvals.cu`.
+
 The host builders are numpy and give the same arrays as the JAX
 package's, including the 8 zero pad blocks `_pad_chunk` appends (the
 TPU kernels over-read in chunks; the CUDA kernel never reads them).
@@ -33,7 +36,7 @@ import torch
 from gptst_tpu_torch.utils.device import resolve_device
 
 # launches of each CUDA kernel since the last `reset_launch_counts()`
-LAUNCHES = {"bsr_spmm": 0, "dia_spmm": 0}
+LAUNCHES = {"bsr_spmm": 0, "dia_spmm": 0, "sddmm": 0, "spmm_dvals": 0}
 _TILES = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_F = 65535 * 64          # grid.y limit times the kernels' feature tile
@@ -297,24 +300,25 @@ def _spmm_impl(bcsr: BlockCSR, x: torch.Tensor) -> torch.Tensor:
     return _unfold(bsr_spmm(bcsr, _fold(x, bcsr.n)), x)
 
 
+def _row_tiles(t: torch.Tensor, n_pad: int, tile: int) -> torch.Tensor:
+    """(n, d) -> zero-padded (n_pad / tile, tile, d) f32 row tiles."""
+    pad = torch.zeros(n_pad, t.shape[1], dtype=torch.float32, device=t.device)
+    pad[: t.shape[0]] = t.float()
+    return pad.view(n_pad // tile, tile, -1)
+
+
 def spmm_dvals_plain(bcsr: BlockCSR, g: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
     """d block_vals[b] = dY[row tile b] @ X[col tile b]^T in f32, with
     the pad blocks zero. g, x: (..., N, C)."""
-    tb, rt = bcsr.tile, bcsr.row_tiles
+    rt = bcsr.row_tiles
     ptr = bcsr.block_ptr.long()
     nb = int(ptr[-1])
     rows = torch.repeat_interleave(
         torch.arange(rt, device=g.device), ptr.diff())
     cols = bcsr.block_cols[:nb].long()
-
-    def tiles(t):
-        flat = _fold(t, bcsr.n).float()
-        pad = torch.zeros(bcsr.n_pad, flat.shape[1], device=t.device)
-        pad[: bcsr.n] = flat
-        return pad.view(rt, tb, -1)
-
-    gt, xt = tiles(g), tiles(x)
+    gt, xt = (_row_tiles(_fold(t, bcsr.n), bcsr.n_pad, bcsr.tile)
+              for t in (g, x))
     out = torch.zeros(bcsr.block_vals.shape, dtype=torch.float32,
                       device=g.device)
     out[:nb] = torch.bmm(gt[rows], xt[cols].transpose(1, 2))
@@ -323,11 +327,43 @@ def spmm_dvals_plain(bcsr: BlockCSR, g: torch.Tensor,
 
 def spmm_dvals(bcsr: BlockCSR, g: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
+    """d block_vals (nnzb + 8, TB, TB) f32 for g, x (..., N, C), by the
+    CUDA kernel `csrc/spmm_dvals.cu`; the plain version for CPU
+    tensors."""
     if g.device.type == "cpu":
         return spmm_dvals_plain(bcsr, g, x)
-    raise NotImplementedError(
-        "d block_vals on the card needs the port of "
-        "gptst_tpu/kernels/spmm.py:_dvals_kernel (not ported yet)")
+    if g.device.type != "cuda":
+        raise ValueError(f"spmm_dvals: unsupported device {g.device}")
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} differ")
+    gf, xf = _fold(g, bcsr.n), _fold(x, bcsr.n)
+    if bcsr.tile not in _TILES:
+        raise ValueError(f"tile {bcsr.tile} not in {_TILES}")
+    vals, ptr, cols = bcsr.block_vals, bcsr.block_ptr, bcsr.block_cols
+    _check_same_device(gf, xf, ptr, cols)
+    if ptr.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise TypeError("block_ptr and block_cols must be int32")
+    if (ptr.shape != (bcsr.row_tiles + 1,) or vals.dim() != 3
+            or vals.shape[1:] != (bcsr.tile, bcsr.tile)
+            or cols.shape != vals.shape[:1]):
+        raise ValueError(f"block_ptr {tuple(ptr.shape)}, block_cols "
+                         f"{tuple(cols.shape)} and block_vals "
+                         f"{tuple(vals.shape)} do not fit the structure")
+    gcode = _dtype_code(gf, "g")
+    xcode = _dtype_code(xf, "x")
+    from gptst_tpu_torch.kernels.build import load
+
+    lib = load("spmm_dvals")
+    out = torch.empty(vals.shape, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.spmm_dvals(
+            ptr.data_ptr(), cols.data_ptr(), gf.data_ptr(), xf.data_ptr(),
+            out.data_ptr(), bcsr.n, gf.shape[1], bcsr.row_tiles,
+            vals.shape[0], bcsr.tile, gcode, xcode, stream)
+    _raise_on(err, "spmm_dvals")
+    LAUNCHES["spmm_dvals"] += 1
+    return out
 
 
 class _SpmmFn(torch.autograd.Function):

@@ -7,8 +7,8 @@ channels; `build_model` wraps it into the `ModelOutput` contract of a
 mode. Parameters are drawn on the host from a `torch.Generator` seeded
 with `seed` and then moved to `device`.
 
-Ported so far: `-mode ori` with TGCN. Other modes and predictors raise
-`NotImplementedError` naming the slice they wait for.
+Ported so far: `-mode ori` with TGCN and MSDR. Other modes and
+predictors raise `NotImplementedError` naming the slice they wait for.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from torch import nn
 from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.graph.artifacts import random_sensor_graph
 from gptst_tpu_torch.models.api import ModelOutput
-from gptst_tpu_torch.ops.graph_conv import make_support
+from gptst_tpu_torch.ops.graph_conv import SparseSupport, make_support
 from gptst_tpu_torch.utils.device import resolve_device
 
 
@@ -39,12 +39,13 @@ def load_base_adjacency(cfg: FrameworkConfig, seed: int = 0) -> np.ndarray:
     return random_sensor_graph(cfg.num_nodes, avg_degree=6, seed=seed)
 
 
-_PREDICTOR_CONFIGS = {"TGCN": ("tgcn", "TGCNConfig")}
+_PREDICTOR_CONFIGS = {"TGCN": ("tgcn", "TGCNConfig"),
+                      "MSDR": ("msdr", "MSDRConfig")}
 
 # predictors of the JAX package not ported yet, and the slice each one
 # waits for
 _LATER = {
-    "STGCN": "the STGCN slice", "MSDR": "the MSDR slice",
+    "STGCN": "the STGCN slice",
     **{m: "the slice of the remaining predictors"
        for m in ("GWN", "MTGNN", "CCRNN", "STMGCN", "ASTGCN", "STSGCN",
                  "STFGNN", "STGODE", "ST_WA", "DMVSTNET")},
@@ -162,15 +163,17 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
 
 
 class GraphPredictor(nn.Module):
-    """A predictor network bound to its constant graph support."""
+    """A predictor network bound to its constant graph arguments (the
+    support, or MSDR's static supports and learned-adjacency
+    pattern)."""
 
-    def __init__(self, net: nn.Module, support):
+    def __init__(self, net: nn.Module, *graph):
         super().__init__()
         self.net = net
-        self.support = support
+        self.graph = graph
 
     def forward(self, x_base: torch.Tensor, y=None, step=None):
-        return self.net(x_base, self.support)
+        return self.net(x_base, *self.graph)
 
 
 # --- registrations ----------------------------------------------------------
@@ -186,3 +189,43 @@ def _build_tgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = TGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                horizon=cfg.horizon, generator=generator).to(device)
     return GraphPredictor(net, support)
+
+
+def msdr_adapt_pattern(mat0: np.ndarray, num_nodes: int, device="cuda"):
+    """SDDMM pattern of MSDR's learned adjacency, from the first static
+    support's edge list in ORIGINAL node order, with the pattern's own
+    128 tile. The static supports may carry an RCM permutation, but the
+    model's activations are in dataset order and `adaptive_support`
+    returns an unpermuted support, so a pattern lifted from a permuted
+    `supports[0].bcsr` would connect the wrong node pairs (and that
+    bcsr is a placeholder when a DIA band takes the block part).
+    Straggler-block edges are left out, as in the hybrid split."""
+    from gptst_tpu_torch.kernels.sddmm import SDDMMPattern
+    from gptst_tpu_torch.kernels.spmm import BlockCSR, coo_split_mask
+
+    m0 = np.asarray(mat0)
+    rows, cols = np.nonzero(m0)
+    mk = coo_split_mask(rows, cols, num_nodes)
+    return SDDMMPattern.from_bcsr(BlockCSR.from_coo(
+        rows[mk], cols[mk], m0[rows, cols][mk], num_nodes, device=device))
+
+
+@register_model("MSDR")
+def _build_msdr(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.models.predictors.msdr import (
+        MSDR, MSDRConfig, dual_random_walk_supports,
+    )
+
+    pcfg = make_predictor_config(MSDRConfig, cfg, num_nodes=cfg.num_nodes)
+    mats = dual_random_walk_supports(adj)
+    supports = tuple(make_support(s, device=device) for s in mats)
+    # above the dense threshold the learned adjacency cannot be dense
+    # (softmax(relu(E1 E2)) is O(N^2) memory): it is restricted to the
+    # static graph's block pattern through the SDDMM path
+    pattern = None
+    if isinstance(supports[0], SparseSupport):
+        pattern = msdr_adapt_pattern(mats[0], cfg.num_nodes, device)
+    net = MSDR(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+               num_supports=len(supports), generator=generator).to(device)
+    return GraphPredictor(net, supports, pattern)

@@ -3,6 +3,7 @@
 Usage:
 
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model TGCN
+  python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model MSDR
   python -m gptst_tpu_torch.run ... -device cpu      # no card needed
 
 Single-hyphen flags override the framework config (any FrameworkConfig
@@ -14,8 +15,9 @@ the device (default `cuda`; raises when no card is present) and
 `-metrics_out` writes the final report as JSON.
 
 Flow: config -> seed -> dataset -> model -> trainer. The port runs
-`-mode ori` with TGCN; other modes and predictors raise
-`NotImplementedError` naming the slice they wait for.
+`-mode ori` with TGCN and MSDR (above 4096 nodes MSDR's learned
+adjacency is sparse: `kernels/sddmm.adaptive_support`); other modes and
+predictors raise `NotImplementedError` naming the slice they wait for.
 """
 
 from __future__ import annotations

@@ -9,7 +9,9 @@ JAX) must be left out:
 
 Tolerances: f32 rtol/atol 1e-5 (the kernel sums the blocks in another
 order than the plain version's batched products); a bf16 output may
-differ by one bf16 rounding (rtol 2^-7).
+differ by one bf16 rounding (rtol 2^-7). `sddmm` and `spmm_dvals`
+write f32 whatever their inputs' dtype; `spmm_dvals` sums up to ~1000
+products per slot, hence its atol 1e-4.
 """
 
 import dataclasses
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from gptst_tpu_torch.kernels import sddmm as S
 from gptst_tpu_torch.kernels import spmm as K
 from gptst_tpu_torch.ops.graph_conv import graph_matmul, make_support
 
@@ -137,5 +140,144 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(card):
         K.bsr_spmm(a, x[:30].contiguous())                   # wrong n
     with pytest.raises(ValueError):
         K.bsr_spmm(dataclasses.replace(a, block_vals=a.block_vals.cpu()), x)
-    with pytest.raises(NotImplementedError):
-        K.spmm_dvals(a, x, x)
+    # d block_vals: a kernel now, with the same checks
+    assert K.spmm_dvals(a, x, x).shape == a.block_vals.shape
+    with pytest.raises(TypeError):
+        K.spmm_dvals(a, x.double(), x.double())
+    with pytest.raises(ValueError):
+        K.spmm_dvals(a, x, x[:, :4])                         # g, x differ
+    with pytest.raises(ValueError):
+        K.spmm_dvals(a, x[:30], x[:30])                      # wrong n
+    with pytest.raises(ValueError):
+        K.spmm_dvals(dataclasses.replace(a, block_cols=a.block_cols.cpu()),
+                     x, x)
+    p = S.SDDMMPattern.from_bcsr(a)
+    e1, e2 = torch.randn(40, 10, device=card), torch.randn(10, 40, device=card)
+    assert S.sddmm_blocks(p, e1, e2).shape == a.block_vals.shape
+    with pytest.raises(TypeError):
+        S.sddmm_blocks(p, e1.double(), e2)
+    with pytest.raises(ValueError):
+        S.sddmm_blocks(p, e1, e2[:, :30])                    # wrong e2
+    with pytest.raises(ValueError):
+        S.sddmm_blocks(p, e2.t(), e2)                        # not contiguous
+    with pytest.raises(ValueError):
+        S.sddmm_blocks(dataclasses.replace(p, mask=p.mask.cpu()), e1, e2)
+
+
+def _pattern(n, tile, seed, device):
+    """An SDDMM pattern over a random sparse graph of n nodes (ragged
+    last tile, several blocks per row tile)."""
+    adj = _graph(n, seed, density=0.03)
+    return S.SDDMMPattern.from_bcsr(K.BlockCSR.from_dense(adj, tile,
+                                                          device=device))
+
+
+@pytest.mark.parametrize("tile,n,d", [(16, 150, 3), (64, 200, 10),
+                                      (128, 300, 10), (128, 260, 20)])
+def test_cuda_sddmm_matches_plain(card, tile, n, d):
+    """f32 and bf16 e1/e2 (the output is f32 either way), ragged N, a
+    rank below and above the kernel's 16-wide slice; pad blocks zero."""
+    p = _pattern(n, tile, seed=21, device=card)
+    e1, e2 = torch.randn(n, d, device=card), torch.randn(d, n, device=card)
+    for t1 in (torch.float32, torch.bfloat16):
+        for t2 in (torch.float32, torch.bfloat16):
+            a, b = e1.to(t1), e2.to(t2)
+            before = K.LAUNCHES["sddmm"]
+            got = S.sddmm_blocks(p, a, b)
+            assert K.LAUNCHES["sddmm"] == before + 1
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, S.sddmm_plain(p, a, b),
+                                       **TOL[torch.float32])
+            assert not got[-8:].any()
+
+
+def test_cuda_sddmm_nan_survives_the_mask(card):
+    """The product is multiplied by the mask, not selected with it: a NaN
+    in e1 reaches every slot of its row in the blocks of its row tile,
+    masked slots included, as in the plain version."""
+    n, tile = 150, 16
+    p = _pattern(n, tile, seed=22, device=card)
+    e1, e2 = torch.randn(n, 10, device=card), torch.randn(10, n, device=card)
+    e1[37, 4] = float("nan")
+    got = S.sddmm_blocks(p, e1, e2)
+    want = S.sddmm_plain(p, e1, e2)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    in_row = p.row_ids == 37 // tile
+    assert bool(torch.isnan(got[in_row][:, 37 % tile]).all())
+    assert not torch.isnan(got[~in_row]).any()
+    fin = ~torch.isnan(want)
+    torch.testing.assert_close(got[fin], want[fin], **TOL[torch.float32])
+
+
+# d block_vals sums F products of N(0, 1) values in another order than
+# the plain version's batched product: atol 1e-4 at F up to 1030
+DVALS_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("tile,n,f", [(16, 150, 7), (64, 200, 130),
+                                      (128, 300, 1030)])
+def test_cuda_spmm_dvals_matches_plain(card, tile, n, f):
+    """Ragged N and F, f32 and bf16 g and x, pad blocks zero."""
+    a = K.BlockCSR.from_dense(_graph(n, seed=23, density=0.03), tile,
+                              device=card)
+    g, x = torch.randn(n, f, device=card), torch.randn(n, f, device=card)
+    for tg in (torch.float32, torch.bfloat16):
+        for tx in (torch.float32, torch.bfloat16):
+            gd, xd = g.to(tg), x.to(tx)
+            before = K.LAUNCHES["spmm_dvals"]
+            got = K.spmm_dvals(a, gd, xd)
+            assert K.LAUNCHES["spmm_dvals"] == before + 1
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, K.spmm_dvals_plain(a, gd, xd),
+                                       **DVALS_TOL)
+            assert not got[a.nnzb_logical:].any()
+
+
+def test_cuda_spmm_dvals_nan_reaches_its_column_tile(card):
+    """A NaN in x at node r reaches column r % TB of exactly the blocks
+    whose column tile holds r; the pad blocks stay zero."""
+    n, tile, r = 150, 16, 70
+    a = K.BlockCSR.from_dense(_graph(n, seed=24, density=0.05), tile,
+                              device=card)
+    g, x = torch.randn(2, n, 5, device=card), torch.randn(2, n, 5, device=card)
+    x[1, r, 2] = float("nan")
+    got = K.spmm_dvals(a, g, x)
+    want = K.spmm_dvals_plain(a, g, x)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    nb = a.nnzb_logical
+    hit = a.block_cols[:nb] == r // tile
+    assert bool(hit.any())
+    assert bool(torch.isnan(got[:nb][hit][:, :, r % tile]).all())
+    assert int(torch.isnan(got).sum()) == int(hit.sum()) * tile
+    assert not got[nb:].any()
+
+
+def test_cuda_adaptive_support_matches_cpu(card):
+    """softmax(relu(E1 E2)) on a pattern, aggregated, and its gradients to
+    E1 and E2 (through `spmm_dvals` and the SDDMM backward), on the card
+    against the CPU."""
+    n, tile = 200, 32
+    rng = np.random.default_rng(25)
+    e1 = rng.standard_normal((n, 10)).astype(np.float32)
+    e2 = rng.standard_normal((10, n)).astype(np.float32)
+    x = rng.standard_normal((2, n, 6)).astype(np.float32)
+    g = rng.standard_normal((2, n, 6)).astype(np.float32)
+    adj = _graph(n, seed=26, density=0.03) + np.eye(n, dtype=np.float32)
+    out = {}
+    for dev in ("cpu", card):
+        p = S.SDDMMPattern.from_bcsr(K.BlockCSR.from_dense(adj, tile,
+                                                           device=dev))
+        t1 = torch.tensor(e1, device=dev, requires_grad=True)
+        t2 = torch.tensor(e2, device=dev, requires_grad=True)
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        before = dict(K.LAUNCHES)
+        y = graph_matmul(S.adaptive_support(p, t1, t2), xt)
+        y.backward(torch.tensor(g, device=dev))
+        runs = {k: K.LAUNCHES[k] - before[k]
+                for k in ("sddmm", "spmm_dvals", "bsr_spmm")}
+        assert runs == ({"sddmm": 1, "spmm_dvals": 1, "bsr_spmm": 2}
+                        if dev == card else dict.fromkeys(runs, 0))
+        out[str(dev)] = [y.detach().cpu()] + [
+            t.grad.cpu() for t in (t1, t2, xt)]
+    for got, want in zip(out[str(card)], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

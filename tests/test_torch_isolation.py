@@ -29,6 +29,22 @@ sup = make_support(sym_adj(random_sensor_graph(40, seed=1)),
 net = TGCN(TGCNConfig(num_nodes=40, rnn_units=4), 1, 1, 12)
 out = net(torch.zeros(2, 12, 40, 1), sup)
 assert out.shape == (2, 12, 40, 1)
+from gptst_tpu_torch.models.build import msdr_adapt_pattern
+from gptst_tpu_torch.models.predictors.msdr import (
+    MSDR, MSDRConfig, dual_random_walk_supports)
+from gptst_tpu_torch.kernels.sddmm import SDDMMPattern, adaptive_support
+from gptst_tpu_torch.kernels.spmm import BlockCSR
+mats = dual_random_walk_supports(random_sensor_graph(40, seed=1))
+sups = tuple(make_support(m, dense_threshold=0, tile=16, device="cpu")
+             for m in mats)
+pat = SDDMMPattern.from_bcsr(BlockCSR.from_dense(mats[0], 16, device="cpu"))
+adp = adaptive_support(pat, torch.randn(40, 3), torch.randn(3, 40))
+assert adp.bcsr.block_vals.shape == pat.mask.shape
+assert msdr_adapt_pattern(mats[0], 40, device="cpu").tile == 128
+msdr = MSDR(MSDRConfig(num_nodes=40, rnn_units=4, adapt_rank=3), 1, 1)
+out = msdr(torch.zeros(2, 12, 40, 1), sups, pat)
+out.sum().backward()
+assert out.shape == (2, 12, 40, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN})
 print("LOADED", bad)
