@@ -25,6 +25,16 @@ Phases, one JSON line each; any failure exits non-zero:
              pad blocks zero, a NaN in x. Times the kernel, the plain
              version and `torch.sparse.sampled_addmm` on every slot of
              the stored blocks (and, labelled, on the pattern entries).
+  ring       `make_fused_ring_spmm` (`ring_spmm`) on P ranks of cuda:0: the
+             main path at TGCN's batch-major width (F = 16 x 101) on the
+             CLI graph, 4 ranks; `scripts/halo_bench.py`'s default (4096
+             nodes, F = 128, P = 2 and 8) and `dryrun_multichip`'s shape
+             (172 nodes, F = 64, P = 4). f32, bf16 and NaN x against the
+             plain version; P^2 launches per call. Times the ring call,
+             its P^2 kernels without the copies, the plain version, the
+             port's `make_ring_spmm` and `torch.matmul` of the dense
+             padded adjacency. With 2 or more cards the main case runs
+             again with one rank per card.
   cli        `python -m gptst_tpu_torch.run -mode ori -model TGCN` at
              16,384 nodes from a PEMS08.npz of that size written into a
              temporary directory: the block-CSR main path.
@@ -35,14 +45,22 @@ Phases, one JSON line each; any failure exits non-zero:
              (`bsr_spmm`, `sddmm`, `spmm_dvals`).
   msdr_model MSDR train steps through the library on the road graph
              (DIA static supports, the 382-block pattern).
-  profile    `torch.profiler` over 2 TGCN train steps on each graph and
+  sharded_model
+             TGCN train steps with node-sharded aggregation on 4 ranks
+             of cuda:0: the CLI graph through `build_model(cfg,
+             mesh=...)`, the road graph through `partition_graph_coo`
+             (both the boundary halo exchange); the road graph's losses
+             against `dia_model`'s.
+  profile    `torch.profiler` over 2 TGCN train steps on each graph (and
+             on the CLI graph's halo support) and
              2 MSDR train steps on the CLI graph: device time by kernel
              group and the device busy share.
   reference  a small ragged graph (1000 nodes) with and without RCM
              (DIA and block-CSR): the TGCN and MSDR (learned sparse
              adjacency, random nonzero weights) forward and gradients
              with the kernels on the card against the plain versions on
-             the CPU.
+             the CPU; TGCN at 1002 nodes through a halo and a ring
+             `ShardedSupport` on 4 ranks of the card against 4 CPU ranks.
 
 Before the last line: one JSON object with every kernel's launches on
 its main path, error, times and bound, and the card's name and power
@@ -65,8 +83,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("build", "bsr", "dia", "sddmm", "dvals", "cli", "dia_model",
-          "msdr_cli", "msdr_model", "profile", "reference")
+PHASES = ("build", "bsr", "dia", "sddmm", "dvals", "ring", "cli",
+          "dia_model", "msdr_cli", "msdr_model", "sharded_model", "profile",
+          "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores and
 # HBM3 bandwidth
@@ -80,6 +99,9 @@ F_NARROW = BATCH * 1            # the x aggregation (input_base_dim 1)
 # MSDR at its published width: rnn_units 64, so z = [x ‖ h] is 128 wide
 MSDR_BATCH = 8
 F_MSDR = MSDR_BATCH * 128       # every aggregation of an MSDR step
+# TGCN's batch-major aggregation, the width of the node-sharded path:
+# batch 16 x [x ‖ h] = 16 x (1 + 100)
+F_RING = BATCH * (1 + UNITS)
 ADAPT_RANK = 10
 
 # rtol of a bf16 output: a different summation order may flip the
@@ -277,8 +299,10 @@ def phase_bsr(rec: dict) -> None:
     from gptst_tpu_torch.kernels import spmm as K
     from gptst_tpu_torch.ops.graph_conv import SparseSupport, make_support
 
-    sup = make_support(sym_adj(random_sensor_graph(N_BIG, avg_degree=6,
-                                                   seed=0)), device="cuda")
+    # the graph the CLI synthesizes at 16,384 nodes; later phases reuse it
+    rec["_cli_base"] = random_sensor_graph(N_BIG, avg_degree=6, seed=0)
+    rec["_cli_sym"] = sym_adj(rec["_cli_base"])
+    sup = make_support(rec["_cli_sym"], device="cuda")
     assert isinstance(sup, SparseSupport) and sup.dia is None
     rec["_supports"] = {"cli_graph": sup}
     a = sup.bcsr
@@ -542,6 +566,187 @@ def phase_dvals(rec: dict) -> None:
     emit("dvals", case="fold", shape=list(z.shape), **rec["_fold_ms"])
 
 
+def ring_kernels_only(R, a_rot, bufs, accs, outs, streams) -> None:
+    """The P^2 step kernels of one ring call on the same per-rank
+    streams, without the copies and their events."""
+    import torch
+
+    cur = torch.cuda.current_stream()
+    parts = len(a_rot)
+    for p in range(parts):
+        streams[p].wait_stream(cur)
+        with torch.cuda.stream(streams[p]):
+            for s in range(parts):
+                R.ring_step(a_rot[p], s, bufs[p][s % 2], accs[p],
+                            outs[p] if s == parts - 1 else None)
+    for p in range(parts):
+        cur.wait_stream(streams[p])
+
+
+def ring_case(rec: dict, name: str, adj, feat: int, parts: int,
+              main: bool = False) -> dict:
+    """`make_fused_ring_spmm` on P ranks of cuda:0: f32, bf16 and NaN x
+    against the plain version on the card, then the timings. With
+    `main`, the first call is the main path's, counted alone."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.kernels import halo_spmm as R
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.parallel.halo import (
+        make_ring_spmm, partition_adjacency,
+    )
+    from gptst_tpu_torch.parallel.mesh import (
+        gather_rows, make_mesh, shard_rows,
+    )
+
+    mesh = make_mesh(devices=["cuda:0"] * parts, graph_axis_size=parts)
+    fn, n_pad = R.make_fused_ring_spmm(mesh, adj, feat)
+    n_loc = n_pad // parts
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(n_pad, feat, device="cuda", generator=gen)
+    x[adj.shape[0]:] = 0.0
+    xs = shard_rows(x, mesh)
+    line = {"case": name, "n": adj.shape[0], "n_pad": n_pad, "feat": feat,
+            "parts": parts}
+    if main:
+        reset_launch_counts()
+        got = fn(xs)
+        torch.cuda.synchronize()
+        line["launches"] = LAUNCHES["ring_spmm"]
+        assert dict(LAUNCHES, ring_spmm=0) == dict.fromkeys(LAUNCHES, 0)
+    else:
+        got = fn(xs)
+    blocks = R._rotate_blocks(partition_adjacency(adj, parts))
+    a_rot = [torch.as_tensor(b, device="cuda") for b in blocks]
+    del blocks
+    errs = {"f32": compare(gather_rows(got, x.device),
+                           gather_rows(R.ring_spmm_plain(a_rot, xs), x.device),
+                           "f32")}
+    xb = shard_rows(x.bfloat16(), mesh)
+    before = LAUNCHES["ring_spmm"]
+    gb = fn(xb)
+    assert LAUNCHES["ring_spmm"] - before == parts * parts
+    assert all(g.dtype == torch.bfloat16 for g in gb)
+    errs["bf16"] = compare(gather_rows(gb, x.device),
+                           gather_rows(R.ring_spmm_plain(a_rot, xb), x.device),
+                           "bf16")
+    # a NaN in one x row reaches every output row of its column, on every
+    # rank: the kernel multiplies dense blocks, zeros included
+    xn = x.clone()
+    xn[n_pad // 3, feat // 2] = float("nan")
+    xns = shard_rows(xn, mesh)
+    gn = gather_rows(fn(xns), x.device)
+    compare(gn, gather_rows(R.ring_spmm_plain(a_rot, xns), x.device), "f32")
+    nan = torch.isnan(gn)
+    assert bool(nan[:, feat // 2].all()) and int(nan.sum()) == n_pad
+    line.update(max_abs_err=errs, nan_rows=int(nan.any(dim=1).sum()),
+                tol={k: dict(zip(("rtol", "atol"), TOL[k])) for k in errs})
+
+    # timings (CUDA events, median of 20)
+    bufs = [torch.zeros(2, n_loc, feat, device="cuda") for _ in range(parts)]
+    accs = [torch.zeros(n_loc, feat, device="cuda") for _ in range(parts)]
+    outs = [torch.zeros(n_loc, feat, device="cuda") for _ in range(parts)]
+    streams = [torch.cuda.Stream() for _ in range(parts)]
+    ring_fn, _ = make_ring_spmm(mesh, adj)
+    a_pad = torch.zeros(n_pad, n_pad, device="cuda")
+    a_pad[:adj.shape[0], :adj.shape[0]] = torch.as_tensor(
+        np.asarray(adj, np.float32), device="cuda")
+    line.update(
+        ms=time_ms(lambda: fn(xs)),
+        kernels_only_ms=time_ms(lambda: ring_kernels_only(
+            R, a_rot, bufs, accs, outs, streams)),
+        plain_ms=time_ms(lambda: R.ring_spmm_plain(a_rot, xs)),
+        make_ring_spmm_ms=time_ms(lambda: ring_fn(x)),
+        library_ms=time_ms(lambda: torch.matmul(a_pad, x)))
+    torch.testing.assert_close(ring_fn(x), torch.matmul(a_pad, x),
+                               rtol=1e-5, atol=1e-5)
+    # the work the function does: dense blocks, 2 n_pad^2 F FLOPs; its
+    # bytes: the blocks, x and out once, and each of the P (P - 1) shard
+    # copies read and written once
+    flops = 2 * n_pad * n_pad * feat
+    nbytes = (n_pad * n_pad * 4 + 2 * n_pad * feat * 4
+              + 2 * parts * (parts - 1) * n_loc * feat * 4)
+    line.update(flops=flops, bytes=nbytes, **bound(flops, nbytes),
+                achieved_tflops=flops / line["ms"] / 1e9,
+                kernels_only_tflops=flops / line["kernels_only_ms"] / 1e9)
+    emit("ring", **line)
+    del a_rot, a_pad
+    torch.cuda.empty_cache()
+    return line
+
+
+def ring_distinct_cards(rec: dict) -> None:
+    """The 16,384-node case once more with one rank per card, when there
+    are at least 2 cards: against the same ring on ranks of cuda:0, and
+    timed on the host clock (median of 20 calls, each followed by a
+    synchronize of every card)."""
+    import torch
+
+    from gptst_tpu_torch.kernels import halo_spmm as R
+    from gptst_tpu_torch.parallel.mesh import (
+        gather_rows, make_mesh, shard_rows,
+    )
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("ring", case="distinct_cards", cards=count,
+             run=False, why="one card visible")
+        return
+    parts = min(4, count)
+    adj = rec["_cli_sym"]
+    devs = [f"cuda:{i}" for i in range(parts)]
+    mesh = make_mesh(devices=devs, graph_axis_size=parts)
+    one = make_mesh(devices=["cuda:0"] * parts, graph_axis_size=parts)
+    fn, n_pad = R.make_fused_ring_spmm(mesh, adj, F_RING)
+    ref, _ = R.make_fused_ring_spmm(one, adj, F_RING)
+    x = torch.randn(n_pad, F_RING, device="cuda:0")
+    xs = shard_rows(x, mesh)
+    err = compare(gather_rows(fn(xs), x.device),
+                  gather_rows(ref(shard_rows(x, one)), x.device), "f32")
+    del ref
+
+    def call():
+        fn(xs)
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    for _ in range(3):
+        call()
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    emit("ring", case="distinct_cards", cards=parts, run=True,
+         max_abs_err=err, host_ms=statistics.median(times))
+
+
+def phase_ring(rec: dict) -> None:
+    """The fused ring at TGCN's batch-major width on the CLI graph (the
+    main path), at `scripts/halo_bench.py`'s default and at
+    `dryrun_multichip`'s shape."""
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
+
+    main = ring_case(rec, "tgcn_cli_graph", rec["_cli_sym"], F_RING, 4,
+                     main=True)
+    assert main["launches"] == 16, main
+    bench = sym_adj(random_sensor_graph(4096, avg_degree=8, seed=0))
+    for parts in (2, 8):
+        ring_case(rec, f"halo_bench_P{parts}", bench, 128, parts)
+    ring_case(rec, "dryrun_multichip",
+              sym_adj(random_sensor_graph(172, avg_degree=6, seed=0)), 64, 4)
+    ring_distinct_cards(rec)
+    rec["ring_spmm"] = dict(
+        name="ring_spmm", route="cuda",
+        source="gptst_tpu_torch/csrc/ring_spmm.cu",
+        replaces="gptst_tpu/kernels/halo_spmm.py:39 (_ring_kernel, "
+                 "called at :112)",
+        launches=main["launches"], max_abs_err=main["max_abs_err"]["f32"],
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")})
+
+
 def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
     """`gptst_tpu_torch.run.main` with `-mode ori -model <model>` at
     16,384 nodes from a PEMS08.npz of that size and `num_steps` time
@@ -655,28 +860,36 @@ def msdr_net():
                 generator=torch.Generator().manual_seed(0)).to("cuda")
 
 
-def train_steps(model: str, net, graph: tuple, batch: int, warm: int,
+def bind(model: str, net, graph: tuple):
+    """`net` bound to its graph arguments in the ori-mode contract, as
+    `models/build.py` binds them."""
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import GraphPredictor, predictor_forward
+
+    return predictor_forward(default_config("PEMS08", mode="ori", model=model),
+                             GraphPredictor(net, *graph))
+
+
+def train_steps(model: str, forward, batch: int, warm: int,
                 steps: int, trace: str | None = None):
-    """Train steps of `net` (TGCN or MSDR) bound to its graph arguments,
-    through the port's library, on random data from seed 0. Returns the
-    losses, ms per timed step, the kernel launches of all steps, and
-    (with `trace`) the timed steps' profiler trace."""
+    """Train steps of a `model` (TGCN or MSDR) module in the ori-mode
+    contract, through the port's library, on random data from seed 0.
+    Returns the losses, ms per timed step, the kernel launches of all
+    steps, and (with `trace`) the timed steps' profiler trace."""
     import numpy as np
     import torch
 
     from gptst_tpu_torch.config.config import default_config
     from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
-    from gptst_tpu_torch.models.build import GraphPredictor, predictor_forward
     from gptst_tpu_torch.train.loss import build_loss
     from gptst_tpu_torch.train.step import make_loss_terms, train_step
     from gptst_tpu_torch.train.trainer import make_optimizer
 
     cfg = default_config("PEMS08", mode="ori", model=model,
                          num_nodes=N_BIG, batch_size=batch, lr_decay=False)
-    model = predictor_forward(cfg, GraphPredictor(net, *graph))
-    opt = make_optimizer(cfg, model.parameters(), steps_per_epoch=10)
+    opt = make_optimizer(cfg, forward.parameters(), steps_per_epoch=10)
     loss_terms = make_loss_terms(
-        model, build_loss("mask_mae", 200.0, 100.0, 0.0, False), cfg)
+        forward, build_loss("mask_mae", 200.0, 100.0, 0.0, False), cfg)
     rng = np.random.default_rng(0)
     shape = (batch, cfg.lag, N_BIG, 3)
     x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
@@ -710,10 +923,11 @@ def phase_dia_model(rec: dict) -> None:
     rec["_supports"]["road_graph"] = sup
     torch.cuda.reset_peak_memory_stats()
     warm, steps = 2, 5
-    losses, ms, launches = train_steps("TGCN", tgcn_net(), (sup,), BATCH,
-                                       warm, steps)
+    losses, ms, launches = train_steps(
+        "TGCN", bind("TGCN", tgcn_net(), (sup,)), BATCH, warm, steps)
     assert launches["dia_spmm"] > 0 and launches["bsr_spmm"] == 0, launches
     rec["dia_spmm"]["launches"] = launches["dia_spmm"]
+    rec["_road_losses"] = losses
     emit("dia_model", nodes=N_BIG, batch=BATCH, rnn_units=UNITS,
          steps=warm + steps, ms_per_step=ms, samples_per_s=BATCH / ms * 1e3,
          losses=losses,
@@ -728,8 +942,9 @@ def phase_msdr_model(rec: dict) -> None:
     sups, pat = rec["_msdr"]["road_graph"]
     torch.cuda.reset_peak_memory_stats()
     warm, steps = 2, 3
-    losses, ms, launches = train_steps("MSDR", msdr_net(), (sups, pat),
-                                       MSDR_BATCH, warm, steps)
+    losses, ms, launches = train_steps(
+        "MSDR", bind("MSDR", msdr_net(), (sups, pat)), MSDR_BATCH, warm,
+        steps)
     for k in ("dia_spmm", "bsr_spmm", "sddmm", "spmm_dvals"):
         assert launches[k] > 0, launches
     emit("msdr_model", graph="road_graph_edges(16384, 16, 48)",
@@ -741,6 +956,73 @@ def phase_msdr_model(rec: dict) -> None:
          launches=launches,
          launches_per_step={k: v / (warm + steps)
                             for k, v in launches.items()})
+
+
+def phase_sharded_model(rec: dict) -> None:
+    """TGCN train steps with node-sharded aggregation on 4 ranks of
+    cuda:0: the CLI graph through `build_model(cfg, mesh=...)`, the road
+    graph through a `partition_graph_coo` partition. Both take the
+    boundary halo exchange. On the road graph the same weights, data and
+    optimizer as `dia_model` (one card, the `dia_spmm` support of the
+    same matrix) must give its losses: rtol 2e-5, as the CPU tests hold
+    loss trajectories."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import build_model
+    from gptst_tpu_torch.ops.graph_conv import (
+        ShardedSupport, make_sharded_support,
+    )
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    from gptst_tpu_torch.graph import partition as P
+
+    mesh = make_mesh(devices=["cuda:0"] * 4, graph_axis_size=4)
+    cfg = default_config("PEMS08", mode="ori", model="TGCN", num_nodes=N_BIG,
+                         batch_size=BATCH, lr_decay=False)
+    # the statistics `make_sharded_support` chooses the path by
+    seen, stats_fn = [], P.partition_stats
+    P.partition_stats = lambda part: seen.append(stats_fn(part)) or seen[-1]
+    t0 = time.perf_counter()
+    try:
+        cli = build_model(cfg, adj=rec["_cli_base"], device="cuda", mesh=mesh)
+    finally:
+        P.partition_stats = stats_fn
+    cli_build = time.perf_counter() - t0
+    rows, cols = road_graph_edges(N_BIG, 16, 48)
+    r = np.concatenate([rows, np.arange(N_BIG)])
+    c = np.concatenate([cols, np.arange(N_BIG)])
+    deg = np.bincount(r, minlength=N_BIG).astype(np.float64)
+    vals = (1.0 / np.sqrt(deg[r] * deg[c])).astype(np.float32)
+    t0 = time.perf_counter()
+    part = P.partition_graph_coo(r, c, vals, N_BIG, 4)
+    road_sup = make_sharded_support(None, mesh, part=part)
+    road_build = time.perf_counter() - t0
+    (cli_stats,) = seen
+    runs = [("cli_graph", cli, cli_build, cli_stats),
+            ("road_graph", bind("TGCN", tgcn_net(), (road_sup,)), road_build,
+             P.partition_stats(part))]
+    for name, model, build_s, stats in runs:
+        (sup,) = model.predictor.graph
+        assert isinstance(sup, ShardedSupport) and sup.kind == "halo", sup
+        torch.cuda.reset_peak_memory_stats()
+        warm, steps = 1, 2
+        losses, ms, launches = train_steps("TGCN", model, BATCH, warm, steps)
+        assert not any(launches.values()), launches  # torch.matmul only
+        if name == "road_graph":
+            np.testing.assert_allclose(
+                losses, rec["_road_losses"][:len(losses)], rtol=2e-5)
+        else:
+            rec["_sharded_cli"] = sup
+        emit("sharded_model", graph=name, nodes=N_BIG, batch=BATCH,
+             rnn_units=UNITS, ranks=["cuda:0"] * 4, kind=sup.kind,
+             n_pad=sup.n_pad, partition=stats, build_s=build_s,
+             steps=warm + steps, ms_per_step=ms,
+             samples_per_s=BATCH / ms * 1e3, losses=losses,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        del model, sup
+    torch.cuda.empty_cache()
 
 
 # kernel-name fragments -> what they are on the TGCN and MSDR steps
@@ -758,16 +1040,18 @@ KERNEL_GROUPS = (
 def phase_profile(rec: dict) -> None:
     """Device time by kernel group and device busy share of 2 profiled
     train steps (after 1 warm-up step): TGCN on each graph, MSDR on the
-    CLI graph."""
+    CLI graph, TGCN on the CLI graph's halo support on 4 ranks."""
     os.makedirs(OUT_DIR, exist_ok=True)
     runs = [(f"tgcn_{name}", "TGCN", tgcn_net, (sup,), BATCH)
             for name, sup in rec["_supports"].items()]
     runs.append(("msdr_cli_graph", "MSDR", msdr_net,
                  rec["_msdr"]["cli_graph"], MSDR_BATCH))
+    runs.append(("tgcn_sharded_cli_graph", "TGCN", tgcn_net,
+                 (rec.pop("_sharded_cli"),), BATCH))
     for name, model, make_net, graph, batch in runs:
         path = os.path.join(OUT_DIR, f"trace_{name}.json")
-        _, ms, _ = train_steps(model, make_net(), graph, batch, 1, 2,
-                               trace=path)
+        _, ms, _ = train_steps(model, bind(model, make_net(), graph), batch,
+                               1, 2, trace=path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         kern = [e for e in events if e.get("ph") == "X"
@@ -786,12 +1070,25 @@ def phase_profile(rec: dict) -> None:
 
 def reference_grads(make_net, graph_on, x, dev: str) -> dict:
     """The prediction and every parameter gradient of mean(pred^2), by
-    name, with the network and its graph on `dev`."""
-    net = make_net().to(dev)
-    pred = net(x.to(dev), *graph_on(dev))
-    pred.square().mean().backward()
-    return {"pred": pred.detach().cpu(), **{
-        k: p.grad.cpu() for k, p in net.named_parameters()}}
+    name, with the network and its graph on `dev`. On the card under
+    `torch.use_deterministic_algorithms`: `index_add_` (the COO tails,
+    the SDDMM backward, the gathers' backward) then sums in a fixed
+    order instead of by float atomics, so a run's errors repeat. With
+    atomics, a run on an H100 put 4 of MSDR's 64,000 encoder.0.b
+    gradient entries 7.5e-7 from the CPU's, against 4.9e-7 allowed."""
+    import torch
+
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        net = make_net().to(dev)
+        pred = net(x.to(dev), *graph_on(dev))
+        pred.square().mean().backward()
+        return {"pred": pred.detach().cpu(), **{
+            k: p.grad.cpu() for k, p in net.named_parameters()}}
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
 
 
 def phase_reference(rec: dict) -> None:
@@ -878,6 +1175,61 @@ def phase_reference(rec: dict) -> None:
                  tol={"rtol": 1e-4, "atol": "1e-4" if model == "TGCN"
                       else "1e-4 * max|want| + 1e-7 (att_b: 1e-5)"})
     assert {"dia_spmm", "bsr_spmm", "sddmm", "spmm_dvals"} <= paths, paths
+    reference_sharded(b)
+
+
+def reference_sharded(b: int) -> None:
+    """TGCN through node-sharded supports (the boundary halo exchange
+    and the ring) on 4 ranks of the card against 4 ranks of the CPU, at
+    a ragged node count (1,002 nodes, padded to 1,004): rtol/atol 1e-4,
+    as the unsharded TGCN reference."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
+    from gptst_tpu_torch.models.predictors.tgcn import TGCN, TGCNConfig
+    from gptst_tpu_torch.ops.graph_conv import (
+        ShardedSupport, make_sharded_support,
+    )
+    from gptst_tpu_torch.parallel.halo import make_ring_spmm
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    n, ranks = 1002, 4
+    adj = sym_adj(random_sensor_graph(n, avg_degree=6, seed=4))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((b, 12, n, 1), np.float32))
+    tgcn = TGCN(TGCNConfig(num_nodes=n), dim_in=1, dim_out=1, horizon=12,
+                generator=torch.Generator().manual_seed(1))
+
+    def sharded_on(kind):
+        def graph_on(dev):
+            mesh = make_mesh(devices=[dev] * ranks, graph_axis_size=ranks)
+            if kind == "halo":
+                sup = make_sharded_support(adj, mesh)
+            else:
+                fn, n_pad = make_ring_spmm(mesh, adj)
+                sup = ShardedSupport(fn, n, n_pad, "ring")
+            assert sup.kind == kind and sup.n_pad == 1004, sup
+            return (sup,)
+        return graph_on
+
+    for kind in ("halo", "ring"):
+        want = reference_grads(lambda: copy.deepcopy(tgcn), sharded_on(kind),
+                               x, "cpu")
+        got = reference_grads(lambda: copy.deepcopy(tgcn), sharded_on(kind),
+                              x, "cuda")
+        errs = {}
+        for k, w in want.items():
+            errs[k] = float((got[k] - w).abs().max())
+            torch.testing.assert_close(got[k], w, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"sharded {kind} {k}: {m}")
+        emit("reference", model="TGCN", nodes=n, batch=b,
+             support=f"sharded_{kind}", ranks=ranks,
+             pred_max_abs_err=errs.pop("pred"),
+             grad_max_abs_err=max(errs.values()),
+             tol={"rtol": 1e-4, "atol": 1e-4})
 
 
 def main() -> int:
@@ -906,7 +1258,7 @@ def main() -> int:
         globals()[f"phase_{name}"](rec)
         emit(name, done=True, seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [rec[k] for k in (
-        "bsr_spmm", "dia_spmm", "sddmm", "spmm_dvals")]}))
+        "bsr_spmm", "dia_spmm", "sddmm", "spmm_dvals", "ring_spmm")]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

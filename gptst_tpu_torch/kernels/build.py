@@ -24,14 +24,19 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each kernel's entry point (pointers and the stream as
-# void*); each returns its launch's cudaError_t
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures of each source's entry points (pointers and the stream as
+# void*); each returns its launch's or copy's cudaError_t
 SIGNATURES = {
-    "bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "dia_spmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "sddmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "spmm_dvals": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "bsr_spmm": {"bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P)},
+    "dia_spmm": {"dia_spmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)},
+    "sddmm": {"sddmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P)},
+    "spmm_dvals": {"spmm_dvals": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _P)},
+    "ring_spmm": {"ring_spmm": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _P),
+                  "ring_copy": (_P, _I, _P, _I, ctypes.c_size_t, _P)},
 }
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -108,8 +113,9 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for entry, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return _LIBS[name]

@@ -36,7 +36,8 @@ import torch
 from gptst_tpu_torch.utils.device import resolve_device
 
 # launches of each CUDA kernel since the last `reset_launch_counts()`
-LAUNCHES = {"bsr_spmm": 0, "dia_spmm": 0, "sddmm": 0, "spmm_dvals": 0}
+LAUNCHES = {"bsr_spmm": 0, "dia_spmm": 0, "sddmm": 0, "spmm_dvals": 0,
+            "ring_spmm": 0}
 _TILES = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_F = 65535 * 64          # grid.y limit times the kernels' feature tile

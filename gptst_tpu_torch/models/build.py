@@ -23,7 +23,10 @@ from torch import nn
 from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.graph.artifacts import random_sensor_graph
 from gptst_tpu_torch.models.api import ModelOutput
-from gptst_tpu_torch.ops.graph_conv import SparseSupport, make_support
+from gptst_tpu_torch.ops.graph_conv import (
+    SparseSupport, make_support, sharding_mesh, use_sharding_mesh,
+)
+from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
 from gptst_tpu_torch.utils.device import resolve_device
 
 
@@ -154,12 +157,19 @@ def predictor_forward(cfg: FrameworkConfig, predictor: nn.Module) -> OriModel:
 
 
 def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
-                device="cuda", seed: int | None = None) -> nn.Module:
-    """Mode dispatch; the port has the ori branch (bare predictor)."""
+                device="cuda", seed: int | None = None,
+                mesh=None) -> nn.Module:
+    """Mode dispatch; the port has the ori branch (bare predictor).
+
+    With `mesh` (`parallel/mesh.make_mesh`, graph axis above 1), the
+    predictor's graph supports are built node-sharded on the mesh's
+    devices (`ops/graph_conv.make_sharded_support`); parameters and
+    activations stay on `device`."""
     if cfg.mode in _LATER_MODES:
         raise _not_ported(f"-mode {cfg.mode}", _LATER_MODES[cfg.mode])
-    return predictor_forward(
-        cfg, build_predictor(cfg, adj=adj, device=device, seed=seed))
+    with use_sharding_mesh(mesh):
+        return predictor_forward(
+            cfg, build_predictor(cfg, adj=adj, device=device, seed=seed))
 
 
 class GraphPredictor(nn.Module):
@@ -217,6 +227,15 @@ def _build_msdr(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
         MSDR, MSDRConfig, dual_random_walk_supports,
     )
 
+    mesh = sharding_mesh()
+    if mesh is not None and mesh.shape[GRAPH_AXIS] > 1:
+        # its learned adjacency has no node-sharded path: the JAX
+        # package's `make_sharded_support` takes a constant numpy graph,
+        # so there the learned adjacency stays one dense (N, N) product
+        raise NotImplementedError(
+            "MSDR under a mesh with a graph axis above 1 is not supported: "
+            "its learned adjacency has no node-sharded path (in "
+            "gptst_tpu_torch or gptst_tpu)")
     pcfg = make_predictor_config(MSDRConfig, cfg, num_nodes=cfg.num_nodes)
     mats = dual_random_walk_supports(adj)
     supports = tuple(make_support(s, device=device) for s in mats)

@@ -4,19 +4,23 @@ Counterpart of the JAX package's `models/predictors/tgcn.py` (and of the
 reference's `model/TGCN/TGCN.py`): a GRU whose gates are graph
 convolutions over D^-1/2 (A+I) D^-1/2, followed by a linear readout of
 all horizons from the final state. The time loop is a Python loop over
-the node-major cell (`ops/recurrent.GraphGRUCellNM`). Defaults follow
+the node-major cell (`ops/recurrent.GraphGRUCellNM`), or over the
+batch-major cell with a node-sharded support. Defaults follow
 `conf/TGCN/*.conf` (rnn_units=100).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
 
+from gptst_tpu_torch.ops.graph_conv import ShardedSupport
 from gptst_tpu_torch.ops.recurrent import (
-    GraphGRUCellNM, remat_cell, resolve_remat, variance_scaling_,
+    GraphGRUCell, GraphGRUCellNM, remat_cell, resolve_remat, scan_over_time,
+    variance_scaling_,
 )
 
 
@@ -52,12 +56,22 @@ class TGCN(nn.Module):
 
     def forward(self, x: torch.Tensor, support) -> torch.Tensor:
         B, T, N, _ = x.shape
-        step = remat_cell(self.cell,
-                          resolve_remat(self.cfg.remat, N, threshold=131072))
-        xt = x.permute(1, 2, 0, 3).contiguous()           # (T, N, B, D)
-        h = x.new_zeros(N, B, self.cfg.rnn_units)
-        for t in range(T):
-            h = step(h, xt[t], support)
-        out = self.dense(h.transpose(0, 1))               # (B, N, T_out*D)
+        if isinstance(support, ShardedSupport):
+            # the sharded fn takes batch-major (..., N, C) operands: the
+            # batch-major cell on the same parameters, remat off as in
+            # the JAX package (the sharded path divides the residual
+            # stack across ranks)
+            step = functools.partial(GraphGRUCell.forward, self.cell)
+            h0 = x.new_zeros(B, N, self.cfg.rnn_units)
+            h = scan_over_time(step, h0, x, support)      # (B, N, U)
+        else:
+            step = remat_cell(
+                self.cell, resolve_remat(self.cfg.remat, N, threshold=131072))
+            xt = x.permute(1, 2, 0, 3).contiguous()       # (T, N, B, D)
+            h = x.new_zeros(N, B, self.cfg.rnn_units)
+            for t in range(T):
+                h = step(h, xt[t], support)
+            h = h.transpose(0, 1)                         # (B, N, U)
+        out = self.dense(h)                               # (B, N, T_out*D)
         out = out.reshape(B, N, self.horizon, self.dim_out)
         return out.permute(0, 2, 1, 3)

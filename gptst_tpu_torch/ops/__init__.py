@@ -1,6 +1,8 @@
 from gptst_tpu_torch.ops.graph_conv import (
-    SparseSupport, graph_matmul, make_support, make_support_coo,
+    ShardedSupport, SparseSupport, graph_matmul, make_sharded_support,
+    make_support, make_support_coo, use_sharding_mesh,
 )
 
-__all__ = ["SparseSupport", "graph_matmul", "make_support",
-           "make_support_coo"]
+__all__ = ["ShardedSupport", "SparseSupport", "graph_matmul",
+           "make_sharded_support", "make_support", "make_support_coo",
+           "use_sharding_mesh"]

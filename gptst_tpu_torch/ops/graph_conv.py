@@ -8,15 +8,19 @@ the support representation:
   * `SparseSupport` — the hand-written CUDA kernels of
     `kernels/spmm.py` (DIA band or block-CSR) plus the COO straggler
     tail, with an optional RCM node reordering that concentrates the
-    nonzero blocks.
+    nonzero blocks;
+  * `ShardedSupport` — node-sharded aggregation over a mesh's 'graph'
+    axis (`parallel/halo.py`: the boundary halo exchange or the ring).
 
-`make_support` picks the representation from the node count, so model
-code is representation-agnostic. Layout: x is (..., N, C); supports act
-on the N axis.
+`make_support` picks the representation from the node count, or the
+sharded one under a mesh, so model code is representation-agnostic.
+Layout: x is (..., N, C); supports act on the N axis.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import numpy as np
@@ -26,7 +30,30 @@ from gptst_tpu_torch.kernels.spmm import (
     BlockCSR, COOTail, DIABand, coo_matmul, coo_split_mask, dia_matmul,
     dia_pair_from_coo, spmm, split_coo_hybrid,
 )
+from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
 from gptst_tpu_torch.utils.device import resolve_device
+
+# The mesh that `make_support` shards over when it is given none: set
+# for the duration of a model build by `use_sharding_mesh(mesh)`.
+_ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "gptst_tpu_torch_sharding_mesh", default=None)
+
+
+def sharding_mesh():
+    """The mesh set by the enclosing `use_sharding_mesh`, or None."""
+    return _ACTIVE_MESH.get()
+
+
+@contextlib.contextmanager
+def use_sharding_mesh(mesh):
+    """Within the block, `make_support` routes aggregation through the
+    node-sharded paths on `mesh`'s 'graph' axis (when it is above 1)."""
+    token = _ACTIVE_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE_MESH.reset(token)
+
 
 # Below this node count a dense (N, N) matmul is the support: the same
 # threshold as the JAX package, so both pick the same representation.
@@ -70,15 +97,68 @@ def _count_blocks(rows: np.ndarray, cols: np.ndarray, tile: int) -> int:
     return int(np.unique(pairs).size)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedSupport:
+    """Node-sharded aggregation over a mesh's 'graph' axis: `fn` is the
+    sharded A @ x (the boundary halo exchange, or the ring for
+    halo-heavy graphs, `parallel/halo.py`), chosen from the partition's
+    traffic (`graph/partition.partition_stats`). `graph_matmul` pads
+    x's node axis to `n_pad` and slices back."""
+
+    fn: object                # callable (..., n_pad, C) -> (..., n_pad, C)
+    n: int
+    n_pad: int
+    kind: str                 # 'halo' | 'ring'
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n, self.n)
+
+
+def make_sharded_support(adj: np.ndarray | None, mesh,
+                         part=None) -> ShardedSupport:
+    """Partition `adj` over the mesh's 'graph' axis and pick the path
+    that moves fewer feature rows per call: the boundary halo exchange,
+    or the ring. Pass a prebuilt `GraphPartition` (e.g. from
+    `partition_graph_coo` for graphs too big to densify) to skip the
+    dense partitioning; the ring needs the dense `adj`."""
+    from gptst_tpu_torch.graph.partition import (
+        partition_graph, partition_stats,
+    )
+    from gptst_tpu_torch.parallel.halo import make_halo_spmm, make_ring_spmm
+
+    parts = mesh.shape[GRAPH_AXIS]
+    if part is None:
+        # reorder=False: the model's node order is the dataset's
+        # (node-indexed parameters, metrics and labels use it)
+        part = partition_graph(adj, parts, reorder=False)
+    stats = partition_stats(part)
+    if adj is None or stats["halo_rows_moved"] <= stats["ring_rows_moved"]:
+        fn, n_pad = make_halo_spmm(mesh, part)
+        kind = "halo"
+    else:
+        fn, n_pad = make_ring_spmm(mesh, adj)
+        kind = "ring"
+    return ShardedSupport(fn=fn, n=part.n, n_pad=n_pad, kind=kind)
+
+
 def make_support(adj: np.ndarray, *, dense_threshold: int = DENSE_THRESHOLD,
                  tile: int = 128, reorder: bool = True, hybrid: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Pick the aggregation representation for a precomputed support:
     a dense f32 tensor up to `dense_threshold` nodes, a `SparseSupport`
     above it. With `reorder=True` an RCM ordering is kept only if it
     cuts the nonzero block count by more than 10%. `hybrid=True` routes
-    edges in nearly empty blocks through the COO tail."""
+    edges in nearly empty blocks through the COO tail.
+
+    With a `mesh` (or one set by `use_sharding_mesh`) whose 'graph' axis
+    is above 1, aggregation runs node-sharded on the mesh's devices
+    (`make_sharded_support`) whatever the node count."""
     n = adj.shape[0]
+    if mesh is None:
+        mesh = sharding_mesh()
+    if mesh is not None and mesh.shape[GRAPH_AXIS] > 1:
+        return make_sharded_support(np.asarray(adj), mesh)
     if n <= dense_threshold:
         return torch.as_tensor(np.asarray(adj, np.float32),
                                device=resolve_device(device))
@@ -129,11 +209,19 @@ def make_support_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
 def graph_matmul(support, x: torch.Tensor) -> torch.Tensor:
     """support @ x over the node axis.
 
-    support: (N, N) tensor or `SparseSupport`; x: (..., N, C). Dense:
-    one matmul, the support cast to x's dtype. Sparse: the DIA or
-    block-CSR kernel (leading dims fold into the feature axis inside
-    the call) plus the COO tail, inside the RCM permutation.
+    support: (N, N) tensor, `SparseSupport` or `ShardedSupport`; x:
+    (..., N, C). Dense: one matmul, the support cast to x's dtype.
+    Sparse: the DIA or block-CSR kernel (leading dims fold into the
+    feature axis inside the call) plus the COO tail, inside the RCM
+    permutation. Sharded: x zero-padded to the support's node count,
+    the sharded product, the padding sliced off.
     """
+    if isinstance(support, ShardedSupport):
+        n = x.shape[-2]
+        if n != support.n_pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, support.n_pad - n))
+        out = support.fn(x)
+        return out[..., :n, :] if n != support.n_pad else out
     if isinstance(support, SparseSupport):
         if support.perm is not None:
             x = x.index_select(-2, support.perm)

@@ -1,9 +1,9 @@
 """Recurrent graph cells.
 
 The JAX package lifts each cell over time with `nn.scan`; here a cell
-is an `nn.Module` stepped by a Python loop over T in its predictor, and
-activation rematerialization is `torch.utils.checkpoint` around each
-step (`remat_cell`).
+is an `nn.Module` stepped by a Python loop over T (in its predictor, or
+`scan_over_time`), and activation rematerialization is
+`torch.utils.checkpoint` around each step (`remat_cell`).
 """
 
 from __future__ import annotations
@@ -39,19 +39,19 @@ def xavier_normal_(t: torch.Tensor,
     return variance_scaling_(t, (t.shape[0] + t.shape[1]) / 2.0, generator)
 
 
-class GraphGRUCellNM(nn.Module):
-    """TGCN's GRU with graph-convolution gates, node-major and
-    concat-free (the JAX package's `GraphGRUCellNM`):
+class GraphGRUCell(nn.Module):
+    """TGCN's GRU with graph-convolution gates, batch-major (the JAX
+    package's `GraphGRUCell`, the reference's `model/TGCN/TGCN.py`):
 
-        gates = sigmoid(A x W0[:D] + A h W0[D:] + b0) -> r, u
-        c     = tanh  (A x W1[:D] + A (r*h) W1[D:] + b1)
+        gates = sigmoid(A [x ‖ h] W0 + b0) -> r, u
+        c     = tanh  (A [x ‖ r*h] W1 + b1)
         h'    = u * h + (1 - u) * c
 
-    h: (N, B, U), x: (N, B, D), so the (N, B*F) operand of each
-    aggregation is a free view. A·[x ‖ h] == [A·x ‖ A·h], so the
-    concatenation never materializes and A·x is shared by both gates:
-    three aggregations per step, of widths B*D, B*U and B*U. Weights
-    keep flax's (in, out) layout and names.
+    h: (B, N, U), x: (B, N, D): two aggregations per step, each of the
+    (B, N, D+U) concatenation. The node-sharded path runs this layout
+    (`ShardedSupport.fn` takes (..., N, C)). Weights keep flax's
+    (in, out) layout and names; `GraphGRUCellNM` has the same
+    parameters, as both cells are `ScanGraphGRUCell_0` in flax.
     """
 
     def __init__(self, dim_in: int, num_units: int,
@@ -65,6 +65,32 @@ class GraphGRUCellNM(nn.Module):
         self.bias_1 = nn.Parameter(torch.zeros(u))
         xavier_normal_(self.weights_0, generator)
         xavier_normal_(self.weights_1, generator)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor,
+                support) -> torch.Tensor:
+        def gc(inp, state, w, b):
+            z = torch.cat([inp, state], dim=-1)
+            return graph_matmul(support, z) @ w + b
+
+        gates = torch.sigmoid(gc(x, h, self.weights_0, self.bias_0))
+        r, u = gates.chunk(2, dim=-1)
+        c = torch.tanh(gc(x, r * h, self.weights_1, self.bias_1))
+        return u * h + (1.0 - u) * c
+
+
+class GraphGRUCellNM(GraphGRUCell):
+    """The same GRU, node-major and concat-free (the JAX package's
+    `GraphGRUCellNM`), with the parameters of `GraphGRUCell`:
+
+        gates = sigmoid(A x W0[:D] + A h W0[D:] + b0) -> r, u
+        c     = tanh  (A x W1[:D] + A (r*h) W1[D:] + b1)
+        h'    = u * h + (1 - u) * c
+
+    h: (N, B, U), x: (N, B, D), so the (N, B*F) operand of each
+    aggregation is a free view. A·[x ‖ h] == [A·x ‖ A·h], so the
+    concatenation never materializes and A·x is shared by both gates:
+    three aggregations per step, of widths B*D, B*U and B*U.
+    """
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
                 support) -> torch.Tensor:
@@ -82,6 +108,19 @@ class GraphGRUCellNM(nn.Module):
         arh = agg(r * h)
         c = torch.tanh(ax @ w1[:d] + arh @ w1[d:] + self.bias_1)
         return u * h + (1.0 - u) * c
+
+
+def scan_over_time(step, h0: torch.Tensor, xs: torch.Tensor,
+                   *broadcast) -> torch.Tensor:
+    """Step a cell over axis 1 of xs (B, T, ...): `step(h, x_t,
+    *broadcast) -> h'`; returns the final state. (The JAX package's
+    `nn.scan` lift also stacks every state, which XLA drops when no one
+    reads it; eagerly that stack would be a copy of all T states, and
+    no caller reads it.)"""
+    h = h0
+    for t in range(xs.shape[1]):
+        h = step(h, xs[:, t], *broadcast)
+    return h
 
 
 def resolve_remat(remat: str, num_nodes: int,

@@ -281,3 +281,77 @@ def test_cuda_adaptive_support_matches_cpu(card):
             t.grad.cpu() for t in (t1, t2, xt)]
     for got, want in zip(out[str(card)], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _ring(card, parts, n, f, seed):
+    """The fused ring on `parts` ranks of one card, and the plain
+    version's inputs: the ring-ordered blocks on the card."""
+    from gptst_tpu_torch.kernels import halo_spmm as R
+    from gptst_tpu_torch.parallel.halo import partition_adjacency
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=[card] * parts, graph_axis_size=parts)
+    adj = _graph(n, seed, density=0.05)
+    fn, n_pad = R.make_fused_ring_spmm(mesh, adj, f)
+    blocks = R._rotate_blocks(partition_adjacency(adj, parts))
+    a_rot = [torch.as_tensor(b, device=card) for b in blocks]
+    return mesh, fn, n_pad, a_rot
+
+
+@pytest.mark.parametrize("parts,n,f", [(1, 70, 5), (2, 150, 130),
+                                       (4, 301, 67)])
+def test_cuda_ring_spmm_matches_plain(card, parts, n, f):
+    """P virtual ranks on one card, ragged n_loc and F, f32 and bf16 x
+    (the output keeps x's dtype); P^2 kernel launches per call."""
+    from gptst_tpu_torch.kernels import halo_spmm as R
+    from gptst_tpu_torch.parallel.mesh import shard_rows
+
+    mesh, fn, n_pad, a_rot = _ring(card, parts, n, f, seed=31)
+    x = torch.randn(n_pad, f, device=card)
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = shard_rows(x.to(dtype), mesh)
+        before = K.LAUNCHES["ring_spmm"]
+        got = fn(xs)
+        assert K.LAUNCHES["ring_spmm"] - before == parts * parts
+        want = R.ring_spmm_plain(a_rot, xs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            torch.testing.assert_close(g, w, **TOL[dtype])
+
+
+def test_cuda_ring_spmm_nan_reaches_every_row_of_its_column(card):
+    """Dense blocks, zeros included, as the TPU kernel multiplies them: a
+    NaN in one x row reaches every output row of its column, on every
+    rank, and no other column."""
+    from gptst_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
+    mesh, fn, n_pad, _ = _ring(card, 4, 250, 9, seed=32)
+    x = torch.randn(n_pad, 9, device=card)
+    x[100, 3] = float("nan")
+    got = gather_rows(fn(shard_rows(x, mesh)), card)
+    assert bool(torch.isnan(got[:, 3]).all())
+    assert not torch.isnan(got[:, [0, 1, 2, 4, 5, 6, 7, 8]]).any()
+
+
+def test_cuda_ring_spmm_rejects_what_the_kernel_does_not_take(card):
+    from gptst_tpu_torch.kernels import halo_spmm as R
+    from gptst_tpu_torch.parallel.mesh import shard_rows
+
+    mesh, fn, n_pad, a_rot = _ring(card, 2, 60, 8, seed=33)
+    x = torch.randn(n_pad, 8, device=card)
+    with pytest.raises(TypeError):
+        fn(shard_rows(x.double(), mesh))
+    with pytest.raises(ValueError):
+        fn([s.cpu() for s in shard_rows(x, mesh)])           # wrong device
+    with pytest.raises(ValueError):
+        fn(shard_rows(x[:, :7].contiguous(), mesh))          # wrong F
+    with pytest.raises(ValueError):
+        fn([s.t().contiguous().t() for s in shard_rows(x, mesh)])
+    buf = torch.zeros(n_pad // 2, 8, device=card)
+    with pytest.raises(TypeError):
+        R.ring_step(a_rot[0], 0, buf, None, buf.half())      # out dtype
+    with pytest.raises(ValueError):
+        R.ring_step(a_rot[0], 1, buf, None, buf)             # acc missing
+    with pytest.raises(ValueError):
+        R.ring_step(a_rot[0].cpu(), 0, buf, None, buf)       # a_rot on CPU

@@ -45,6 +45,17 @@ msdr = MSDR(MSDRConfig(num_nodes=40, rnn_units=4, adapt_rank=3), 1, 1)
 out = msdr(torch.zeros(2, 12, 40, 1), sups, pat)
 out.sum().backward()
 assert out.shape == (2, 12, 40, 1)
+from gptst_tpu_torch.kernels.halo_spmm import make_fused_ring_spmm
+from gptst_tpu_torch.ops.graph_conv import ShardedSupport
+from gptst_tpu_torch.parallel.mesh import make_mesh, shard_rows
+mesh = make_mesh(devices=["cpu"] * 4, graph_axis_size=4)
+adj = sym_adj(random_sensor_graph(42, seed=1))
+sup = make_support(adj, mesh=mesh)
+assert isinstance(sup, ShardedSupport) and sup.n_pad == 44
+out = net(torch.zeros(2, 12, 42, 1), sup)
+assert out.shape == (2, 12, 42, 1)
+ring, n_pad = make_fused_ring_spmm(mesh, adj, 3)
+assert len(ring(shard_rows(torch.zeros(n_pad, 3), mesh))) == 4
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN})
 print("LOADED", bad)
