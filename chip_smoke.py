@@ -9,12 +9,19 @@ Phases, one JSON line each; any failure exits non-zero:
   bsr        `bsr_spmm` at the CLI graph's shape: the support TGCN
              builds from `sym_adj(random_sensor_graph(16384))` (RCM,
              block-CSR, COO tail). Forward and transposed structure,
-             F = 16 and 1600, f32 / bf16 x / bf16 values, a NaN in a
-             stored block; each against the plain PyTorch version.
-             Times the kernel, the plain version and `torch.sparse.mm`
-             on the CSR of the same matrix (CUDA events, median of 20).
+             F = 16 and 1600, f32 / bf16 x / bf16 values (no block may
+             run densely), a NaN in a stored block, and the non-finite
+             cases that make blocks run densely (a NaN in x under zero
+             slots, an Inf in x, a NaN and a finite value outside the
+             entries; the dense-block counter must rise); each against
+             the plain PyTorch version. Times the kernel, the plain
+             version, `torch.sparse.mm` on the CSR of the same matrix
+             and the kernel on the same blocks with zero values and no
+             entries, which stages and checks every x tile but sums
+             nothing (CUDA events, median of 20).
   dia        `dia_spmm` the same way on the road graph (DIA band, w=1)
-             and on a w=5 band at 4096 nodes.
+             and on a w=5 band at 4096 nodes, plus a NaN in x that
+             reaches the first row tile through the clamped band block.
   sddmm      `sddmm_blocks` at rank 10 on MSDR's two learned-adjacency
              patterns (CLI graph: 128 blocks; road graph: 382 blocks)
              and on a ragged 1000-node one: f32 and bf16 e1/e2, a NaN
@@ -37,12 +44,13 @@ Phases, one JSON line each; any failure exits non-zero:
              again with one rank per card.
   cli        `python -m gptst_tpu_torch.run -mode ori -model TGCN` at
              16,384 nodes from a PEMS08.npz of that size written into a
-             temporary directory: the block-CSR main path.
+             temporary directory: the block-CSR main path. No block may
+             run densely (the whole run gathers entries).
   dia_model  TGCN train steps through the library on the road graph's
-             DIA support: the DIA main path.
+             DIA support: the DIA main path, no block run densely.
   msdr_cli   `python -m gptst_tpu_torch.run -mode ori -model MSDR` at
              16,384 nodes, batch 8: the learned-adjacency main path
-             (`bsr_spmm`, `sddmm`, `spmm_dvals`).
+             (`bsr_spmm`, `sddmm`, `spmm_dvals`), no block run densely.
   msdr_model MSDR train steps through the library on the road graph
              (DIA static supports, the 382-block pattern).
   sharded_model
@@ -64,7 +72,8 @@ Phases, one JSON line each; any failure exits non-zero:
 
 Before the last line: one JSON object with every kernel's launches on
 its main path, error, times and bound, and the card's name and power
-limit from `nvidia-smi`. The last line is
+limit from `nvidia-smi`. The ptxas reports go to `chiprun_out/`. The
+last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside this file, it
 exits non-zero and prints no result.
@@ -212,16 +221,42 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Device ms per call of each kernel `fn` launches, by its profile
+    group (`KERNEL_GROUPS`, the value passes apart), from
+    `torch.profiler` over `reps` calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k, _ in KERNEL_GROUPS if k in e.name), e.name)
+        out[name] = out.get(name, 0.0) + e.device_time / 1e3 / reps
+    return out
+
+
 def compare(got, want, kind: str) -> float:
-    """Max abs error; raises unless every element is within
-    atol + rtol * |want| and NaNs sit in the same places."""
+    """Max abs error over the finite elements; raises unless each is
+    within atol + rtol * |want|, NaNs sit in the same places and Infs
+    are equal."""
     import torch
 
     rtol, atol = TOL[kind]
     g, w = got.float(), want.float()
     if not torch.equal(torch.isnan(g), torch.isnan(w)):
         raise AssertionError("kernel and plain version differ in NaNs")
-    fin = ~torch.isnan(w)
+    inf = torch.isinf(w)
+    if not torch.equal(torch.isinf(g), inf) or not torch.equal(g[inf], w[inf]):
+        raise AssertionError("kernel and plain version differ in Infs")
+    fin = torch.isfinite(w)
     diff = (g[fin] - w[fin]).abs()
     bad = diff > atol + rtol * w[fin].abs()
     err = float(diff.max()) if diff.numel() else 0.0
@@ -246,12 +281,18 @@ def csr_of(dense_blocks, rows_tile, cols_tile, tb: int, n: int):
 
 
 def kernel_cases(name, kernel, plain, structs, n, seed):
-    """Every correctness case of one kernel: structure (A, A^T) x width
-    x dtype, then the NaN case; returns the f32 wide-forward error."""
+    """Every finite correctness case of one kernel: structure (A, A^T) x
+    width x dtype, with no block run densely; returns the f32
+    wide-forward error."""
     import torch
+
+    from gptst_tpu_torch.kernels.spmm import (
+        dense_block_counts, reset_launch_counts,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     main_err = None
+    reset_launch_counts()
     for sname, st, vals_attr in structs:
         for f in (F_NARROW, F_WIDE):
             x32 = torch.randn(n, f, device="cuda", generator=gen)
@@ -268,7 +309,50 @@ def kernel_cases(name, kernel, plain, structs, n, seed):
                      tol=dict(zip(("rtol", "atol"), TOL[kind])))
                 if sname == "A" and f == F_WIDE and cname == "f32":
                     main_err = err
+    dense = dense_block_counts()
+    assert not any(dense.values()), dense
     return main_err
+
+
+def nonfinite_cases(name: str, kernel, plain, st, blocks, vals_attr: str):
+    """The inputs whose dense block product needs zeros multiplied: a
+    NaN in x where most rows of its blocks have no entry, an Inf in x
+    (0 * Inf = NaN), a NaN and a finite nonzero written outside a
+    block's entries. Each against the plain version; the kernel must
+    count the blocks it ran densely."""
+    import torch
+
+    from gptst_tpu_torch.kernels.spmm import (
+        dense_block_counts, entry_mask_bits, reset_launch_counts,
+    )
+
+    kname = f"{name}_spmm"
+    tb = blocks.tile
+    x = torch.randn(st.n, F_WIDE, device="cuda")
+    b = int(blocks.block_ptr[1])          # the first block of row tile 1
+    r, k = map(int, (~entry_mask_bits(blocks.entries.mask[b:b + 1], tb)[0])
+               .nonzero()[0])
+    node = int(blocks.block_cols[b]) * tb + 5
+    for case in ("nan_x_under_zero_slot", "inf_x", "nan_value_off_entry",
+                 "finite_value_off_entry"):
+        s, xx = st, x
+        if case in ("nan_x_under_zero_slot", "inf_x"):
+            xx = x.clone()
+            xx[node, 70] = float("nan" if case.startswith("nan") else "inf")
+        else:
+            v = getattr(st, vals_attr).clone()
+            v.view(-1, tb, tb)[b, r, k] = float(
+                "nan" if case.startswith("nan") else 0.5)
+            s = dataclasses.replace(st, **{vals_attr: v})
+        reset_launch_counts()
+        got = kernel(s, xx)
+        dense = dense_block_counts()[kname]
+        err = compare(got, plain(s, xx), "f32")
+        assert dense > 0, (case, dense)
+        emit(name, case=case, max_abs_err=err, dense_blocks=dense,
+             nan_rows=int(torch.isnan(got).any(dim=1).sum()),
+             inf_values=int(torch.isinf(got).sum()),
+             tol=dict(zip(("rtol", "atol"), TOL["f32"])))
 
 
 def phase_build(rec: dict) -> None:
@@ -325,6 +409,7 @@ def phase_bsr(rec: dict) -> None:
     nan_rows = int(torch.isnan(got).all(dim=1).sum())
     assert nan_rows == 1 and int(torch.isnan(got).any(dim=1).sum()) == 1
     emit("bsr", case="nan_in_block", nan_rows=nan_rows)
+    nonfinite_cases("bsr", K.bsr_spmm, K.bsr_spmm_plain, a, a, "block_vals")
 
     ptr = a.block_ptr.long()
     rows_t = torch.repeat_interleave(torch.arange(a.row_tiles,
@@ -334,32 +419,63 @@ def phase_bsr(rec: dict) -> None:
     ms = time_ms(lambda: K.bsr_spmm(a, x))
     plain_ms = time_ms(lambda: K.bsr_spmm_plain(a, x))
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, x))
+    empty = without_entries(a, "block_vals")
+    no_entries_ms = time_ms(lambda: K.bsr_spmm(empty, x))
     nnz = int(csr.values().numel())
-    block_flops = 2 * nnzb * a.tile ** 2 * F_WIDE
     flops = 2 * nnz * F_WIDE
     nbytes = (nnzb * a.tile ** 2 * a.block_vals.element_size()
               + (a.block_ptr.numel() + nnzb) * 4
               + 2 * a.n * F_WIDE * x.element_size())
     rec["bsr_spmm"] = dict(
-        name="bsr_spmm", route="cuda", source="gptst_tpu_torch/csrc/bsr_spmm.cu",
+        name="bsr_spmm", route="cuda",
+        source="gptst_tpu_torch/csrc/block_spmm.cu",
         replaces="gptst_tpu/kernels/spmm.py:213 (_spmm_kernel; also "
                  ":280 _spmm_kernel_stream, :369 _spmm_kernel_panel)",
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(flops, nbytes), library_ms=lib_ms)
     emit("bsr", case="timing", shape=[a.n, F_WIDE], nnzb=nnzb, ms=ms,
-         plain_ms=plain_ms, library_ms=lib_ms, nnz=nnz, flops=flops,
-         bytes=nbytes, **bound(flops, nbytes),
-         achieved_bytes_per_s=nbytes / ms * 1e3,
-         dense_block_flops=block_flops,
-         dense_block_fma_tflops=block_flops / ms / 1e9)
+         device_ms=device_ms_by_kernel(lambda: K.bsr_spmm(a, x)),
+         plain_ms=plain_ms, library_ms=lib_ms, no_entries_ms=no_entries_ms,
+         nnz=nnz, entries=int(a.entries.idx.numel()), flops=flops,
+         bytes=nbytes, entry_bytes=entry_bytes(a),
+         l2_bytes_computed=l2_bytes_computed(nnzb, a.tile, x),
+         **bound(flops, nbytes), achieved_bytes_per_s=nbytes / ms * 1e3)
+
+
+def entry_bytes(a) -> int:
+    """Bytes of a structure's entry lists (row pointer, indices, mask),
+    which the design reads besides the function's operands."""
+    e = a.entries
+    return 4 * (e.ptr.numel() + e.idx.numel() + e.mask.numel())
+
+
+def l2_bytes_computed(nblocks: int, tile: int, x) -> int:
+    """The gather's L2-to-SM traffic as the design implies it, computed
+    from this call's shapes (not a counter reading): one staged (TB x 64)
+    x tile per (stored block, feature tile)."""
+    return nblocks * -(-x.shape[1] // 64) * tile * 64 * x.element_size()
+
+
+def without_entries(st, vals_attr: str):
+    """The block structure `st` with zero values (`vals_attr`) and no
+    entries: the gather still runs the value pass and stages and checks
+    every x tile, but sums nothing. Its time is the floor under the entry
+    sums."""
+    import torch
+
+    from gptst_tpu_torch.kernels.spmm import EntryLists
+
+    e = st.entries
+    return dataclasses.replace(
+        st, **{vals_attr: torch.zeros_like(getattr(st, vals_attr))},
+        entries=EntryLists(ptr=torch.zeros_like(e.ptr), idx=e.idx[:0],
+                           mask=torch.zeros_like(e.mask)))
 
 
 def bound(flops: float, nbytes: float) -> dict:
     """Least time for the work the product needs: 2 FLOPs per stored
     nonzero and column over the FP32 rate, or the bytes of the stored
-    values, indices, x and out, each once, over the HBM rate. The FMAs
-    the kernel spends on the zeros of its dense blocks are not counted
-    (they are `dense_block_flops` in the timing line)."""
+    values, indices, x and out, each once, over the HBM rate."""
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -370,6 +486,9 @@ def phase_dia(rec: dict) -> None:
     import torch
 
     from gptst_tpu_torch.kernels import spmm as K
+    from gptst_tpu_torch.kernels.spmm import (
+        dense_block_counts, reset_launch_counts,
+    )
 
     errs = {}
     for n, band in ((N_BIG, 48), (4096, 600)):
@@ -392,10 +511,15 @@ def phase_dia(rec: dict) -> None:
     x = torch.randn(d.n, F_WIDE, device="cuda")
     xn = x.clone()
     xn[3, 11] = float("nan")
+    reset_launch_counts()
     got = K.dia_spmm(d, xn)
     compare(got, K.dia_spmm_plain(d, xn), "f32")
+    dense = dense_block_counts()["dia_spmm"]
+    assert dense > 0, dense
     emit("dia", case="nan_in_x_clamped_window",
-         nan_rows=int(torch.isnan(got).any(dim=1).sum()))
+         nan_rows=int(torch.isnan(got).any(dim=1).sum()), dense_blocks=dense)
+    nonfinite_cases("dia", K.dia_spmm, K.dia_spmm_plain, d, d.blocks(),
+                    "vals")
 
     rt, nd, tb = d.row_tiles, 2 * d.w + 1, d.tile
     idx = torch.arange(rt, device="cuda")
@@ -407,22 +531,26 @@ def phase_dia(rec: dict) -> None:
     ms = time_ms(lambda: K.dia_spmm(d, x))
     plain_ms = time_ms(lambda: K.dia_spmm_plain(d, x))
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, x))
+    empty = without_entries(d, "vals")
+    no_entries_ms = time_ms(lambda: K.dia_spmm(empty, x))
     nnz = int(torch.count_nonzero(d.vals))
-    block_flops = 2 * rt * nd * tb * tb * F_WIDE
     flops = 2 * nnz * F_WIDE
     nbytes = (d.vals.numel() * d.vals.element_size()
               + 2 * d.n * F_WIDE * x.element_size())
     rec["dia_spmm"] = dict(
-        name="dia_spmm", route="cuda", source="gptst_tpu_torch/csrc/dia_spmm.cu",
+        name="dia_spmm", route="cuda",
+        source="gptst_tpu_torch/csrc/block_spmm.cu",
         replaces="gptst_tpu/kernels/spmm.py:784 (_dia_kernel; also "
                  ":813 _dia_kernel_ring)",
         max_abs_err=errs[N_BIG], ms=ms, plain_ms=plain_ms,
         **bound(flops, nbytes), library_ms=lib_ms)
-    emit("dia", case="timing", shape=[d.n, F_WIDE], ms=ms, plain_ms=plain_ms,
-         library_ms=lib_ms, nnz=nnz, flops=flops, bytes=nbytes,
-         **bound(flops, nbytes), achieved_bytes_per_s=nbytes / ms * 1e3,
-         dense_block_flops=block_flops,
-         dense_block_fma_tflops=block_flops / ms / 1e9)
+    emit("dia", case="timing", shape=[d.n, F_WIDE], ms=ms,
+         device_ms=device_ms_by_kernel(lambda: K.dia_spmm(d, x)),
+         plain_ms=plain_ms, library_ms=lib_ms, no_entries_ms=no_entries_ms,
+         nnz=nnz, entries=int(d.entries.idx.numel()), flops=flops,
+         bytes=nbytes, entry_bytes=entry_bytes(d),
+         l2_bytes_computed=l2_bytes_computed(rt * nd, tb, x),
+         **bound(flops, nbytes), achieved_bytes_per_s=nbytes / ms * 1e3)
 
 
 def phase_sddmm(rec: dict) -> None:
@@ -758,7 +886,9 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
 
     from gptst_tpu_torch.config.datasets import get_dataset_spec
     from gptst_tpu_torch.data.synthetic import synthesize_raw_series
-    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.kernels.spmm import (
+        LAUNCHES, dense_block_counts, reset_launch_counts,
+    )
     from gptst_tpu_torch.run import main
     from gptst_tpu_torch.train.trainer import Trainer
 
@@ -797,10 +927,13 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
             Trainer._train_batch = train_batch
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
+        dense = dense_block_counts()
         with open(metrics) as f:
             rep = json.load(f)
     vals = np.asarray(rep["per_horizon"] + [rep["average"]], np.float64)
     assert np.isfinite(vals).all() and np.isfinite(rep["history"]).all()
+    # the training steps (and evaluation) gathered entries only
+    assert not any(dense.values()), dense
     steps = rep["steps_per_epoch"]
     return dict(
         nodes=N_BIG, batch=batch, epochs=epochs, time_steps=num_steps,
@@ -809,7 +942,7 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
         samples_per_s_last_epoch=steps * batch / rep["epoch_seconds"][-1],
         train_loss_by_epoch=rep["history"], test_average=rep["average"],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches,
+        launches=launches, dense_blocks=dense,
         launches_per_train_step={k: v / (epochs * steps)
                                  for k, v in in_steps.items()},
         wall_s=wall)
@@ -875,12 +1008,15 @@ def train_steps(model: str, forward, batch: int, warm: int,
     """Train steps of a `model` (TGCN or MSDR) module in the ori-mode
     contract, through the port's library, on random data from seed 0.
     Returns the losses, ms per timed step, the kernel launches of all
-    steps, and (with `trace`) the timed steps' profiler trace."""
+    steps and their dense-block counts, and (with `trace`) writes the
+    timed steps' profiler trace."""
     import numpy as np
     import torch
 
     from gptst_tpu_torch.config.config import default_config
-    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.kernels.spmm import (
+        LAUNCHES, dense_block_counts, reset_launch_counts,
+    )
     from gptst_tpu_torch.train.loss import build_loss
     from gptst_tpu_torch.train.step import make_loss_terms, train_step
     from gptst_tpu_torch.train.trainer import make_optimizer
@@ -913,7 +1049,7 @@ def train_steps(model: str, forward, batch: int, warm: int,
         prof.export_chrome_trace(trace)
     losses = [float(v) for v in losses]
     assert np.isfinite(losses).all(), losses
-    return losses, dt * 1e3, dict(LAUNCHES)
+    return losses, dt * 1e3, dict(LAUNCHES), dense_block_counts()
 
 
 def phase_dia_model(rec: dict) -> None:
@@ -923,16 +1059,17 @@ def phase_dia_model(rec: dict) -> None:
     rec["_supports"]["road_graph"] = sup
     torch.cuda.reset_peak_memory_stats()
     warm, steps = 2, 5
-    losses, ms, launches = train_steps(
+    losses, ms, launches, dense = train_steps(
         "TGCN", bind("TGCN", tgcn_net(), (sup,)), BATCH, warm, steps)
     assert launches["dia_spmm"] > 0 and launches["bsr_spmm"] == 0, launches
+    assert not any(dense.values()), dense
     rec["dia_spmm"]["launches"] = launches["dia_spmm"]
     rec["_road_losses"] = losses
     emit("dia_model", nodes=N_BIG, batch=BATCH, rnn_units=UNITS,
          steps=warm + steps, ms_per_step=ms, samples_per_s=BATCH / ms * 1e3,
          losses=losses,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches,
+         launches=launches, dense_blocks=dense,
          launches_per_step=launches["dia_spmm"] / (warm + steps))
 
 
@@ -942,7 +1079,7 @@ def phase_msdr_model(rec: dict) -> None:
     sups, pat = rec["_msdr"]["road_graph"]
     torch.cuda.reset_peak_memory_stats()
     warm, steps = 2, 3
-    losses, ms, launches = train_steps(
+    losses, ms, launches, dense = train_steps(
         "MSDR", bind("MSDR", msdr_net(), (sups, pat)), MSDR_BATCH, warm,
         steps)
     for k in ("dia_spmm", "bsr_spmm", "sddmm", "spmm_dvals"):
@@ -953,7 +1090,7 @@ def phase_msdr_model(rec: dict) -> None:
          steps=warm + steps, ms_per_step=ms,
          samples_per_s=MSDR_BATCH / ms * 1e3, losses=losses,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches,
+         launches=launches, dense_blocks=dense,
          launches_per_step={k: v / (warm + steps)
                             for k, v in launches.items()})
 
@@ -1008,7 +1145,8 @@ def phase_sharded_model(rec: dict) -> None:
         assert isinstance(sup, ShardedSupport) and sup.kind == "halo", sup
         torch.cuda.reset_peak_memory_stats()
         warm, steps = 1, 2
-        losses, ms, launches = train_steps("TGCN", model, BATCH, warm, steps)
+        losses, ms, launches, _ = train_steps("TGCN", model, BATCH, warm,
+                                              steps)
         assert not any(launches.values()), launches  # torch.matmul only
         if name == "road_graph":
             np.testing.assert_allclose(
@@ -1027,7 +1165,8 @@ def phase_sharded_model(rec: dict) -> None:
 
 # kernel-name fragments -> what they are on the TGCN and MSDR steps
 KERNEL_GROUPS = (
-    ("bsr_spmm_kernel", "bsr_spmm"), ("dia_spmm_kernel", "dia_spmm"),
+    ("bsr_spmm_kernel", "bsr_spmm"), ("bsr_spmm_value_pass", "bsr_spmm"),
+    ("dia_spmm_kernel", "dia_spmm"), ("dia_spmm_value_pass", "dia_spmm"),
     ("sddmm_kernel", "sddmm"), ("spmm_dvals_kernel", "spmm_dvals"),
     ("indexFunc", "index_add_ (COO tail scatter, RCM gather backward)"),
     ("indexSelect", "index_select (COO tail gather, RCM permutation)"),
@@ -1040,8 +1179,8 @@ KERNEL_GROUPS = (
 def phase_profile(rec: dict) -> None:
     """Device time by kernel group and device busy share of 2 profiled
     train steps (after 1 warm-up step): TGCN on each graph, MSDR on the
-    CLI graph, TGCN on the CLI graph's halo support on 4 ranks."""
-    os.makedirs(OUT_DIR, exist_ok=True)
+    CLI graph, TGCN on the CLI graph's halo support on 4 ranks. The
+    traces (tens of MB each) are read and deleted."""
     runs = [(f"tgcn_{name}", "TGCN", tgcn_net, (sup,), BATCH)
             for name, sup in rec["_supports"].items()]
     runs.append(("msdr_cli_graph", "MSDR", msdr_net,
@@ -1049,11 +1188,12 @@ def phase_profile(rec: dict) -> None:
     runs.append(("tgcn_sharded_cli_graph", "TGCN", tgcn_net,
                  (rec.pop("_sharded_cli"),), BATCH))
     for name, model, make_net, graph, batch in runs:
-        path = os.path.join(OUT_DIR, f"trace_{name}.json")
-        _, ms, _ = train_steps(model, bind(model, make_net(), graph), batch,
-                               1, 2, trace=path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            _, ms, _, _ = train_steps(model, bind(model, make_net(), graph),
+                                      batch, 1, 2, trace=path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
         kern = [e for e in events if e.get("ph") == "X"
                 and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         groups: dict = {}

@@ -25,12 +25,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# bsr_spmm and dia_spmm: 10 pointers, 7 ints, the stream
+_GATHER = (_P,) * 10 + (_I,) * 7 + (_P,)
 # C signatures of each source's entry points (pointers and the stream as
 # void*); each returns its launch's or copy's cudaError_t
 SIGNATURES = {
-    "bsr_spmm": {"bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P)},
-    "dia_spmm": {"dia_spmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)},
+    "block_spmm": {"bsr_spmm": _GATHER, "dia_spmm": _GATHER},
     "sddmm": {"sddmm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P)},
     "spmm_dvals": {"spmm_dvals": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

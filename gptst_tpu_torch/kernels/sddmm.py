@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from gptst_tpu_torch.kernels.spmm import (
-    _TILES, LAUNCHES, BlockCSR, _check_same_device, _dtype_code, _raise_on,
-    _row_tiles,
+    _TILES, LAUNCHES, BlockCSR, EntryLists, _check_same_device, _dtype_code,
+    _raise_on, _row_tiles, entry_lists,
 )
 from gptst_tpu_torch.ops.graph_conv import SparseSupport
 
@@ -41,7 +41,8 @@ class SDDMMPattern:
     `mask` zeroes entries of stored blocks that are not pattern edges
     (and the whole pad blocks). `t_*` give the transposed block order,
     so that a learned adjacency's backward structure is
-    t_vals = vals[t_order].transpose(1, 2).
+    t_vals = vals[t_order].transpose(1, 2). `entries` and `t_entries`
+    are the mask's slots in the two block orders, for `bsr_spmm`.
     """
 
     row_ids: torch.Tensor   # (nnzb,) int32
@@ -54,6 +55,8 @@ class SDDMMPattern:
     n: int
     n_pad: int
     tile: int
+    entries: EntryLists
+    t_entries: EntryLists
 
     @property
     def nnzb(self) -> int:
@@ -88,6 +91,7 @@ class SDDMMPattern:
         t_ptr = np.cumsum(t_ptr)
         t_cols = np.concatenate([row_ids[:real][t_sort], cols[real:]])
         dev = bcsr.block_vals.device
+        slots = mask != 0
 
         def i32(a):
             return torch.as_tensor(a.astype(np.int32), device=dev)
@@ -96,7 +100,12 @@ class SDDMMPattern:
                    mask=torch.as_tensor(mask, device=dev), t_ptr=i32(t_ptr),
                    t_cols=i32(t_cols),
                    t_order=torch.as_tensor(t_order, device=dev),
-                   n=bcsr.n, n_pad=bcsr.n_pad, tile=bcsr.tile)
+                   n=bcsr.n, n_pad=bcsr.n_pad, tile=bcsr.tile,
+                   entries=entry_lists(slots, ptr, bcsr.n_pad, bcsr.tile,
+                                       dev),
+                   t_entries=entry_lists(
+                       slots[t_order].transpose(0, 2, 1), t_ptr, bcsr.n_pad,
+                       bcsr.tile, dev))
 
 
 def sddmm_plain(pattern: SDDMMPattern, e1: torch.Tensor,
@@ -223,10 +232,10 @@ def _learned_support(pattern: SDDMMPattern,
     t_vals = vals[pattern.t_order].transpose(1, 2).contiguous()
     fwd = BlockCSR(block_ptr=pattern.ptr, block_cols=pattern.cols,
                    block_vals=vals, n=pattern.n, n_pad=pattern.n_pad,
-                   tile=pattern.tile)
+                   tile=pattern.tile, entries=pattern.entries)
     bwd = BlockCSR(block_ptr=pattern.t_ptr, block_cols=pattern.t_cols,
                    block_vals=t_vals, n=pattern.n, n_pad=pattern.n_pad,
-                   tile=pattern.tile)
+                   tile=pattern.tile, entries=pattern.t_entries)
     return SparseSupport(fwd, bwd)
 
 

@@ -4,18 +4,26 @@ All graph aggregation above the dense threshold is `A @ X` over the
 node axis with A stored in (TB x TB) blocks. Three representations:
 
   * `BlockCSR` — nonzero blocks only, run by the CUDA kernel
-    `csrc/bsr_spmm.cu` (`bsr_spmm`);
+    `csrc/block_spmm.cu` (`bsr_spmm`);
   * `DIABand` — a narrow tile-diagonal band (road graphs after RCM and
-    the hybrid split), run by `csrc/dia_spmm.cu` (`dia_spmm`);
+    the hybrid split), run by `csrc/block_spmm.cu` (`dia_spmm`) through
+    its block-CSR view (`DIABand.blocks`);
   * `COOTail` — straggler edges in nearly empty blocks, a gather plus
     `index_add_` (`coo_matmul`).
+
+The two block kernels compute what the dense block product computes,
+NaN and Inf included, but sum only the block slots that may hold a
+nonzero ("entries", `EntryLists`, built once per structure on the
+host). A block runs densely, zeros included, only where a non-finite x
+or a nonzero value outside its entries needs it; `DENSE_BLOCKS` counts
+those (CUDA block, stored block) pairs on the device.
 
 When the block values are learned (`kernels/sddmm.adaptive_support`),
 their gradient is `spmm_dvals`, run by `csrc/spmm_dvals.cu`.
 
 The host builders are numpy and give the same arrays as the JAX
 package's, including the 8 zero pad blocks `_pad_chunk` appends (the
-TPU kernels over-read in chunks; the CUDA kernel never reads them).
+TPU kernels over-read in chunks; the CUDA kernels never multiply them).
 
 Each kernel wrapper runs its kernel on CUDA tensors, counts the launch
 in `LAUNCHES`, and raises on anything the kernel does not take; it
@@ -38,14 +46,32 @@ from gptst_tpu_torch.utils.device import resolve_device
 # launches of each CUDA kernel since the last `reset_launch_counts()`
 LAUNCHES = {"bsr_spmm": 0, "dia_spmm": 0, "sddmm": 0, "spmm_dvals": 0,
             "ring_spmm": 0}
+# per (kernel, device): an int32 tensor on the device that the block
+# kernels add one to for each (CUDA block, stored block) pair that ran
+# densely; read by `dense_block_counts()` only, never on the main path
+DENSE_BLOCKS: dict[tuple[str, torch.device], torch.Tensor] = {}
 _TILES = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_F = 65535 * 64          # grid.y limit times the kernels' feature tile
+_BN = 64                     # the block kernels' feature tile
+_MAX_F = 65535 * _BN         # grid.y limit times the feature tile
 
 
 def reset_launch_counts() -> None:
+    """Zero `LAUNCHES` and the dense-block counters (on the device, no
+    synchronize)."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for t in DENSE_BLOCKS.values():
+        t.zero_()
+
+
+def dense_block_counts() -> dict[str, int]:
+    """(CUDA block, stored block) pairs that took the dense path since
+    the last reset, per block kernel. Synchronizes with the device."""
+    out = {"bsr_spmm": 0, "dia_spmm": 0}
+    for (name, _), t in DENSE_BLOCKS.items():
+        out[name] += int(t.item())
+    return out
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,7 +84,8 @@ _DMA_CHUNK = 8
 
 
 def _pad_chunk(cols: np.ndarray, vals: np.ndarray, tile: int):
-    """Append _DMA_CHUNK zero blocks (never read by the CUDA kernel)."""
+    """Append _DMA_CHUNK zero blocks (never multiplied by the CUDA
+    kernels)."""
     pad = _DMA_CHUNK
     cols = np.concatenate([cols, np.zeros(pad, cols.dtype)])
     vals = np.concatenate(
@@ -67,8 +94,59 @@ def _pad_chunk(cols: np.ndarray, vals: np.ndarray, tile: int):
 
 
 @dataclasses.dataclass
+class EntryLists:
+    """The slots of a block structure that may hold a nonzero (edges of
+    the support, or pattern slots of a learned adjacency), as the block
+    kernels read them. Row r's entries are idx[ptr[r]:ptr[r + 1]] in the
+    order the dense block loop sums them: by the block's position in
+    its row tile's range, then by in-block column k."""
+
+    ptr: torch.Tensor    # (n_pad + 1,) int32, per padded output row
+    idx: torch.Tensor    # (entries,) int32: b * TB + k, b into the values
+    mask: torch.Tensor   # (blocks, TB, ceil(TB / 32)) int32 bit patterns:
+    #                      bit k % 32 of word k // 32 of row r of block b
+
+
+def entry_lists(nonzero: np.ndarray, block_ptr: np.ndarray, n_pad: int,
+                tile: int, device) -> EntryLists:
+    """`EntryLists` of the entry slots `nonzero` (blocks, TB, TB) bool,
+    in the value array's block order; the blocks of row tile i are
+    block_ptr[i]:block_ptr[i + 1], and later (pad) blocks are empty."""
+    block_ptr = np.asarray(block_ptr, np.int64)
+    nb = nonzero.shape[0]
+    if nonzero[block_ptr[-1]:].any():
+        raise ValueError("a block outside the row tiles' ranges has entries")
+    if nb * tile >= 2 ** 31:
+        raise ValueError(f"{nb} blocks of {tile} overflow the int32 entries")
+    b, r, k = np.nonzero(nonzero)           # sorted by (b, r, k)
+    tile_of = np.repeat(np.arange(len(block_ptr) - 1), np.diff(block_ptr))
+    row = tile_of[b] * tile + r
+    order = np.argsort(row, kind="stable")  # (row, b, k): the dense order
+    ptr = np.zeros(n_pad + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=n_pad), out=ptr[1:])
+    words = -(-tile // 32)
+    bits = np.zeros((nb, tile, words * 32), bool)
+    bits[..., :tile] = nonzero
+    mask = np.packbits(bits, axis=-1, bitorder="little").view("<u4")
+    dev = resolve_device(device)
+    return EntryLists(
+        ptr=torch.as_tensor(ptr.astype(np.int32), device=dev),
+        idx=torch.as_tensor((b * tile + k)[order].astype(np.int32),
+                            device=dev),
+        mask=torch.as_tensor(mask.view(np.int32), device=dev))
+
+
+def entry_mask_bits(mask: torch.Tensor, tile: int) -> torch.Tensor:
+    """`EntryLists.mask` (blocks, TB, words) -> (blocks, TB, TB) bool."""
+    k = torch.arange(tile, device=mask.device)
+    words = mask[:, :, k // 32].long() & 0xFFFFFFFF
+    return (words >> (k % 32)) & 1 == 1
+
+
+@dataclasses.dataclass
 class BlockCSR:
-    """Block-compressed sparse row adjacency (padded to the tile grid)."""
+    """Block-compressed sparse row adjacency (padded to the tile grid).
+    The builders fill `entries`; `bsr_spmm` on the card needs them."""
 
     block_ptr: torch.Tensor    # (row_tiles + 1,) int32
     block_cols: torch.Tensor   # (nnzb + 8,) int32
@@ -76,6 +154,7 @@ class BlockCSR:
     n: int                     # logical node count
     n_pad: int                 # padded node count
     tile: int
+    entries: EntryLists | None = None
 
     @property
     def row_tiles(self) -> int:
@@ -109,7 +188,8 @@ class BlockCSR:
             block_cols=torch.as_tensor(u_cols.astype(np.int32), device=dev),
             block_vals=torch.as_tensor(
                 np.asarray(blocks, np.float32), device=dev).to(vals_dtype),
-            n=n, n_pad=n_pad, tile=tile)
+            n=n, n_pad=n_pad, tile=tile,
+            entries=entry_lists(blocks != 0, ptr, n_pad, tile, dev))
 
     @staticmethod
     def _coo_blocks(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -249,38 +329,110 @@ def bsr_spmm_plain(bcsr: BlockCSR, x: torch.Tensor) -> torch.Tensor:
     return out.view(bcsr.n_pad, f)[:n].to(x.dtype)
 
 
+def _entries_plain(a: BlockCSR, x: torch.Tensor) -> torch.Tensor:
+    """The block kernels' algorithm in plain PyTorch, for tests and
+    checks: per (stored block, 64-wide feature tile), the entries' sum
+    where the block is clean, the whole block's product where its values
+    are nonzero outside its entries or its x tile (cast to the value
+    dtype) holds a non-finite value."""
+    n, f = x.shape
+    tb, rt, e = a.tile, a.row_tiles, a.entries
+    vals = a.block_vals
+    xp = torch.zeros(a.n_pad, f, dtype=torch.float32, device=x.device)
+    xp[:n] = x.to(vals.dtype).float()
+    nft = -(-f // _BN)
+    xf = torch.nn.functional.pad(xp, (0, nft * _BN - f))
+    nonfin = (~torch.isfinite(xf.view(rt, tb, nft, _BN))).any(3).any(1)
+    bad = ((vals != 0) & ~entry_mask_bits(e.mask, tb)).flatten(1).any(1)
+    ptr = a.block_ptr.long()
+    nb = int(ptr[-1])
+    cols = a.block_cols[:nb].long()
+    dense = bad[:nb, None] | nonfin[cols]                 # (nb, nft)
+    dense_f = dense.repeat_interleave(_BN, 1)[:, :f]     # (nb, f)
+    out = torch.zeros(a.n_pad, f, dtype=torch.float32, device=x.device)
+    rows = torch.repeat_interleave(torch.arange(a.n_pad, device=x.device),
+                                   e.ptr.long().diff())
+    b, k = e.idx.long() // tb, e.idx.long() % tb
+    v = vals[b, rows % tb, k].float()
+    out.index_add_(0, rows, torch.where(dense_f[b], 0.0,
+                                        v[:, None] * xp[cols[b] * tb + k]))
+    db = dense.any(1).nonzero().squeeze(1)
+    brow = torch.repeat_interleave(torch.arange(rt, device=x.device),
+                                   ptr.diff())
+    prod = torch.bmm(vals[db].float(), xp.view(rt, tb, f)[cols[db]])
+    out.view(rt, tb, f).index_add_(
+        0, brow[db], torch.where(dense_f[db][:, None], prod, 0.0))
+    return out[:n].to(x.dtype)
+
+
+def bsr_spmm_entries_plain(bcsr: BlockCSR, x: torch.Tensor) -> torch.Tensor:
+    """`bsr_spmm`'s algorithm in plain PyTorch (tests and checks only)."""
+    return _entries_plain(bcsr, x)
+
+
+def _dense_counter(name: str, device: torch.device) -> torch.Tensor:
+    t = DENSE_BLOCKS.get((name, device))
+    if t is None:
+        t = DENSE_BLOCKS[(name, device)] = torch.zeros(
+            1, dtype=torch.int32, device=device)
+    return t
+
+
+def _block_kernel(name: str, a: BlockCSR, x: torch.Tensor) -> torch.Tensor:
+    """Launch the entry point `name` (`bsr_spmm` or `dia_spmm`) of
+    `csrc/block_spmm.cu` on the block-CSR structure `a` and CUDA x
+    (n, F)."""
+    _check_operand(x, a.n, a.tile)
+    e = a.entries
+    if e is None:
+        raise ValueError(f"{name}: the structure has no entry lists; build "
+                         "it with the BlockCSR or DIA builders")
+    vals, ptr, cols = a.block_vals, a.block_ptr, a.block_cols
+    _check_same_device(x, vals, ptr, cols, e.ptr, e.idx, e.mask)
+    if any(t.dtype != torch.int32 for t in (ptr, cols, e.ptr, e.idx, e.mask)):
+        raise TypeError("block_ptr, block_cols and the entry lists must be "
+                        "int32")
+    nb, tb = vals.shape[0], a.tile
+    if ptr.shape != (a.row_tiles + 1,):
+        raise ValueError(f"block_ptr shape {tuple(ptr.shape)}")
+    if (vals.dim() != 3 or vals.shape[1:] != (tb, tb)
+            or cols.shape != (nb,) or e.ptr.shape != (a.n_pad + 1,)
+            or e.mask.shape != (nb, tb, -(-tb // 32))):
+        raise ValueError(f"block_vals {tuple(vals.shape)}, block_cols "
+                         f"{tuple(cols.shape)} and entry lists "
+                         f"{tuple(e.ptr.shape)}, {tuple(e.mask.shape)} do "
+                         "not fit the structure")
+    if vals.data_ptr() % 16:
+        raise ValueError("block values must be 16-byte aligned (the value "
+                         "pass reads four at a time)")
+    vcode = _dtype_code(vals, "block values")
+    xcode = _dtype_code(x, "x")
+    from gptst_tpu_torch.kernels.build import load
+
+    lib = load("block_spmm")
+    out = torch.empty_like(x)
+    bad = torch.empty(nb, dtype=torch.int32, device=x.device)
+    count = _dense_counter(name, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, name)(
+            ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            e.ptr.data_ptr(), e.idx.data_ptr(), e.mask.data_ptr(),
+            bad.data_ptr(), count.data_ptr(), x.data_ptr(), out.data_ptr(),
+            a.n, x.shape[1], a.row_tiles, nb, tb, vcode, xcode, stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def bsr_spmm(bcsr: BlockCSR, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ x for x (n, F), by the CUDA kernel `csrc/bsr_spmm.cu`;
-    the plain version for CPU tensors."""
+    """Y = A @ x for x (n, F), by the CUDA kernel `bsr_spmm`
+    (`csrc/block_spmm.cu`); the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return bsr_spmm_plain(bcsr, x)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_spmm: unsupported device {x.device}")
-    _check_operand(x, bcsr.n, bcsr.tile)
-    vals, ptr, cols = bcsr.block_vals, bcsr.block_ptr, bcsr.block_cols
-    _check_same_device(x, vals, ptr, cols)
-    if ptr.dtype != torch.int32 or cols.dtype != torch.int32:
-        raise TypeError("block_ptr and block_cols must be int32")
-    if ptr.shape != (bcsr.row_tiles + 1,):
-        raise ValueError(f"block_ptr shape {tuple(ptr.shape)}")
-    if vals.dim() != 3 or vals.shape[1:] != (bcsr.tile, bcsr.tile) \
-            or vals.shape[0] != cols.shape[0]:
-        raise ValueError(f"block_vals shape {tuple(vals.shape)}")
-    vcode = _dtype_code(vals, "block_vals")
-    xcode = _dtype_code(x, "x")
-    from gptst_tpu_torch.kernels.build import load
-
-    lib = load("bsr_spmm")
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bsr_spmm(
-            ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-            out.data_ptr(), bcsr.n, x.shape[1], bcsr.row_tiles, bcsr.tile,
-            vcode, xcode, stream)
-    _raise_on(err, "bsr_spmm")
-    LAUNCHES["bsr_spmm"] += 1
-    return out
+    return _block_kernel("bsr_spmm", bcsr, x)
 
 
 def _fold(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -397,17 +549,33 @@ def spmm(bcsr: BlockCSR, bcsr_t: BlockCSR, x: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class DIABand:
-    """Tile-diagonal band storage: vals[i, d] is block (i, i + d - w)."""
+    """Tile-diagonal band storage: vals[i, d] is block (i, i + d - w).
+
+    `block_ptr` and `block_cols` give its block-CSR view (`blocks`):
+    2w + 1 blocks per row tile, the column tile clamped to the grid.
+    The clamped blocks at the ends of the band are structurally zero
+    and have no entries, but are multiplied all the same, as in the JAX
+    package."""
 
     vals: torch.Tensor   # (row_tiles, 2w+1, TB, TB)
     w: int               # half-bandwidth in tiles
     n: int
     n_pad: int
     tile: int
+    block_ptr: torch.Tensor    # (row_tiles + 1,) int32: i * (2w + 1)
+    block_cols: torch.Tensor   # (row_tiles * (2w+1),) int32
+    entries: EntryLists
 
     @property
     def row_tiles(self) -> int:
         return self.n_pad // self.tile
+
+    def blocks(self) -> BlockCSR:
+        """The band as a `BlockCSR` over the same values (no copy)."""
+        tb = self.tile
+        return BlockCSR(self.block_ptr, self.block_cols,
+                        self.vals.view(-1, tb, tb), self.n, self.n_pad, tb,
+                        self.entries)
 
 
 # Widest band the DIA path accepts, and the least fraction of the
@@ -437,11 +605,23 @@ def dia_pair_from_coo(rows: np.ndarray, cols: np.ndarray,
     if nblocks < _DIA_MIN_FILL * min(rt * (2 * w + 1), rt * rt):
         return None
     dev = resolve_device(device)
-    dense = np.zeros((rt, 2 * w + 1, tile, tile), np.float32)
+    nd = 2 * w + 1
+    i = np.arange(rt)
+    ptr = np.arange(rt + 1) * nd
+    bcols = np.clip(i[:, None] + np.arange(nd) - w, 0, rt - 1).reshape(-1)
+
+    def band(dense):
+        return DIABand(
+            torch.as_tensor(dense, device=dev).to(vals_dtype), w, n, n_pad,
+            tile, torch.as_tensor(ptr.astype(np.int32), device=dev),
+            torch.as_tensor(bcols.astype(np.int32), device=dev),
+            entry_lists(dense.reshape(rt * nd, tile, tile) != 0, ptr, n_pad,
+                        tile, dev))
+
+    dense = np.zeros((rt, nd, tile, tile), np.float32)
     np.add.at(dense, (br, d + w, rows % tile, cols % tile),
               vals.astype(np.float32))
-    a = DIABand(torch.as_tensor(dense, device=dev).to(vals_dtype),
-                w, n, n_pad, tile)
+    a = band(dense)
     # A^T: block (i, i+d-w)^T lands at row i+d-w, diagonal -d
     dense_t = np.zeros_like(dense)
     for dd in range(2 * w + 1):
@@ -451,9 +631,7 @@ def dia_pair_from_coo(rows: np.ndarray, cols: np.ndarray,
             dense_t[off:rt, 2 * w - dd][: rt - off] = src[: rt - off]
         else:
             dense_t[: rt + off, 2 * w - dd] = src[-off:]
-    at = DIABand(torch.as_tensor(dense_t, device=dev).to(vals_dtype),
-                 w, n, n_pad, tile)
-    return a, at
+    return a, band(dense_t)
 
 
 def dia_spmm_plain(dia: DIABand, x: torch.Tensor) -> torch.Tensor:
@@ -473,32 +651,22 @@ def dia_spmm_plain(dia: DIABand, x: torch.Tensor) -> torch.Tensor:
     return out.view(dia.n_pad, f)[:n].to(x.dtype)
 
 
+def dia_spmm_entries_plain(dia: DIABand, x: torch.Tensor) -> torch.Tensor:
+    """`dia_spmm`'s algorithm in plain PyTorch (tests and checks only)."""
+    return _entries_plain(dia.blocks(), x)
+
+
 def dia_spmm(dia: DIABand, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ x for x (n, F), by the CUDA kernel `csrc/dia_spmm.cu`;
-    the plain version for CPU tensors."""
+    """Y = A @ x for x (n, F), by the CUDA kernel `dia_spmm`
+    (`csrc/block_spmm.cu`) on the band's block-CSR view; the plain
+    version for CPU tensors."""
     if x.device.type == "cpu":
         return dia_spmm_plain(dia, x)
     if x.device.type != "cuda":
         raise ValueError(f"dia_spmm: unsupported device {x.device}")
-    _check_operand(x, dia.n, dia.tile)
-    vals = dia.vals
-    _check_same_device(x, vals)
-    if vals.shape != (dia.row_tiles, 2 * dia.w + 1, dia.tile, dia.tile):
-        raise ValueError(f"band vals shape {tuple(vals.shape)}")
-    vcode = _dtype_code(vals, "band vals")
-    xcode = _dtype_code(x, "x")
-    from gptst_tpu_torch.kernels.build import load
-
-    lib = load("dia_spmm")
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dia_spmm(
-            vals.data_ptr(), x.data_ptr(), out.data_ptr(), dia.n, x.shape[1],
-            dia.row_tiles, dia.w, dia.tile, vcode, xcode, stream)
-    _raise_on(err, "dia_spmm")
-    LAUNCHES["dia_spmm"] += 1
-    return out
+    if dia.vals.shape != (dia.row_tiles, 2 * dia.w + 1, dia.tile, dia.tile):
+        raise ValueError(f"band vals shape {tuple(dia.vals.shape)}")
+    return _block_kernel("dia_spmm", dia.blocks(), x)
 
 
 def _dia_impl(dia: DIABand, x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,11 @@ order than the plain version's batched products); a bf16 output may
 differ by one bf16 rounding (rtol 2^-7). `sddmm` and `spmm_dvals`
 write f32 whatever their inputs' dtype; `spmm_dvals` sums up to ~1000
 products per slot, hence its atol 1e-4.
+
+`bsr_spmm` and `dia_spmm` sum only the entries of clean blocks and run
+a block densely where a non-finite input needs it; `K.DENSE_BLOCKS`
+counts those blocks on the card: 0 on finite inputs, above 0 in the
+non-finite cases.
 """
 
 import dataclasses
@@ -52,15 +57,22 @@ def _edges(adj):
     return rows, cols, adj[rows, cols]
 
 
-@pytest.mark.parametrize("tile,n,f", [(16, 150, 7), (64, 200, 130),
-                                      (128, 300, 64)])
-def test_cuda_kernels_match_plain(card, tile, n, f):
-    """Ragged rows and widths, both structures, f32 and bf16 x, f32 and
-    bf16 values."""
-    rows, cols, vals = _edges(_graph(n, seed=16, band=2 * tile))
+@pytest.mark.parametrize("tile,n,f,band", [
+    (16, 150, 7, 32), (32, 250, 96, 64), (64, 200, 130, 128),
+    (128, 300, 64, 256), (128, 300, 1000, 64)])
+def test_cuda_kernels_match_plain(card, tile, n, f, band):
+    """Ragged rows and widths (F not a multiple of the 16-byte copies:
+    plain loads; else cp.async), both structures, f32 and bf16 x, f32
+    and bf16 values. At TB = 128 in f32 the two staged x tiles take
+    64 KB of dynamic shared memory, and each row tile has 3 blocks
+    (double buffering); F = 1000 spans 16 feature tiles, the last one
+    ragged, at a band of +-64 (sums of ~130 terms: the f32 summation
+    order stays within atol). Finite inputs: no block runs densely."""
+    rows, cols, vals = _edges(_graph(n, seed=16, band=band))
     a, at = K.BlockCSR.pair_from_coo(rows, cols, vals, n, tile, device=card)
     d, dt = K.dia_pair_from_coo(rows, cols, vals, n, tile, device=card)
     x = torch.randn(n, f, device=card)
+    K.reset_launch_counts()
     for vdtype in (torch.float32, torch.bfloat16):
         structs = [
             (K.bsr_spmm, K.bsr_spmm_plain, dataclasses.replace(
@@ -75,6 +87,56 @@ def test_cuda_kernels_match_plain(card, tile, n, f):
                 got = kernel(s, xd)
                 assert got.dtype == xdtype
                 torch.testing.assert_close(got, plain(s, xd), **TOL[xdtype])
+    assert K.dense_block_counts() == {"bsr_spmm": 0, "dia_spmm": 0}
+    assert K.LAUNCHES["bsr_spmm"] == K.LAUNCHES["dia_spmm"] == 8
+
+
+@pytest.mark.parametrize("case", ["nan_x_under_zero_slot", "inf_x",
+                                  "nan_value_off_entry",
+                                  "finite_value_off_entry"])
+@pytest.mark.parametrize("kernel", ["bsr_spmm", "dia_spmm"])
+def test_cuda_nonfinite_cases_run_blocks_densely(card, kernel, case):
+    """0 * NaN, 0 * Inf and values outside the entries: the kernel
+    gives the plain version's NaN, Inf and finite values, and counts
+    the blocks it ran densely; the kernels' plain twin agrees."""
+    n, tile, f = 300, 32, 200
+    adj = _graph(n, seed=17, band=tile) if kernel == "dia_spmm" \
+        else _graph(n, seed=17, density=0.03)
+    rows, cols, vals = _edges(adj)
+    if kernel == "dia_spmm":
+        s, _ = K.dia_pair_from_coo(rows, cols, vals, n, tile, device=card)
+        fn, plain, twin, attr = (K.dia_spmm, K.dia_spmm_plain,
+                                 K.dia_spmm_entries_plain, "vals")
+        blocks = s.blocks()
+    else:
+        s, _ = K.BlockCSR.pair_from_coo(rows, cols, vals, n, tile,
+                                        device=card)
+        fn, plain, twin, attr = (K.bsr_spmm, K.bsr_spmm_plain,
+                                 K.bsr_spmm_entries_plain, "block_vals")
+        blocks = s
+    x = torch.randn(n, f, device=card)
+    if case in ("nan_x_under_zero_slot", "inf_x"):
+        x[40, 130] = float("nan") if case.startswith("nan") else float("inf")
+    else:
+        b = int(blocks.block_ptr[1])        # the first block of row tile 1
+        off = ~K.entry_mask_bits(blocks.entries.mask, tile)[b]
+        r, k = map(int, off.nonzero()[0])
+        v = getattr(s, attr).clone()
+        v.view(-1, tile, tile)[b, r, k] = (float("nan") if case.startswith(
+            "nan") else 0.5)
+        s = dataclasses.replace(s, **{attr: v})
+    K.reset_launch_counts()
+    got = fn(s, x)
+    dense = K.dense_block_counts()[kernel]
+    want = plain(s, x)
+    assert dense > 0
+    for ref in (want, twin(s, x)):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        torch.testing.assert_close(got, ref, **TOL[torch.float32],
+                                   equal_nan=True)
+    # 0 * Inf is NaN too; a finite value outside the entries makes none
+    assert bool(torch.isnan(got).any()) == (case != "finite_value_off_entry")
+    assert bool(torch.isinf(got).any()) == (case == "inf_x")
 
 
 def _scrambled_band(n, seed):
@@ -140,6 +202,11 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(card):
         K.bsr_spmm(a, x[:30].contiguous())                   # wrong n
     with pytest.raises(ValueError):
         K.bsr_spmm(dataclasses.replace(a, block_vals=a.block_vals.cpu()), x)
+    with pytest.raises(ValueError):                          # no entry lists
+        K.bsr_spmm(dataclasses.replace(a, entries=None), x)
+    with pytest.raises(TypeError):
+        K.bsr_spmm(dataclasses.replace(a, entries=dataclasses.replace(
+            a.entries, idx=a.entries.idx.long())), x)
     # d block_vals: a kernel now, with the same checks
     assert K.spmm_dvals(a, x, x).shape == a.block_vals.shape
     with pytest.raises(TypeError):

@@ -9,6 +9,12 @@
   one bf16 rounding (rtol 2^-7).
 * A NaN in a stored block reaches its output row in both.
 * d block_vals (CPU only) matches `_spmm_dvals` where asked for.
+* The entry lists that the CUDA block kernels gather from cover exactly
+  the nonzero (or pattern) slots of every structure, in the dense
+  loop's order; the kernels' algorithm in plain PyTorch
+  (`*_entries_plain`: entries of clean blocks, dense flagged blocks)
+  equals the plain versions and the JAX kernels, on finite x and on
+  non-finite inputs (NaN positions equal).
 
 The CUDA kernels are held against the plain versions on the card in
 `test_torch_cuda.py`.
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 from gptst_tpu.kernels import spmm as jspmm
+from gptst_tpu_torch.kernels import sddmm as tsddmm
 from gptst_tpu_torch.kernels import spmm as tspmm
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -230,3 +237,152 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     a = tspmm.BlockCSR.from_dense(_graph(40, seed=15), 16, device="cpu")
     with pytest.raises(ValueError):
         tspmm.bsr_spmm(a, torch.zeros(40, 3, device="meta"))
+
+
+def _entry_slots(block_ptr, e, nb, tile, n_pad):
+    """The (nb, TB, TB) slots an `EntryLists` lists; checks that each
+    row's entries run in the dense loop's order (block position, then
+    k) over blocks of the row's own tile, and that the bitmask agrees."""
+    ptr, idx = e.ptr.long().numpy(), e.idx.long().numpy()
+    assert ptr.shape == (n_pad + 1,) and ptr[0] == 0 and ptr[-1] == idx.size
+    rows = np.repeat(np.arange(n_pad), np.diff(ptr))
+    b, k = idx // tile, idx % tile
+    same = rows[1:] == rows[:-1]
+    assert (idx[1:][same] > idx[:-1][same]).all()
+    bp = block_ptr.long().numpy()
+    assert ((bp[rows // tile] <= b) & (b < bp[rows // tile + 1])).all()
+    slots = np.zeros((nb, tile, tile), bool)
+    slots[b, rows % tile, k] = True
+    np.testing.assert_array_equal(
+        tspmm.entry_mask_bits(e.mask, tile).numpy(), slots)
+    assert e.mask.shape == (nb, tile, -(-tile // 32))
+    return slots
+
+
+def _structures(kind):
+    """(block_ptr, entries, expected entry slots, tile, n_pad) of each
+    structure of one kind."""
+    if kind == "block_csr":
+        adj = _graph(150, seed=20)
+        out = []
+        for tile in (16, 32):
+            a, at = tspmm.BlockCSR.pair_from_dense(adj, tile, device="cpu")
+            out += [s for s in (a, at, a.transpose())]
+        return [(s.block_ptr, s.entries, s.block_vals.numpy() != 0, s.tile,
+                 s.n_pad) for s in out]
+    if kind in ("dia_w1", "dia_w2"):
+        tile = 32
+        adj = _graph(200, seed=21, band=tile if kind == "dia_w1" else 48)
+        d, dt = tspmm.dia_pair_from_coo(*_edges(adj), 200, tile, device="cpu")
+        assert d.w == int(kind[-1])
+        return [(s.block_ptr, s.entries,
+                 s.vals.reshape(-1, tile, tile).numpy() != 0, tile, s.n_pad)
+                for s in (d, dt)]
+    if kind == "hybrid_placeholder":
+        adj = _graph(100, seed=22, band=8)
+        a, at, _, _ = tspmm.split_coo_hybrid(*_edges(adj), 100, 16,
+                                             build_blocks=False, device="cpu")
+        for s in (a, at):
+            assert s.entries.idx.numel() == 0 and not s.entries.mask.any()
+        return [(s.block_ptr, s.entries, np.zeros(s.block_vals.shape, bool),
+                 16, s.n_pad) for s in (a, at)]
+    assert kind == "learned"
+    p = tsddmm.SDDMMPattern.from_bcsr(tspmm.BlockCSR.from_dense(
+        _graph(150, seed=23, density=0.05), 16, device="cpu"))
+    m = p.mask.numpy() != 0
+    return [(p.ptr, p.entries, m, 16, p.n_pad),
+            (p.t_ptr, p.t_entries,
+             m[p.t_order.numpy()].transpose(0, 2, 1), 16, p.n_pad)]
+
+
+@pytest.mark.parametrize("kind", ["block_csr", "dia_w1", "dia_w2",
+                                  "hybrid_placeholder", "learned"])
+def test_entry_lists_cover_exactly_the_nonzero_slots(kind):
+    for block_ptr, e, want, tile, n_pad in _structures(kind):
+        got = _entry_slots(block_ptr, e, want.shape[0], tile, n_pad)
+        np.testing.assert_array_equal(got, want)
+    # dataclasses.replace of the values keeps the lists
+    a = tspmm.BlockCSR.from_dense(_graph(60, seed=24), 16, device="cpu")
+    assert dataclasses.replace(a, block_vals=a.block_vals * 2).entries is \
+        a.entries
+
+
+def _kernel_pair(kernel, tile=16):
+    """The same structure in both packages: (torch A, A^T, JAX A, A^T,
+    n). `bsr` is a random graph, `dia` a w = 1 band."""
+    if kernel == "bsr":
+        n = 150
+        adj = _graph(n, seed=25, density=0.06)
+        return (*tspmm.BlockCSR.pair_from_dense(adj, tile, device="cpu"),
+                *jspmm.BlockCSR.pair_from_dense(adj, tile), n)
+    n = 200
+    rows, cols, vals = _edges(_graph(n, seed=26, band=tile))
+    return (*tspmm.dia_pair_from_coo(rows, cols, vals, n, tile, device="cpu"),
+            *jspmm.dia_pair_from_coo(rows, cols, vals, n, tile), n)
+
+
+_TWINS = {"bsr": (tspmm.bsr_spmm_entries_plain, tspmm.bsr_spmm_plain,
+                  jspmm.spmm, "block_vals"),
+          "dia": (tspmm.dia_spmm_entries_plain, tspmm.dia_spmm_plain,
+                  jspmm.dia_matmul, "vals")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["bsr", "dia"])
+def test_entries_algorithm_matches_plain_and_jax(kernel, dtype):
+    """Finite x over two feature tiles (the second ragged)."""
+    ta, _, ja, jat, n = _kernel_pair(kernel)
+    twin, plain, jfn, _ = _TWINS[kernel]
+    x = np.random.default_rng(27).standard_normal((n, 70)).astype(np.float32)
+    xt = torch.tensor(x).to(dtype)
+    got = twin(ta, xt)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, plain(ta, xt), **TOL[dtype])
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = np.asarray(jfn(ja, jat, jnp.asarray(x, jd)), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("case", ["nan_x_under_zero_slot", "inf_x",
+                                  "nan_value_off_entry",
+                                  "finite_value_off_entry"])
+@pytest.mark.parametrize("kernel", ["bsr", "dia"])
+def test_entries_algorithm_nonfinite_matches(kernel, case):
+    """Where the dense product needs zeros multiplied (0 * NaN, 0 * Inf,
+    a value outside the entries), the twin runs those blocks densely:
+    NaN and Inf land where the plain versions and the JAX kernels put
+    them, and the finite values agree."""
+    ta, _, ja, jat, n = _kernel_pair(kernel, tile=32)
+    twin, plain, jfn, attr = _TWINS[kernel]
+    x = np.random.default_rng(28).standard_normal((n, 70)).astype(np.float32)
+    a = ta.blocks() if kernel == "dia" else ta
+    slots = tspmm.entry_mask_bits(a.entries.mask, a.tile)
+    if case in ("nan_x_under_zero_slot", "inf_x"):
+        # node 40 (column tile 1): a row of its stored blocks that has no
+        # entry at column 40 % TB still turns NaN
+        x[40, 66] = np.nan if case.startswith("nan") else np.inf
+        tv = getattr(ta, attr)
+    else:
+        b = int(a.block_ptr[1])          # the first block of row tile 1
+        r, k = map(int, (~slots[b]).nonzero()[0])
+        tv = getattr(ta, attr).clone()
+        tv.view(-1, a.tile, a.tile)[b, r, k] = (
+            float("nan") if case.startswith("nan") else 0.5)
+        ta = dataclasses.replace(ta, **{attr: tv})
+        ja = dataclasses.replace(ja, **{attr: jnp.asarray(tv.numpy())})
+    xt = torch.tensor(x)
+    got = twin(ta, xt).numpy()
+    for want in (plain(ta, xt).numpy(),
+                 np.asarray(jfn(ja, jat, jnp.asarray(x)))):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    nan_rows = np.isnan(got).any(1)
+    if case == "nan_x_under_zero_slot":
+        onehot = torch.zeros(n, 1)
+        onehot[40] = 1.0
+        edges_from_40 = int((plain(ta, onehot) != 0).sum())
+        assert np.isnan(got[:, 66]).sum() > edges_from_40 > 0
+    elif case == "nan_value_off_entry":
+        assert nan_rows.sum() == 1 and np.isnan(got[nan_rows]).all()
+    elif case == "finite_value_off_entry":
+        assert not nan_rows.any()
