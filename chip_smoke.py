@@ -29,19 +29,23 @@ Phases, one JSON line each; any failure exits non-zero:
              `torch.sparse.sampled_addmm` on the pattern's entries.
   dvals      `spmm_dvals` on the same two patterns at F = 1024 (batch 8
              x the 128-wide z of MSDR) and a ragged F: f32 and bf16 g/x,
-             pad blocks zero, a NaN in x. Times the kernel, the plain
-             version and `torch.sparse.sampled_addmm` on every slot of
-             the stored blocks (and, labelled, on the pattern entries).
+             pad blocks zero, a NaN in x, an Inf in x (Inf where g is
+             nonzero, NaN where it is 0) and FLT_MAX in x (finite
+             result). Times the kernel, the plain version and
+             `torch.sparse.sampled_addmm` on every slot of the stored
+             blocks (and, labelled, on the pattern entries); bounds on
+             the tensor cores (3xTF32) and on the FP32 pipe.
   ring       `make_fused_ring_spmm` (`ring_spmm`) on P ranks of cuda:0: the
              main path at TGCN's batch-major width (F = 16 x 101) on the
              CLI graph, 4 ranks; `scripts/halo_bench.py`'s default (4096
              nodes, F = 128, P = 2 and 8) and `dryrun_multichip`'s shape
-             (172 nodes, F = 64, P = 4). f32, bf16 and NaN x against the
-             plain version; P^2 launches per call. Times the ring call,
-             its P^2 kernels without the copies, the plain version, the
-             port's `make_ring_spmm` and `torch.matmul` of the dense
-             padded adjacency. With 2 or more cards the main case runs
-             again with one rank per card.
+             (172 nodes, F = 64, P = 4). f32, bf16, NaN, Inf and FLT_MAX
+             x against the plain version; P^2 launches per call. Times
+             the ring call, its P^2 kernels without the copies, the
+             plain version, the port's `make_ring_spmm` and
+             `torch.matmul` of the dense padded adjacency; bounds on the
+             tensor cores (3xTF32) and on the FP32 pipe. With 2 or more
+             cards the main case runs again with one rank per card.
   cli        `python -m gptst_tpu_torch.run -mode ori -model TGCN` at
              16,384 nodes from a PEMS08.npz of that size written into a
              temporary directory: the block-CSR main path. No block may
@@ -96,10 +100,12 @@ PHASES = ("build", "bsr", "dia", "sddmm", "dvals", "ring", "cli",
           "dia_model", "msdr_cli", "msdr_model", "sharded_model", "profile",
           "reference")
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores and
-# HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
+# dense TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
+FLT_MAX = 3.4028234663852886e38
 
 N_BIG = 16384
 BATCH, UNITS = 16, 100
@@ -482,6 +488,25 @@ def bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def bound_3xtf32(flops: float, nbytes: float, ms: float) -> dict:
+    """The bounds of a 3xTF32 kernel (`csrc/tf32x3.cuh`): `bound_ms` on
+    the units it uses, three TF32 products per f32 product at the
+    tensor cores' rate, or its bytes over the HBM rate; `bound_ms_fp32`
+    the FP32-pipe bound of the earlier designs; the achieved f32 rate
+    and each bound's share of `ms`."""
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    fp32 = bound(flops, nbytes)
+    line = {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_fp32": fp32["bound_ms"],
+            "bound_by_fp32": fp32["bound_by"],
+            "achieved_tflops": flops / ms / 1e9}
+    line["of_bound"] = line["bound_ms"] / ms
+    line["of_bound_fp32"] = line["bound_ms_fp32"] / ms
+    return line
+
+
 def phase_dia(rec: dict) -> None:
     import torch
 
@@ -633,19 +658,39 @@ def phase_dvals(rec: dict) -> None:
             r = n // 3
             xn = x.clone()
             xn[r, 7] = float("nan")
+            # an Inf in x: +-Inf where g is nonzero, NaN where g is 0
+            # (every other node); FLT_MAX (the top binade, where rounding
+            # to TF32 would overflow) under |g| <= 0.5 stays finite
+            gi = g.clone()
+            gi[::2, 7] = 0.0
+            xi = x.clone()
+            xi[r, 7] = float("inf")
+            gm = g.clone()
+            gm[:, 7] = gm[:, 7].clamp(-0.5, 0.5)
+            xm = x.clone()
+            xm[r, 7] = FLT_MAX
             cases = [("f32", g, x), ("bf16", g.bfloat16(), x.bfloat16()),
-                     ("bf16_g", g.bfloat16(), x), ("nan_in_x", g, xn)]
+                     ("bf16_g", g.bfloat16(), x), ("nan_in_x", g, xn),
+                     ("inf_in_x", gi, xi), ("flt_max_in_x", gm, xm)]
             for cname, gg, xx in cases:
                 got = K.spmm_dvals(a, gg, xx)
                 torch.cuda.synchronize()
                 err = compare(got, K.spmm_dvals_plain(a, gg, xx), "dvals")
                 assert not got[real:].any(), "pad blocks not zero"
                 nan_slots = int(torch.isnan(got).sum())
+                inf_slots = int(torch.isinf(got).sum())
+                hit = int((p.cols[:real] == r // tb).sum())
                 if cname == "nan_in_x":
-                    assert nan_slots == int((p.cols[:real] == r // tb).sum()) \
-                        * tb, nan_slots
+                    assert nan_slots == hit * tb, nan_slots
+                if cname == "inf_in_x":
+                    assert nan_slots > 0 and inf_slots > 0
+                    assert nan_slots + inf_slots == hit * tb
+                if cname == "flt_max_in_x":
+                    assert nan_slots == inf_slots == 0
+                    assert float(got.abs().max()) > 1e37
                 emit("dvals", pattern=name, case=f"F{f}_{cname}",
                      max_abs_err=err, nan_slots=nan_slots,
+                     inf_slots=inf_slots,
                      tol=dict(zip(("rtol", "atol"), TOL["dvals"])))
                 if name == "cli_graph" and f == F_MSDR and cname == "f32":
                     main_err = err
@@ -658,6 +703,10 @@ def phase_dvals(rec: dict) -> None:
         slots = csr_of(torch.ones_like(p.mask[:real]), rows, cols, tb, n)
         edges = csr_of(p.mask[:real], rows, cols, tb, n)
         ms = time_ms(lambda: K.spmm_dvals(a, g, x))
+        # the kernel's own device time: `ms` brackets each call with
+        # events, so a wrapper slower than its kernel shows in it
+        device_ms = device_ms_by_kernel(
+            lambda: K.spmm_dvals(a, g, x))["spmm_dvals_kernel"]
         plain_ms = time_ms(lambda: K.spmm_dvals_plain(a, g, x))
         lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(slots, g, xt,
                                                             beta=0.0))
@@ -670,14 +719,13 @@ def phase_dvals(rec: dict) -> None:
         flops = 2 * real * tb * tb * F_MSDR
         nbytes = (2 * n * F_MSDR * 4 + p.mask.numel() * 4
                   + (p.ptr.numel() + p.nnzb) * 4)
-        line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    **bound(flops, nbytes))
+        line = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, **bound_3xtf32(flops, nbytes, ms))
         emit("dvals", pattern=name, case="timing", shape=[n, F_MSDR],
              nnzb=real, slots=real * tb * tb,
              pattern_nnz=int(edges.values().numel()), flops=flops,
              bytes=nbytes, **line,
-             library_ms_pattern_entries_only=lib_edges_ms,
-             achieved_tflops=flops / ms / 1e9)
+             library_ms_pattern_entries_only=lib_edges_ms)
         if name == "cli_graph":
             rec["spmm_dvals"] = dict(
                 name="spmm_dvals", route="cuda",
@@ -699,14 +747,16 @@ def ring_kernels_only(R, a_rot, bufs, accs, outs, streams) -> None:
     streams, without the copies and their events."""
     import torch
 
+    from gptst_tpu_torch.kernels.build import load
+
+    lib = load("ring_spmm")
     cur = torch.cuda.current_stream()
     parts = len(a_rot)
     for p in range(parts):
         streams[p].wait_stream(cur)
-        with torch.cuda.stream(streams[p]):
-            for s in range(parts):
-                R.ring_step(a_rot[p], s, bufs[p][s % 2], accs[p],
-                            outs[p] if s == parts - 1 else None)
+        for s in range(parts):
+            R.ring_step(lib, a_rot[p], s, bufs[p][s % 2], accs[p],
+                        outs[p] if s == parts - 1 else None, streams[p])
     for p in range(parts):
         cur.wait_stream(streams[p])
 
@@ -747,6 +797,7 @@ def ring_case(rec: dict, name: str, adj, feat: int, parts: int,
         got = fn(xs)
     blocks = R._rotate_blocks(partition_adjacency(adj, parts))
     a_rot = [torch.as_tensor(b, device="cuda") for b in blocks]
+    a_pad = [torch.as_tensor(b, device="cuda") for b in R._pad_blocks(blocks)]
     del blocks
     errs = {"f32": compare(gather_rows(got, x.device),
                            gather_rows(R.ring_spmm_plain(a_rot, xs), x.device),
@@ -768,26 +819,52 @@ def ring_case(rec: dict, name: str, adj, feat: int, parts: int,
     compare(gn, gather_rows(R.ring_spmm_plain(a_rot, xns), x.device), "f32")
     nan = torch.isnan(gn)
     assert bool(nan[:, feat // 2].all()) and int(nan.sum()) == n_pad
+    # an Inf in one x row: +Inf in every output row of its column whose
+    # weight is nonzero, NaN (0 * Inf) in the others
+    xi = x.clone()
+    xi[n_pad // 3, feat // 2] = float("inf")
+    xis = shard_rows(xi, mesh)
+    gi = gather_rows(fn(xis), x.device)
+    errs["inf_x"] = compare(
+        gi, gather_rows(R.ring_spmm_plain(a_rot, xis), x.device), "f32")
+    col = gi[:, feat // 2]
+    assert bool(torch.isinf(col).any()) and bool(torch.isnan(col).any())
+    assert int((~torch.isfinite(gi)).sum()) == n_pad
+    # FLT_MAX (the top binade, where rounding to TF32 would overflow),
+    # alone in its column, under weights <= 1: finite everywhere
+    xm = x.clone()
+    xm[:, feat // 2] = 0.0
+    xm[n_pad // 3, feat // 2] = FLT_MAX
+    xms = shard_rows(xm, mesh)
+    gm = gather_rows(fn(xms), x.device)
+    errs["flt_max_x"] = compare(
+        gm, gather_rows(R.ring_spmm_plain(a_rot, xms), x.device), "f32")
+    assert bool(torch.isfinite(gm).all()) and float(gm.abs().max()) > 1e36
     line.update(max_abs_err=errs, nan_rows=int(nan.any(dim=1).sum()),
-                tol={k: dict(zip(("rtol", "atol"), TOL[k])) for k in errs})
+                inf_x_inf_rows=int(torch.isinf(col).sum()),
+                inf_x_nan_rows=int(torch.isnan(col).sum()),
+                tol={k: dict(zip(("rtol", "atol"),
+                                 TOL["bf16" if k == "bf16" else "f32"]))
+                     for k in errs})
 
     # timings (CUDA events, median of 20)
-    bufs = [torch.zeros(2, n_loc, feat, device="cuda") for _ in range(parts)]
+    bufs = [torch.zeros(2, feat, R._ring_k(n_loc), device="cuda")
+            for _ in range(parts)]
     accs = [torch.zeros(n_loc, feat, device="cuda") for _ in range(parts)]
     outs = [torch.zeros(n_loc, feat, device="cuda") for _ in range(parts)]
     streams = [torch.cuda.Stream() for _ in range(parts)]
     ring_fn, _ = make_ring_spmm(mesh, adj)
-    a_pad = torch.zeros(n_pad, n_pad, device="cuda")
-    a_pad[:adj.shape[0], :adj.shape[0]] = torch.as_tensor(
+    a_dense = torch.zeros(n_pad, n_pad, device="cuda")
+    a_dense[:adj.shape[0], :adj.shape[0]] = torch.as_tensor(
         np.asarray(adj, np.float32), device="cuda")
     line.update(
         ms=time_ms(lambda: fn(xs)),
         kernels_only_ms=time_ms(lambda: ring_kernels_only(
-            R, a_rot, bufs, accs, outs, streams)),
+            R, a_pad, bufs, accs, outs, streams)),
         plain_ms=time_ms(lambda: R.ring_spmm_plain(a_rot, xs)),
         make_ring_spmm_ms=time_ms(lambda: ring_fn(x)),
-        library_ms=time_ms(lambda: torch.matmul(a_pad, x)))
-    torch.testing.assert_close(ring_fn(x), torch.matmul(a_pad, x),
+        library_ms=time_ms(lambda: torch.matmul(a_dense, x)))
+    torch.testing.assert_close(ring_fn(x), torch.matmul(a_dense, x),
                                rtol=1e-5, atol=1e-5)
     # the work the function does: dense blocks, 2 n_pad^2 F FLOPs; its
     # bytes: the blocks, x and out once, and each of the P (P - 1) shard
@@ -795,11 +872,11 @@ def ring_case(rec: dict, name: str, adj, feat: int, parts: int,
     flops = 2 * n_pad * n_pad * feat
     nbytes = (n_pad * n_pad * 4 + 2 * n_pad * feat * 4
               + 2 * parts * (parts - 1) * n_loc * feat * 4)
-    line.update(flops=flops, bytes=nbytes, **bound(flops, nbytes),
-                achieved_tflops=flops / line["ms"] / 1e9,
+    line.update(flops=flops, bytes=nbytes,
+                **bound_3xtf32(flops, nbytes, line["ms"]),
                 kernels_only_tflops=flops / line["kernels_only_ms"] / 1e9)
     emit("ring", **line)
-    del a_rot, a_pad
+    del a_rot, a_pad, a_dense
     torch.cuda.empty_cache()
     return line
 
@@ -871,8 +948,10 @@ def phase_ring(rec: dict) -> None:
         replaces="gptst_tpu/kernels/halo_spmm.py:39 (_ring_kernel, "
                  "called at :112)",
         launches=main["launches"], max_abs_err=main["max_abs_err"]["f32"],
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")})
+        **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "bound_ms_fp32", "bound_by_fp32",
+                                "achieved_tflops", "of_bound",
+                                "of_bound_fp32")})
 
 
 def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:

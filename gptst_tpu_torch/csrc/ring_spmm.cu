@@ -25,141 +25,125 @@
 //
 // What bounds it: at the card shape (16,384 nodes over P = 4 ranks,
 // F = 1,616) a call multiplies dense blocks, 2 * 16384^2 * 1616 =
-// 867.6 GFLOP, 12.95 ms at the 67 TFLOP/s of FP32 outside the tensor
-// cores; its bytes (the blocks, x, out and the shard copies, ~1.9 GB)
-// take ~0.57 ms at 3.35 TB/s. It is bound by operations. This design
-// keeps every product in FP32 FMAs (no tensor cores, so no TF32): a
-// 128 x 128 output tile per CUDA block of 256 threads, 8 x 8 outputs
-// per thread (64 FMAs per 16 shared-memory loads), the inputs staged
-// through shared memory 8 columns of A at a time. It multiplies every
-// block, zeros included, as the TPU kernel does: a NaN or Inf in any x
-// row reaches every output row of its column on every rank. Rows past
-// n_loc and features past F are masked. Tensor cores (wgmma, 3xTF32),
-// TMA, and a kernel that stores into a peer's memory itself are later
-// work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+// 867.6 GFLOP. As 3xTF32 on the tensor cores that is 3 x 867.6 GFLOP
+// at 495 TFLOP/s = 5.26 ms (12.95 ms on the FP32 pipe at 67 TFLOP/s);
+// its bytes (the blocks, x, out and the shard copies, ~1.9 GB) take
+// ~0.57 ms at 3.35 TB/s. It is bound by operations.
+//
+// Design: the f32 product on the tensor cores as 3xTF32 (tf32x3.cuh,
+// `wg`): a 128 x 128 output tile per CUDA block of two warpgroups, each
+// 64 x 128 by wgmma.mma_async.m64n128k8, both operands K-major in
+// shared memory. wgmma takes a TF32 B operand only K-major, so the ring
+// holds x transposed: its double buffer is (2, F, K), K = n_loc rounded
+// up to 4 with zero columns, written once per rank and call by the copy
+// of the shard into buffer 0 (the peer copies move x^T shards as they
+// are), and the rotated blocks are stored (n_loc, P, K) with zero
+// columns past n_loc, so every row is 16-byte aligned. Slices of 32
+// columns of A and of x^T go through 3 shared-memory stages filled by
+// cp.async 16-byte copies; when a stage lands, each thread splits the
+// values it copied (hi in place, lo beside it), and the 8 warps issue
+// the stage's 12 wgmmas into fresh accumulators, splitting the next
+// stage while they run; f32 adds fold the fresh sums into the running
+// ones. One CUDA block (193 KB of shared memory) per SM.
+//
+// Non-finite values: every block is multiplied, zeros included, as the
+// TPU kernel does, so a NaN or Inf in any x row reaches every output
+// row of its column on every rank. The main product a_hi . x_hi carries
+// Inf and NaN as the dense f32 product does (0 * Inf = NaN,
+// c * Inf = +-Inf), and the two correction products take the operands
+// zeroed where they are not finite (tf32x3.cuh). Rows past n_loc and
+// features past F are masked.
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBM = 128;       // output rows per CUDA block
-constexpr int kBN = 128;       // output features per CUDA block
-constexpr int kBK = 8;         // inner-dimension slice per stage
-constexpr int kTM = kBM / 16;  // rows per thread
-constexpr int kTN = kBN / 16;  // features per thread
+using namespace gptst;
+namespace wg = tf32x3::wg;
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+constexpr int kRingBM = 128;  // output rows per CUDA block
+constexpr int kRingBN = 128;  // output features per CUDA block
 
-// acc (n, F) f32 (+)= a (n x n, row stride lda) . x (n, F); with `out`
+// acc (n, F) f32 (+)= a (n x K, row stride lda) . xt (F x K)^T, K = n
+// rounded up to 4 (a's and xt's columns past n are zero); with `out`
 // set, the result goes to out (in OT) instead of acc.
 template <typename OT>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(wg::kThreads, 1)
 ring_spmm_kernel(const float* __restrict__ a, size_t lda,
-                 const float* __restrict__ x, float* __restrict__ acc,
-                 OT* __restrict__ out, int n, int F, int accumulate) {
-  // a slice k-major, padded so that the transposing stores hit 32 banks
-  __shared__ float as[kBK][kBM + 4];
-  __shared__ float xs[kBK][kBN];
-  const int t = threadIdx.x;
-  const int ty = t / 16;
-  const int tx = t % 16;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  float c[kTM][kTN];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m)
-#pragma unroll
-    for (int q = 0; q < kTN; ++q) c[m][q] = 0.f;
+                 const float* __restrict__ xt, float* __restrict__ acc,
+                 OT* __restrict__ out, int n, int F, int K, int accumulate) {
+  extern __shared__ __align__(1024) char smem[];
+  const int row0 = blockIdx.y * kRingBM;
+  const int col0 = blockIdx.x * kRingBN;
+  float c[wg::kAccs];
+  wg::run(c, smem, a + (size_t)row0 * lda, lda, n - row0,
+          xt + (size_t)col0 * K, (size_t)K, F - col0, K);
 
-  for (int k0 = 0; k0 < n; k0 += kBK) {
+  // the m64n128 accumulator layout: warp w of warpgroup h holds rows
+  // 64 h + 16 w + g (+ 8), columns 8 j + 2 t (+ 1), g = lane / 4,
+  // t = lane % 4, in c[4 j .. 4 j + 3]
+  const int lane = threadIdx.x % 32;
+  const int r = row0 + 16 * (threadIdx.x / 32) + lane / 4;
 #pragma unroll
-    for (int j = 0; j < kBM * kBK / kThreads; ++j) {
-      const int idx = t + j * kThreads;
-      const int r = idx / kBK;
-      const int kk = idx % kBK;
-      const int row = row0 + r;
-      const int k = k0 + kk;
-      as[kk][r] = (row < n && k < n) ? a[(size_t)row * lda + k] : 0.f;
-    }
+  for (int j = 0; j < wg::kAccs / 4; ++j)
 #pragma unroll
-    for (int j = 0; j < kBK * kBN / kThreads; ++j) {
-      const int idx = t + j * kThreads;
-      const int kk = idx / kBN;
-      const int cc = idx % kBN;
-      const int k = k0 + kk;
-      const int col = col0 + cc;
-      xs[kk][cc] = (k < n && col < F) ? x[(size_t)k * F + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM];
-      float xv[kTN];
-#pragma unroll
-      for (int m = 0; m < kTM; ++m) av[m] = as[kk][ty + 16 * m];
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) xv[q] = xs[kk][tx + 16 * q];
-#pragma unroll
-      for (int m = 0; m < kTM; ++m)
-#pragma unroll
-        for (int q = 0; q < kTN; ++q) c[m][q] = fmaf(av[m], xv[q], c[m][q]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int row = row0 + ty + 16 * m;
-    if (row >= n) continue;
-#pragma unroll
-    for (int q = 0; q < kTN; ++q) {
-      const int col = col0 + tx + 16 * q;
-      if (col >= F) continue;
-      const size_t i = (size_t)row * F + col;
-      const float v = accumulate ? acc[i] + c[m][q] : c[m][q];
+    for (int e = 0; e < 4; ++e) {
+      const int row = r + 8 * (e / 2);
+      const int col = col0 + 8 * j + 2 * (lane % 4) + e % 2;
+      if (row >= n || col >= F) continue;
+      const size_t idx = (size_t)row * F + col;
+      const float v = accumulate ? acc[idx] + c[4 * j + e] : c[4 * j + e];
       if (out != nullptr) {
-        store(out + i, v);
+        store(out + idx, v);
       } else {
-        acc[i] = v;
+        acc[idx] = v;
       }
     }
-  }
+}
+
+template <typename OT>
+cudaError_t launch(const float* a, size_t lda, const float* xt, float* acc,
+                   OT* out, int n, int F, int accumulate, cudaStream_t s) {
+  const int K = (n + 3) / 4 * 4;
+  // 16-byte copies: rows and the block's first column 16-byte aligned
+  if (lda % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xt) % 16 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ring_spmm_kernel<OT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((F + kRingBN - 1) / kRingBN, (n + kRingBM - 1) / kRingBM);
+  ring_spmm_kernel<OT><<<grid, wg::kThreads, wg::kSmemBytes, s>>>(
+      a, lda, xt, acc, out, n, F, K, accumulate);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // One ring step of one rank: acc (n_loc, F) f32 (+)= a . x, where a is
-// the (n_loc x n_loc) block at `a` with row stride `lda` (elements), x
-// is (n_loc, F) f32. accumulate = 0 writes, 1 adds to acc. With `out`
-// non-null (the last step) the sum goes to out instead, in f32
-// (out_bf16 = 0) or bf16 (1), and acc is only read. Launches on
+// the (n_loc x n_loc) block at `a` with row stride `lda` (elements) and
+// x is given transposed: `xt` (F, K) f32 with K = n_loc rounded up to
+// 4; a's columns and xt's columns past n_loc (up to K) must be zero,
+// and a, xt and lda 16-byte aligned. accumulate = 0 writes, 1 adds to
+// acc. With `out` non-null (the last step) the sum goes to out instead,
+// in f32 (out_bf16 = 0) or bf16 (1), and acc is only read. Launches on
 // `stream`; returns the launch's cudaError_t (0 on success).
-extern "C" int ring_spmm(const void* a, long long lda, const void* x,
+extern "C" int ring_spmm(const void* a, long long lda, const void* xt,
                          void* acc, void* out, int n_loc, int F,
                          int accumulate, int out_bf16, void* stream) {
   if (n_loc <= 0 || F <= 0 || lda < n_loc) return cudaErrorInvalidValue;
   if (accumulate && acc == nullptr) return cudaErrorInvalidValue;
   if (out == nullptr && acc == nullptr) return cudaErrorInvalidValue;
-  dim3 grid((F + kBN - 1) / kBN, (n_loc + kBM - 1) / kBM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ap = static_cast<const float*>(a);
-  const float* xp = static_cast<const float*>(x);
+  const float* xp = static_cast<const float*>(xt);
   float* accp = static_cast<float*>(acc);
   if (out_bf16) {
-    ring_spmm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        ap, (size_t)lda, xp, accp, static_cast<__nv_bfloat16*>(out), n_loc,
-        F, accumulate);
-  } else {
-    ring_spmm_kernel<float><<<grid, kThreads, 0, s>>>(
-        ap, (size_t)lda, xp, accp, static_cast<float*>(out), n_loc, F,
-        accumulate);
+    return launch(ap, (size_t)lda, xp, accp,
+                  static_cast<__nv_bfloat16*>(out), n_loc, F, accumulate, s);
   }
-  return cudaGetLastError();
+  return launch(ap, (size_t)lda, xp, accp, static_cast<float*>(out), n_loc,
+                F, accumulate, s);
 }
 
 // Copy `bytes` from src on card src_dev to dst on card dst_dev, ordered

@@ -11,6 +11,11 @@ passed in, P steps in all:
           slot (s + 1) % 2 of its left neighbour, and meanwhile runs
           acc_p (+)= A_rot[p][:, s] . buf_p[s % 2]   (`csrc/ring_spmm.cu`)
 
+On CUDA ranks the buffers hold x^T shards, (F, K) with K = n_loc
+rounded up to 4 (the tensor-core kernel reads both operands K-major),
+written by the copy of each shard into slot 0; the peer copies move
+them as they are.
+
 The TPU kernel (`gptst_tpu/kernels/halo_spmm.py:_ring_kernel`) runs the
 whole ring inside one kernel per device, with RDMA and semaphores. On
 CUDA ranks here the block product is the kernel (`ring_spmm`, P launches
@@ -26,10 +31,13 @@ has a compute stream and a copy stream, the copies are peer copies
     read that slot too, has finished. It runs on another stream than
     p's copy, so the stream order does not cover it.
 
-Buffers used on the side streams are marked with `record_stream`, so
-the caching allocator does not hand their memory out while a copy or
-kernel still runs; the caller's current stream waits on every rank's
-last event (no host synchronize), so the result is ordered on it.
+The streams, buffers, accumulators and events are made once per
+`make_fused_ring_spmm` and reused by every call (`_RingState`); a call
+writes a rank's buffer only after the last call's kernels and copies of
+that rank. Memory used on the side streams is marked with
+`record_stream`, so the caching allocator does not hand it out while a
+copy or kernel still runs; the caller's current stream waits on every
+rank's last event (no host synchronize), so the result is ordered on it.
 `cudaStreamWaitEvent` works across cards, and every event is recorded
 on a stream of the card whose work it marks: the same code runs P ranks
 on one card or on P cards.
@@ -61,6 +69,21 @@ def _rotate_blocks(blocks: np.ndarray) -> np.ndarray:
     return out
 
 
+def _ring_k(n_loc: int) -> int:
+    """The kernel's inner dimension: n_loc rounded up to 4, so that every
+    row of the blocks and of the transposed buffers is 16-byte aligned."""
+    return -(-n_loc // 4) * 4
+
+
+def _pad_blocks(blocks: np.ndarray) -> np.ndarray:
+    """(P, n_loc, P, n_loc) ring-ordered blocks -> (P, n_loc, P, K) with
+    zero columns past n_loc: the CUDA ranks' layout."""
+    n_loc = blocks.shape[1]
+    out = np.zeros((*blocks.shape[:3], _ring_k(n_loc)), np.float32)
+    out[..., :n_loc] = blocks
+    return out
+
+
 def ring_spmm_plain(a_rot: list[torch.Tensor],
                     xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """The ring schedule in torch ops: a_rot[p] (n_loc, P, n_loc) f32,
@@ -79,98 +102,101 @@ def ring_spmm_plain(a_rot: list[torch.Tensor],
     return [acc.to(x.dtype) for acc, x in zip(accs, xs)]
 
 
-def ring_step(a_rot: torch.Tensor, s: int, buf: torch.Tensor,
-              acc: torch.Tensor | None, out: torch.Tensor | None) -> None:
-    """Launch the kernel of ring step `s` of one rank on the current
-    stream of its card: acc (+)= a_rot[:, s] . buf (step 0 writes), or,
-    with `out`, the sum into out in its dtype. a_rot (n_loc, P, n_loc)
-    f32, buf and acc (n_loc, F) f32, out (n_loc, F) f32 or bf16; all
-    contiguous on one CUDA device."""
-    if a_rot.dim() != 3 or a_rot.shape[0] != a_rot.shape[2]:
-        raise ValueError(f"a_rot must be (n_loc, P, n_loc), got "
-                         f"{tuple(a_rot.shape)}")
-    n_loc, parts = a_rot.shape[0], a_rot.shape[1]
-    if not 0 <= s < parts:
-        raise ValueError(f"step {s} outside [0, {parts})")
-    if buf.dim() != 2 or buf.shape[0] != n_loc or buf.shape[1] == 0:
-        raise ValueError(f"buf must be (n_loc={n_loc}, F), got "
-                         f"{tuple(buf.shape)}")
-    f = buf.shape[1]
-    ts = [t for t in (a_rot, buf, acc, out) if t is not None]
-    for t in ts:
-        if t.device != buf.device or t.device.type != "cuda":
-            raise ValueError(f"ring_step: operand on {t.device}, buf on "
-                             f"{buf.device}; all must be on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError("ring_step operands must be contiguous")
-    for t, what in ((a_rot, "a_rot"), (buf, "buf"), (acc, "acc")):
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"{what} must be float32, got {t.dtype}")
-    for t, what in ((acc, "acc"), (out, "out")):
-        if t is not None and t.shape != buf.shape:
-            raise ValueError(f"{what} shape {tuple(t.shape)} differs from "
-                             f"buf {tuple(buf.shape)}")
-    if out is not None and out.dtype not in _OUT_DTYPES:
-        raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
-    if acc is None and (s > 0 or out is None):
-        raise ValueError("acc is needed unless step 0 writes out")
-    from gptst_tpu_torch.kernels.build import load
-
-    lib = load("ring_spmm")
-    with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = lib.ring_spmm(
-            a_rot.data_ptr() + s * n_loc * a_rot.element_size(),
-            parts * n_loc, buf.data_ptr(),
-            acc.data_ptr() if acc is not None else None,
-            out.data_ptr() if out is not None else None,
-            n_loc, f, int(s > 0), int(out is not None
-                                      and out.dtype == torch.bfloat16),
-            stream)
+def ring_step(lib, a_rot: torch.Tensor, s: int, buf: torch.Tensor,
+              acc: torch.Tensor | None, out: torch.Tensor | None,
+              stream) -> None:
+    """Launch the kernel of ring step `s` of one rank on `stream`:
+    acc (+)= a_rot[:, s] . buf^T (step 0 writes), or, with `out`, the
+    sum into out in its dtype. a_rot (n_loc, P, K) f32 and buf (F, K)
+    f32 (an x^T shard), K = n_loc rounded up to 4, their columns past
+    n_loc zero (`_pad_blocks`); acc (n_loc, F) f32, out (n_loc, F) f32 or
+    bf16; all contiguous on the stream's card. Unchecked: `_ring_cuda`
+    checks the operands once per call and owns every buffer."""
+    n_loc, parts, k = a_rot.shape
+    err = lib.ring_spmm(
+        a_rot.data_ptr() + s * k * a_rot.element_size(), parts * k,
+        buf.data_ptr(), acc.data_ptr() if acc is not None else None,
+        out.data_ptr() if out is not None else None,
+        n_loc, buf.shape[0], int(s > 0),
+        int(out is not None and out.dtype == torch.bfloat16),
+        stream.cuda_stream)
     _raise_on(err, "ring_spmm")
     LAUNCHES["ring_spmm"] += 1
 
 
-def _ring_cuda(a_rot: list[torch.Tensor], xs: list[torch.Tensor],
-               comp: list[torch.cuda.Stream],
-               copy: list[torch.cuda.Stream]) -> list[torch.Tensor]:
-    """The ring on CUDA ranks: P^2 kernel launches and P(P-1) copies,
-    ordered by events (see the module docstring)."""
-    from gptst_tpu_torch.kernels.build import load
+class _RingState:
+    """What every call of one fused ring reuses: the library, each rank's
+    compute and copy streams, its double buffer of x^T shards, (2, F, K)
+    f32 with K = n_loc rounded up to 4 and zero columns past n_loc, its
+    (n_loc, F) f32 accumulator, and the events of the schedule. Before a
+    call writes a rank's buffer, the caller's stream waits for the last
+    call's kernels and copies of that rank (`done`): the caller may be
+    another stream than the last call's."""
 
-    lib = load("ring_spmm")
+    def __init__(self, lib, devs: list[torch.device], n_loc: int,
+                 feat: int, comp: list, copy: list):
+        parts = len(devs)
+        self.lib, self.devs, self.comp, self.copy = lib, devs, comp, copy
+        self.bufs, self.accs = [], []
+        for p, d in enumerate(devs):
+            buf = torch.zeros((2, feat, _ring_k(n_loc)),
+                              dtype=torch.float32, device=d)
+            acc = (torch.empty((n_loc, feat), dtype=torch.float32, device=d)
+                   if parts > 1 else None)
+            # freed only when every queued kernel and copy has finished
+            for t in (buf, acc):
+                if t is not None:
+                    t.record_stream(comp[p])
+                    t.record_stream(copy[p])
+                    t.record_stream(copy[(p + 1) % parts])
+            self.bufs.append(buf)
+            self.accs.append(acc)
+
+        def events(n):
+            return [[torch.cuda.Event() for _ in range(n)]
+                    for _ in range(parts)]
+
+        self.ready = [torch.cuda.Event() for _ in range(parts)]
+        self.kern = events(parts)                  # [rank][step]
+        self.sent = events(max(parts - 1, 1))      # [rank][step]
+        self.done = events(2)      # [rank][compute, copy] of the last call
+        self.called = False
+
+
+def _ring_cuda(a_rot: list[torch.Tensor], xs: list[torch.Tensor],
+               st: _RingState) -> list[torch.Tensor]:
+    """The ring on CUDA ranks: P^2 kernel launches and P(P-1) copies,
+    ordered by events (see the module docstring). The operands are
+    checked by the caller."""
     parts = len(xs)
-    devs = [x.device for x in xs]
+    devs, comp, copy, bufs, accs = st.devs, st.comp, st.copy, st.bufs, st.accs
+    kern, sent = st.kern, st.sent
     callers = [torch.cuda.current_stream(d) for d in devs]
-    bufs, accs, outs, ready = [], [], [], []
+    outs = []
     for p in range(parts):
         with torch.cuda.device(devs[p]):
-            buf = torch.empty((2, *xs[p].shape), dtype=torch.float32,
-                              device=devs[p])
-            buf[0].copy_(xs[p])
-            bufs.append(buf)
-            accs.append(torch.empty_like(buf[0]) if parts > 1 else None)
+            if st.called:
+                # the last call's kernels on p (which waited for the
+                # copies into its buffer) and p's copies out of it
+                callers[p].wait_event(st.done[p][0])
+                callers[p].wait_event(st.done[p][1])
+            bufs[p][0, :, :xs[p].shape[0]].copy_(xs[p].t())
             outs.append(torch.empty_like(xs[p]))
-            ev = torch.cuda.Event()
-            ev.record(callers[p])
-            ready.append(ev)
+            st.ready[p].record(callers[p])
     for p in range(parts):
-        comp[p].wait_event(ready[p])
-        copy[p].wait_event(ready[p])
-        copy[p].wait_event(ready[(p - 1) % parts])   # writes into left
+        comp[p].wait_event(st.ready[p])
+        copy[p].wait_event(st.ready[p])
+        copy[p].wait_event(st.ready[(p - 1) % parts])   # writes into left
     nbytes = bufs[0][0].numel() * 4
-    kern = [[None] * parts for _ in range(parts)]   # [rank][step]
-    sent = [[None] * parts for _ in range(parts)]   # [rank][step]
     for s in range(parts):
         slot, nxt = s % 2, (s + 1) % 2
         for p in range(parts):
-            if s > 0:
-                comp[p].wait_event(sent[(p + 1) % parts][s - 1])    # recv
-            with torch.cuda.stream(comp[p]):
-                ring_step(a_rot[p], s, bufs[p][slot], accs[p],
-                          outs[p] if s == parts - 1 else None)
-            kern[p][s] = torch.cuda.Event()
-            kern[p][s].record(comp[p])
+            with torch.cuda.device(devs[p]):
+                if s > 0:
+                    comp[p].wait_event(sent[(p + 1) % parts][s - 1])  # recv
+                ring_step(st.lib, a_rot[p], s, bufs[p][slot], accs[p],
+                          outs[p] if s == parts - 1 else None, comp[p])
+                kern[p][s].record(comp[p])
         if s == parts - 1:
             break
         for p in range(parts):
@@ -180,20 +206,19 @@ def _ring_cuda(a_rot: list[torch.Tensor], xs: list[torch.Tensor],
                 copy[p].wait_event(kern[left][s - 1])               # free
                 copy[p].wait_event(sent[left][s - 1])               # send
             with torch.cuda.device(devs[p]):
-                err = lib.ring_copy(bufs[left][nxt].data_ptr(),
-                                    devs[left].index,
-                                    bufs[p][slot].data_ptr(), devs[p].index,
-                                    nbytes, copy[p].cuda_stream)
+                err = st.lib.ring_copy(bufs[left][nxt].data_ptr(),
+                                       devs[left].index,
+                                       bufs[p][slot].data_ptr(),
+                                       devs[p].index, nbytes,
+                                       copy[p].cuda_stream)
             _raise_on(err, "ring_copy")
-            sent[p][s] = torch.cuda.Event()
             sent[p][s].record(copy[p])
     for p in range(parts):
+        st.done[p][0].record(comp[p])
+        st.done[p][1].record(copy[p])
         callers[p].wait_event(kern[p][parts - 1])
-        for t in (bufs[p], accs[p], outs[p]):
-            if t is not None:
-                t.record_stream(comp[p])
-                t.record_stream(copy[(p + 1) % parts])    # writes into p
-                t.record_stream(copy[p])                  # reads from p
+        outs[p].record_stream(comp[p])
+    st.called = True
     return outs
 
 
@@ -209,9 +234,17 @@ def make_fused_ring_spmm(mesh: Mesh, adj: np.ndarray, feat: int):
     devs = mesh.graph_devices
     blocks = _rotate_blocks(partition_adjacency(adj, parts))
     n_loc = blocks.shape[1]
-    a_rot = [torch.as_tensor(blocks[p]).to(devs[p]) for p in range(parts)]
     on_cuda = devs[0].type == "cuda"
-    streams: dict[str, list] = {}
+    if on_cuda:
+        blocks = _pad_blocks(blocks)
+    a_rot = [torch.as_tensor(blocks[p]).to(devs[p]) for p in range(parts)]
+    del blocks
+    if on_cuda:
+        from gptst_tpu_torch.kernels.build import load
+
+        state = _RingState(load("ring_spmm"), devs, n_loc, feat,
+                           [torch.cuda.Stream(d) for d in devs],
+                           [torch.cuda.Stream(d) for d in devs])
 
     def fn(xs: list[torch.Tensor]) -> list[torch.Tensor]:
         if len(xs) != parts:
@@ -229,9 +262,6 @@ def make_fused_ring_spmm(mesh: Mesh, adj: np.ndarray, feat: int):
             return ring_spmm_plain(a_rot, xs)
         if not all(x.is_contiguous() for x in xs):
             raise ValueError("shards must be contiguous")
-        if not streams:
-            streams["comp"] = [torch.cuda.Stream(d) for d in devs]
-            streams["copy"] = [torch.cuda.Stream(d) for d in devs]
-        return _ring_cuda(a_rot, xs, streams["comp"], streams["copy"])
+        return _ring_cuda(a_rot, xs, state)
 
     return fn, n_loc * parts

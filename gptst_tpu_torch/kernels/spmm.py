@@ -462,8 +462,11 @@ def _row_tiles(t: torch.Tensor, n_pad: int, tile: int) -> torch.Tensor:
 
 def spmm_dvals_plain(bcsr: BlockCSR, g: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
-    """d block_vals[b] = dY[row tile b] @ X[col tile b]^T in f32, with
-    the pad blocks zero. g, x: (..., N, C)."""
+    """d block_vals[b] = dY[row tile b] @ X[col tile b]^T, with the pad
+    blocks zero. g, x: (..., N, C). The products are summed in float64
+    and rounded to f32 once: a reference for the kernel that is exact
+    to f32, whatever order the kernel sums in (an f32 sum over F ~ 1000
+    terms can be off by twice the kernels' tolerance)."""
     rt = bcsr.row_tiles
     ptr = bcsr.block_ptr.long()
     nb = int(ptr[-1])
@@ -474,7 +477,8 @@ def spmm_dvals_plain(bcsr: BlockCSR, g: torch.Tensor,
               for t in (g, x))
     out = torch.zeros(bcsr.block_vals.shape, dtype=torch.float32,
                       device=g.device)
-    out[:nb] = torch.bmm(gt[rows], xt[cols].transpose(1, 2))
+    out[:nb] = torch.bmm(gt[rows].double(),
+                         xt[cols].transpose(1, 2).double()).float()
     return out
 
 

@@ -282,9 +282,11 @@ DVALS_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("tile,n,f", [(16, 150, 7), (64, 200, 130),
-                                      (128, 300, 1030)])
+                                      (128, 300, 1030), (128, 300, 1024)])
 def test_cuda_spmm_dvals_matches_plain(card, tile, n, f):
-    """Ragged N and F, f32 and bf16 g and x, pad blocks zero."""
+    """Ragged N and F, f32 and bf16 g and x, pad blocks zero. At TB = 128
+    with F a multiple of 4, f32 g and x take the warpgroup (wgmma) path,
+    every other case the mma.sync path."""
     a = K.BlockCSR.from_dense(_graph(n, seed=23, density=0.03), tile,
                               device=card)
     g, x = torch.randn(n, f, device=card), torch.randn(n, f, device=card)
@@ -317,6 +319,34 @@ def test_cuda_spmm_dvals_nan_reaches_its_column_tile(card):
     assert bool(torch.isnan(got[:nb][hit][:, :, r % tile]).all())
     assert int(torch.isnan(got).sum()) == int(hit.sum()) * tile
     assert not got[nb:].any()
+
+
+@pytest.mark.parametrize("tile,f", [(16, 7), (128, 1024)])
+def test_cuda_spmm_dvals_inf_and_top_binade(card, tile, f):
+    """3xTF32 keeps the dense product's non-finite values: an Inf in x
+    gives +-Inf where g is nonzero and NaN where g is 0; an x of
+    FLT_MAX (the top binade, where rounding to TF32 would overflow)
+    under g of magnitude <= 0.5 gives finite values. Ragged F = 7 stages
+    by plain loads, F = 1024 by cp.async."""
+    n, r, c = 300, 70, 3
+    a = K.BlockCSR.from_dense(_graph(n, seed=27, density=0.05), tile,
+                              device=card)
+    g, x = torch.randn(n, f, device=card), torch.randn(n, f, device=card)
+    g[: n // 2, c] = 0.0
+    xi = x.clone()
+    xi[r, c] = float("inf")
+    got = K.spmm_dvals(a, g, xi)
+    want = K.spmm_dvals_plain(a, g, xi)
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
+    torch.testing.assert_close(got, want, equal_nan=True, **DVALS_TOL)
+    xm = x.clone()
+    xm[r, c] = torch.finfo(torch.float32).max
+    gm = g.clone()
+    gm[:, c] = gm[:, c].clamp(-0.5, 0.5)
+    got = K.spmm_dvals(a, gm, xm)
+    want = K.spmm_dvals_plain(a, gm, xm)
+    assert bool(torch.isfinite(got).all()) and want.abs().max() > 1e37
+    torch.testing.assert_close(got, want, **DVALS_TOL)
 
 
 def test_cuda_adaptive_support_matches_cpu(card):
@@ -401,11 +431,41 @@ def test_cuda_ring_spmm_nan_reaches_every_row_of_its_column(card):
     assert not torch.isnan(got[:, [0, 1, 2, 4, 5, 6, 7, 8]]).any()
 
 
-def test_cuda_ring_spmm_rejects_what_the_kernel_does_not_take(card):
+@pytest.mark.parametrize("n,f", [(250, 9), (512, 128)])
+def test_cuda_ring_spmm_inf_and_top_binade(card, n, f):
+    """3xTF32 keeps the dense product's non-finite values: an Inf in x
+    gives +Inf in every output row of its column where the row's weight
+    is nonzero and NaN where it is 0; an x of FLT_MAX (the top binade,
+    where rounding to TF32 would overflow) alone in its column, under
+    weights <= 1, gives finite values. Ragged n_loc and F stage by plain
+    loads; n = 512, F = 128 by cp.async."""
     from gptst_tpu_torch.kernels import halo_spmm as R
+    from gptst_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
+    mesh, fn, n_pad, a_rot = _ring(card, 4, n, f, seed=34)
+    x = torch.randn(n_pad, f, device=card)
+    r, c = 100, 3
+    xi = x.clone()
+    xi[r, c] = float("inf")
+    got = gather_rows(fn(shard_rows(xi, mesh)), card)
+    want = gather_rows(R.ring_spmm_plain(a_rot, shard_rows(xi, mesh)), card)
+    assert bool(torch.isnan(want[:, c]).any())
+    assert bool(torch.isinf(want[:, c]).any())
+    torch.testing.assert_close(got, want, equal_nan=True,
+                               **TOL[torch.float32])
+    xm = x.clone()
+    xm[:, c] = 0.0
+    xm[r, c] = torch.finfo(torch.float32).max
+    got = gather_rows(fn(shard_rows(xm, mesh)), card)
+    want = gather_rows(R.ring_spmm_plain(a_rot, shard_rows(xm, mesh)), card)
+    assert bool(torch.isfinite(got).all()) and want.abs().max() > 1e37
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+def test_cuda_ring_spmm_rejects_what_the_kernel_does_not_take(card):
     from gptst_tpu_torch.parallel.mesh import shard_rows
 
-    mesh, fn, n_pad, a_rot = _ring(card, 2, 60, 8, seed=33)
+    mesh, fn, n_pad, _ = _ring(card, 2, 60, 8, seed=33)
     x = torch.randn(n_pad, 8, device=card)
     with pytest.raises(TypeError):
         fn(shard_rows(x.double(), mesh))
@@ -415,10 +475,4 @@ def test_cuda_ring_spmm_rejects_what_the_kernel_does_not_take(card):
         fn(shard_rows(x[:, :7].contiguous(), mesh))          # wrong F
     with pytest.raises(ValueError):
         fn([s.t().contiguous().t() for s in shard_rows(x, mesh)])
-    buf = torch.zeros(n_pad // 2, 8, device=card)
-    with pytest.raises(TypeError):
-        R.ring_step(a_rot[0], 0, buf, None, buf.half())      # out dtype
-    with pytest.raises(ValueError):
-        R.ring_step(a_rot[0], 1, buf, None, buf)             # acc missing
-    with pytest.raises(ValueError):
-        R.ring_step(a_rot[0].cpu(), 0, buf, None, buf)       # a_rot on CPU
+

@@ -227,36 +227,45 @@ class _SimEvent:
 
 def test_ring_event_schedule_orders_every_hazard(monkeypatch):
     """The CUDA ranks' schedule (`_ring_cuda`) with its streams, events
-    and copies simulated on the CPU: each kernel and copy is queued on
-    its stream and runs whole, in a random order that keeps stream order
-    and event waits. Every order must give the plain result; leaving
-    out any one of the recv, free or send waits makes some order fail
-    (checked when the schedule was written)."""
+    and copies simulated on the CPU: each kernel and copy (the copy of x
+    into the double buffer included) is queued on its stream and runs
+    whole, in a random order that keeps stream order and event waits.
+    Each rank has its own caller stream, as with one card per rank, and
+    two calls, each from new caller streams, are queued before any op
+    runs, on the same reused buffers, accumulators and events. Every order must give the plain result of
+    each call; leaving out any one of the recv, free or send waits, or
+    the waits of a call on the last one's kernels and copies, makes some
+    order fail (checked when the schedule was written)."""
     import contextlib
     import ctypes
     import random
 
-    from gptst_tpu_torch.kernels import build as kbuild
-
-    current, keep = [None], []
+    current, device, keep = [None], [None], []
     callers = {}
 
-    def current_stream(device=None):
-        return current[0] or callers.setdefault(str(device), _SimStream())
+    def current_stream(dev=None):
+        return current[0] or callers.setdefault(str(dev or device[0]),
+                                                _SimStream())
 
     @contextlib.contextmanager
-    def on_stream(st):
-        prev, current[0] = current[0], st
+    def on(cell, value):
+        prev, cell[0] = cell[0], value
         try:
             yield
         finally:
-            current[0] = prev
+            cell[0] = prev
 
-    def step(a_rot, s, buf, acc, out):
-        def run():
-            v = a_rot[:, s] @ buf + (acc if s else 0)
-            (acc if out is None else out).copy_(v)
-        current_stream().q.append(("op", run, None))
+    copy_ = torch.Tensor.copy_
+
+    def step(lib, a_rot, s, buf, acc, out, stream):
+        def run():                  # buf holds the x^T shard
+            v = a_rot[:, s] @ buf.t() + (acc if s else 0)
+            copy_(acc if out is None else out, v)
+        stream.q.append(("op", run, None))
+
+    def queued_copy(dst, src):
+        current_stream().q.append(("op", lambda: copy_(dst, src), None))
+        return dst
 
     class Lib:
         @staticmethod
@@ -266,27 +275,34 @@ def test_ring_event_schedule_orders_every_hazard(monkeypatch):
             return 0
 
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
-    monkeypatch.setattr(torch.cuda, "stream", on_stream)
-    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(torch.cuda, "stream", lambda st: on(current, st))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: on(device, d))
     monkeypatch.setattr(torch.cuda, "Event", _SimEvent)
     # record_stream keeps the memory from reuse; here: keeps it alive
     monkeypatch.setattr(torch.Tensor, "record_stream",
                         lambda t, st: keep.append(t))
     monkeypatch.setattr(thalo_k, "ring_step", step)
-    monkeypatch.setattr(kbuild, "load", lambda name: Lib)
     rng = random.Random(0)
     for parts in (1, 2, 3, 4, 8):
         blocks = thalo_k._rotate_blocks(thalo.partition_adjacency(
             np.random.default_rng(parts).normal(size=(4 * parts, 4 * parts)),
             parts))
         a_rot = [torch.as_tensor(b) for b in blocks]
+        comp = [_SimStream() for _ in range(parts)]
+        copy = [_SimStream() for _ in range(parts)]
+        # one caller stream per rank, as with one card per rank
+        devs = [torch.device("cpu", p) for p in range(parts)]
+        ring = thalo_k._RingState(Lib, devs, 4, 3, comp, copy)
         for _ in range(30):
-            xs = [torch.randn(4, 3) for _ in range(parts)]
-            callers.clear()
-            comp = [_SimStream() for _ in range(parts)]
-            copy = [_SimStream() for _ in range(parts)]
-            outs = thalo_k._ring_cuda(a_rot, xs, comp, copy)
-            streams = list(callers.values()) + comp + copy
+            calls = [[torch.randn(4, 3) for _ in range(parts)]
+                     for _ in range(2)]
+            outs, streams = [], comp + copy
+            monkeypatch.setattr(torch.Tensor, "copy_", queued_copy)
+            for xs in calls:      # each call from other caller streams
+                callers.clear()
+                outs.append(thalo_k._ring_cuda(a_rot, xs, ring))
+                streams += callers.values()
+            monkeypatch.setattr(torch.Tensor, "copy_", copy_)
             while any(st.q for st in streams):
                 ready = [st for st in streams if st.q and not (
                     st.q[0][0] == "wait" and st.q[0][1].done < st.q[0][2])]
@@ -296,8 +312,9 @@ def test_ring_event_schedule_orders_every_hazard(monkeypatch):
                     obj()
                 elif kind == "record":
                     obj.done = gen
-            for got, want in zip(outs, thalo_k.ring_spmm_plain(a_rot, xs)):
-                torch.testing.assert_close(got, want, **F32)
+            for out, xs in zip(outs, calls):
+                for got, want in zip(out, thalo_k.ring_spmm_plain(a_rot, xs)):
+                    torch.testing.assert_close(got, want, **F32)
 
 
 @pytest.mark.parametrize("parts", [2, 4])
