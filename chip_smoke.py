@@ -26,7 +26,9 @@ Phases, one JSON line each; any failure exits non-zero:
              patterns (CLI graph: 128 blocks; road graph: 382 blocks)
              and on a ragged 1000-node one: f32 and bf16 e1/e2, a NaN
              in e1. Times the kernel, the plain version and
-             `torch.sparse.sampled_addmm` on the pattern's entries.
+             `torch.sparse.sampled_addmm` on the pattern's entries, by
+             CUDA events and, each kernel alone, by `torch.profiler`
+             (`device_ms_by_kernel`).
   dvals      `spmm_dvals` on the same two patterns at F = 1024 (batch 8
              x the 128-wide z of MSDR) and a ragged F: f32 and bf16 g/x,
              pad blocks zero, a NaN in x, an Inf in x (Inf where g is
@@ -63,16 +65,32 @@ Phases, one JSON line each; any failure exits non-zero:
              mesh=...)`, the road graph through `partition_graph_coo`
              (both the boundary halo exchange); the road graph's losses
              against `dia_model`'s.
+  gptst_model
+             GPT-ST `-mode pretrain` train steps through the library at
+             16,384 nodes, PEMS08's published widths, batch 8, f32: one
+             warm step at epoch 1 (random mask), 3 timed at epoch 2
+             (adaptive mask and KL term, `change_epoch` 1); then bf16
+             steps (`compute_dtype=bfloat16`), whose loss must be finite.
+             No kernel of `csrc/` is on this path (dense einsums).
+  gptst_cli  `python -m gptst_tpu_torch.run -dataset PEMS08 -mode
+             pretrain` (the default `-model`) at PEMS08's 170 nodes,
+             batch 64, 2 epochs across `change_epoch` 1, from a
+             PEMS08.npz the phase writes; the pretrain checkpoint must
+             load strictly into a fresh GPT-ST whose `encode` equals the
+             trained model's.
   profile    `torch.profiler` over 2 TGCN train steps on each graph (and
-             on the CLI graph's halo support) and
-             2 MSDR train steps on the CLI graph: device time by kernel
-             group and the device busy share.
+             on the CLI graph's halo support),
+             2 MSDR train steps on the CLI graph and 2 GPT-ST pretrain
+             steps of `gptst_model`'s shape: device time by kernel
+             group, the busy share and the 10 costliest kernels.
   reference  a small ragged graph (1000 nodes) with and without RCM
              (DIA and block-CSR): the TGCN and MSDR (learned sparse
              adjacency, random nonzero weights) forward and gradients
              with the kernels on the card against the plain versions on
              the CPU; TGCN at 1002 nodes through a halo and a ring
-             `ShardedSupport` on 4 ranks of the card against 4 CPU ranks.
+             `ShardedSupport` on 4 ranks of the card against 4 CPU ranks;
+             GPT-ST's pretrain loss, `encode` and gradients at 64 nodes
+             (hidden 16, mask_ratio 1.0), card against CPU.
 
 Before the last line: one JSON object with every kernel's launches on
 its main path, error, times and bound, and the card's name and power
@@ -97,8 +115,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "sddmm", "dvals", "ring", "cli",
-          "dia_model", "msdr_cli", "msdr_model", "sharded_model", "profile",
-          "reference")
+          "dia_model", "msdr_cli", "msdr_model", "sharded_model",
+          "gptst_model", "gptst_cli", "profile", "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
 # dense TF32 on the tensor cores, and HBM3 bandwidth
@@ -118,6 +136,10 @@ F_MSDR = MSDR_BATCH * 128       # every aggregation of an MSDR step
 # batch 16 x [x ‖ h] = 16 x (1 + 100)
 F_RING = BATCH * (1 + UNITS)
 ADAPT_RANK = 10
+# GPT-ST pretrain: the JAX bench's flagship shape (16,384 nodes) at
+# batch 8, and the CLI at PEMS08's own 170 nodes and batch 64
+GPTST_BATCH = 8
+GPTST_CLI_NODES, GPTST_CLI_BATCH = 170, 64
 
 # rtol of a bf16 output: a different summation order may flip the
 # final rounding by one bf16 ulp (2^-8 relative, up to 2^-7 of the
@@ -621,16 +643,26 @@ def phase_sddmm(rec: dict) -> None:
         plain_ms = time_ms(lambda: S.sddmm_plain(p, e1, e2))
         lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(csr, e1, e2,
                                                             beta=0.0))
+        # each alone on the device: the event times above also hold the
+        # wrapper's host time when the host lags the card
+        dev = {"sddmm_blocks": device_ms_by_kernel(
+                   lambda: S.sddmm_blocks(p, e1, e2)),
+               "sampled_addmm": device_ms_by_kernel(
+                   lambda: torch.sparse.sampled_addmm(csr, e1, e2,
+                                                      beta=0.0))}
         # the function's own work: rank-10 dots at the pattern entries;
         # its bytes: mask in and blocks out (pad blocks included), the
         # embeddings and the block indices, each once
         flops = 2 * nnz * ADAPT_RANK
         nbytes = (2 * p.mask.numel() * 4 + 2 * p.n * ADAPT_RANK * 4
                   + 2 * p.nnzb * 4)
-        line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        line = dict(ms=ms, device_ms=dev["sddmm_blocks"]["sddmm_kernel"],
+                    plain_ms=plain_ms, library_ms=lib_ms,
+                    library_device_ms=sum(dev["sampled_addmm"].values()),
                     **bound(flops, nbytes))
         emit("sddmm", pattern=name, case="timing", nnzb=real,
              pattern_nnz=nnz, flops=flops, bytes=nbytes, **line,
+             device_ms_by_kernel=dev,
              achieved_bytes_per_s=nbytes / ms * 1e3)
         if name == "cli_graph":
             rec["sddmm"] = dict(
@@ -1082,6 +1114,34 @@ def bind(model: str, net, graph: tuple):
                              GraphPredictor(net, *graph))
 
 
+def run_steps(step, warm: int, steps: int, trace: str | None = None):
+    """`step(i)` for i = 1 .. warm + steps, each returning a loss; the
+    last `steps` are timed (host clock, synchronized) and, with
+    `trace`, profiled into that file. Returns the losses (all finite)
+    and ms per timed step."""
+    import numpy as np
+    import torch
+
+    losses = [step(i) for i in range(1, warm + 1)]
+    torch.cuda.synchronize()
+    prof = None
+    if trace:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    losses += [step(i) for i in range(warm + 1, warm + steps + 1)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(trace)
+    losses = [float(v) for v in losses]
+    assert np.isfinite(losses).all(), losses
+    return losses, dt * 1e3
+
+
 def train_steps(model: str, forward, batch: int, warm: int,
                 steps: int, trace: str | None = None):
     """Train steps of a `model` (TGCN or MSDR) module in the ori-mode
@@ -1110,25 +1170,9 @@ def train_steps(model: str, forward, batch: int, warm: int,
     x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     y = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     reset_launch_counts()
-    losses = [train_step(loss_terms, opt, x, y)[0] for _ in range(warm)]
-    torch.cuda.synchronize()
-    prof = None
-    if trace:
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-        prof.__enter__()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(train_step(loss_terms, opt, x, y)[0])
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / steps
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        prof.export_chrome_trace(trace)
-    losses = [float(v) for v in losses]
-    assert np.isfinite(losses).all(), losses
-    return losses, dt * 1e3, dict(LAUNCHES), dense_block_counts()
+    losses, ms = run_steps(lambda i: train_step(loss_terms, opt, x, y)[0],
+                           warm, steps, trace)
+    return losses, ms, dict(LAUNCHES), dense_block_counts()
 
 
 def phase_dia_model(rec: dict) -> None:
@@ -1242,6 +1286,156 @@ def phase_sharded_model(rec: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def gptst_cfg(**kw):
+    """`-mode pretrain` at PEMS08's published widths (hidden 64, embed
+    16, spa 4, HS 10, HT 16, HT_Tem 8, 2 routing rounds, lag = horizon
+    12) at 16,384 nodes, `change_epoch` 1."""
+    from gptst_tpu_torch.config.config import default_config
+
+    return default_config("PEMS08", mode="pretrain", num_nodes=N_BIG,
+                          change_epoch=1, lr_decay=False, **kw)
+
+
+def gptst_net(cfg):
+    """GPT-ST in the pretrain contract, random weights from seed 0."""
+    from gptst_tpu_torch.models.build import build_model
+
+    return build_model(cfg, device="cuda", seed=0, scaler_zeros=-0.5)
+
+
+def gptst_steps(model, cfg, batch: int, epochs: tuple,
+                trace: str | None = None):
+    """Pretrain train steps of `model` through the port's library on
+    random data from seed 0, one at each epoch of `epochs`; the steps
+    after the first are timed and, with `trace`, profiled
+    (`run_steps`). Returns the losses and ms per timed step."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.train.loss import build_loss
+    from gptst_tpu_torch.train.step import make_loss_terms, train_step
+    from gptst_tpu_torch.train.trainer import make_optimizer
+
+    opt = make_optimizer(cfg, model.parameters(), steps_per_epoch=10)
+    loss_terms = make_loss_terms(
+        model, build_loss("mask_mae", 200.0, 100.0, 0.0, True), cfg)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.lag, cfg.num_nodes, 3), np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return run_steps(lambda i: train_step(
+        loss_terms, opt, x, x, i, epoch=epochs[i - 1], generator=gen)[0],
+        1, len(epochs) - 1, trace)
+
+
+def phase_gptst_model(rec: dict) -> None:
+    import torch
+
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+
+    cfg = gptst_cfg(batch_size=GPTST_BATCH)
+    model = gptst_net(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    epochs = (1, 2, 2, 2)
+    losses, ms = gptst_steps(model, cfg, GPTST_BATCH, epochs)
+    peak = torch.cuda.max_memory_allocated()
+    assert not any(LAUNCHES.values()), LAUNCHES   # dense einsums only
+    bf_losses, bf_ms = gptst_steps(
+        model, cfg.replace(compute_dtype="bfloat16"), GPTST_BATCH, (2, 2))
+    emit("gptst_model", nodes=N_BIG, batch=GPTST_BATCH,
+         widths=dict(hidden_dim=cfg.hidden_dim, embed_dim=cfg.embed_dim,
+                     embed_dim_spa=cfg.embed_dim_spa, HS=cfg.HS, HT=cfg.HT,
+                     HT_Tem=cfg.HT_Tem, num_route=cfg.num_route,
+                     lag=cfg.lag, horizon=cfg.horizon),
+         parameters=sum(p.numel() for p in model.parameters()),
+         epochs=epochs, change_epoch=cfg.change_epoch, ms_per_step=ms,
+         samples_per_s=GPTST_BATCH / ms * 1e3, losses=losses,
+         max_memory_allocated=peak, bf16_losses=bf_losses,
+         bf16_ms_per_step=bf_ms)
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_gptst_cli(rec: dict) -> None:
+    """`run.main` in pretrain mode; the trained model is taken from the
+    Trainer, and the checkpoint must give a fresh GPT-ST the same
+    `encode` (rtol 1e-6, atol 1e-6: the same weights on the same card
+    repeat the same products)."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.config.datasets import get_dataset_spec
+    from gptst_tpu_torch.data.synthetic import synthesize_raw_series
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.models.gptst import GPTST, GPTSTConfig
+    from gptst_tpu_torch.run import main
+    from gptst_tpu_torch.train.trainer import Trainer
+
+    trainers = []
+    train = Trainer.train
+
+    def keep(self):
+        trainers.append(self)
+        return train(self)
+
+    epochs, num_steps = 2, 2000
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = get_dataset_spec("PEMS08")
+        assert spec.num_nodes == GPTST_CLI_NODES
+        os.makedirs(os.path.join(tmp, "data", "PEMS08"))
+        np.savez(os.path.join(tmp, "data", "PEMS08", "PEMS08.npz"),
+                 data=synthesize_raw_series(spec, num_steps=num_steps,
+                                            seed=0))
+        metrics = os.path.join(tmp, "metrics.json")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        Trainer.train = keep
+        t0 = time.perf_counter()
+        try:
+            main(["-dataset", "PEMS08", "-mode", "pretrain", "-data_root",
+                  os.path.join(tmp, "data"), "-batch_size",
+                  str(GPTST_CLI_BATCH), "-epochs", str(epochs),
+                  "-change_epoch", "1", "-lr_decay", "False", "-log_dir",
+                  os.path.join(tmp, "save"), "-log_step", "1000",
+                  "-metrics_out", metrics])
+            torch.cuda.synchronize()
+        finally:
+            Trainer.train = train
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        (tr,) = trainers
+        ckpt = os.path.join(tmp, "save", "PEMS08", tr.cfg.save_pretrain_path)
+        assert os.path.isfile(ckpt), ckpt
+        fresh = GPTST(GPTSTConfig.from_framework(
+            tr.cfg, tr.dataset.scaler_zeros)).cuda()
+        fresh.load_state_dict(torch.load(ckpt, map_location="cuda",
+                                         weights_only=True), strict=True)
+        with open(metrics) as f:
+            rep = json.load(f)
+    x = torch.from_numpy(tr.dataset.x_train[:GPTST_CLI_BATCH]).cuda()
+    with torch.no_grad():
+        want = tr.model(x).pred
+        got = fresh.encode(x)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert not any(launches.values()), launches   # dense einsums only
+    vals = np.asarray(rep["per_horizon"] + [rep["average"]], np.float64)
+    assert np.isfinite(vals).all() and np.isfinite(rep["history"]).all()
+    steps = rep["steps_per_epoch"]
+    emit("gptst_cli", mode="pretrain", model_flag="STGCN (default, unread)",
+         nodes=GPTST_CLI_NODES, batch=GPTST_CLI_BATCH, epochs=epochs,
+         change_epoch=1, time_steps=num_steps, steps_per_epoch=steps,
+         ms_per_step_by_epoch=[s / steps * 1e3 for s in rep["epoch_seconds"]],
+         samples_per_s_last_epoch=steps * GPTST_CLI_BATCH
+         / rep["epoch_seconds"][-1],
+         train_flow_loss_by_epoch=rep["history"],
+         best_loss=rep["best_loss"], train_split_average=rep["average"],
+         checkpoint_keys=len(fresh.state_dict()),
+         encode_max_abs_err=float((got - want).abs().max()),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         wall_s=wall)
+
+
 # kernel-name fragments -> what they are on the TGCN and MSDR steps
 KERNEL_GROUPS = (
     ("bsr_spmm_kernel", "bsr_spmm"), ("bsr_spmm_value_pass", "bsr_spmm"),
@@ -1255,11 +1449,37 @@ KERNEL_GROUPS = (
 )
 
 
+def profile_line(run: str, ms: float, path: str, steps: int = 2) -> None:
+    """Device ms per step by kernel group, the busy share and the 10
+    costliest kernels of a profiler trace of `steps` train steps."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    groups: dict = {}
+    names: dict = {}
+    for e in kern:
+        g = next((v for k, v in KERNEL_GROUPS if k in e["name"]), "other")
+        groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3 / steps
+        names[e["name"]] = names.get(e["name"], 0.0) + e["dur"] / 1e3 / steps
+    busy = sum(groups.values())
+    emit("profile", run=run, ms_per_step_profiled=ms,
+         device_ms_per_step=busy, device_busy_share=busy / ms,
+         kernels_per_step=len(kern) / steps,
+         device_ms_by_group=dict(sorted(groups.items(),
+                                        key=lambda kv: -kv[1])),
+         top_kernels=[[k[:120], v] for k, v in sorted(
+             names.items(), key=lambda kv: -kv[1])[:10]])
+
+
 def phase_profile(rec: dict) -> None:
     """Device time by kernel group and device busy share of 2 profiled
     train steps (after 1 warm-up step): TGCN on each graph, MSDR on the
-    CLI graph, TGCN on the CLI graph's halo support on 4 ranks. The
+    CLI graph, TGCN on the CLI graph's halo support on 4 ranks, GPT-ST
+    pretrain at `gptst_model`'s shape (adaptive mask and KL). The
     traces (tens of MB each) are read and deleted."""
+    import torch
+
     runs = [(f"tgcn_{name}", "TGCN", tgcn_net, (sup,), BATCH)
             for name, sup in rec["_supports"].items()]
     runs.append(("msdr_cli_graph", "MSDR", msdr_net,
@@ -1271,20 +1491,14 @@ def phase_profile(rec: dict) -> None:
             path = os.path.join(tmp, "trace.json")
             _, ms, _, _ = train_steps(model, bind(model, make_net(), graph),
                                       batch, 1, 2, trace=path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        kern = [e for e in events if e.get("ph") == "X"
-                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        groups: dict = {}
-        for e in kern:
-            g = next((v for k, v in KERNEL_GROUPS if k in e["name"]), "other")
-            groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3 / 2
-        busy = sum(groups.values())
-        emit("profile", run=name, ms_per_step_profiled=ms,
-             device_ms_per_step=busy, device_busy_share=busy / ms,
-             kernels_per_step=len(kern) / 2,
-             device_ms_by_group=dict(sorted(groups.items(),
-                                            key=lambda kv: -kv[1])))
+            profile_line(name, ms, path)
+    torch.cuda.empty_cache()
+    cfg = gptst_cfg(batch_size=GPTST_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        _, ms = gptst_steps(gptst_net(cfg), cfg, GPTST_BATCH, (2, 2, 2),
+                            trace=path)
+        profile_line("gptst_pretrain", ms, path)
 
 
 def reference_grads(make_net, graph_on, x, dev: str) -> dict:
@@ -1395,6 +1609,7 @@ def phase_reference(rec: dict) -> None:
                       else "1e-4 * max|want| + 1e-7 (att_b: 1e-5)"})
     assert {"dia_spmm", "bsr_spmm", "sddmm", "spmm_dvals"} <= paths, paths
     reference_sharded(b)
+    reference_gptst(b)
 
 
 def reference_sharded(b: int) -> None:
@@ -1449,6 +1664,57 @@ def reference_sharded(b: int) -> None:
              pred_max_abs_err=errs.pop("pred"),
              grad_max_abs_err=max(errs.values()),
              tol={"rtol": 1e-4, "atol": 1e-4})
+
+
+def reference_gptst(b: int) -> None:
+    """GPT-ST at 64 nodes (hidden 16, the other widths PEMS08's), card
+    against CPU from the same weights: the pretrain loss at epoch 2
+    (adaptive branch and KL term; mask_ratio 1.0 masks every point
+    whatever the draws), every parameter gradient and the `encode`
+    output. rtol 1e-4 and an atol of 1e-5 of each tensor's largest
+    entry (the losses rtol 1e-5), as the CPU tests hold the port
+    against the JAX package."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import build_model
+    from gptst_tpu_torch.train.loss import build_loss
+    from gptst_tpu_torch.train.step import make_loss_terms
+
+    n = 64
+    cfg = default_config("PEMS08", mode="pretrain", num_nodes=n,
+                         hidden_dim=16, mask_ratio=1.0, change_epoch=1)
+    x = np.random.default_rng(5).standard_normal((b, 12, n, 3), np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev, seed=0, scaler_zeros=-0.5)
+        loss_terms = make_loss_terms(
+            model, build_loss("mask_mae", 200.0, 100.0, 0.0, True), cfg)
+        xd = torch.from_numpy(x).to(dev)
+        total, flow = loss_terms(
+            xd, xd, 1, epoch=2,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        total.backward()
+        with torch.no_grad():
+            enc = model(xd).pred
+        out[dev] = {"loss": torch.stack([total, flow]).detach().cpu(),
+                    "encode": enc.cpu(),
+                    **{k: p.grad.cpu() for k, p in model.named_parameters()}}
+    want, got = out["cpu"], out["cuda"]
+    torch.testing.assert_close(got.pop("loss"), want.pop("loss"),
+                               rtol=1e-5, atol=0)
+    errs = {}
+    for k, w in want.items():
+        errs[k] = float((got[k] - w).abs().max())
+        torch.testing.assert_close(got[k], w, rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=lambda m: f"GPT-ST {k}: {m}")
+    emit("reference", model="GPTST", mode="pretrain", nodes=n, batch=b,
+         hidden_dim=16, epoch=2, encode_max_abs_err=errs.pop("encode"),
+         grad_max_abs_err=max(errs.values()), parameters=len(errs),
+         tol={"rtol": 1e-4, "atol": "1e-5 * max|want|",
+              "loss_rtol": 1e-5})
 
 
 def main() -> int:

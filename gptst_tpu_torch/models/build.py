@@ -7,8 +7,9 @@ channels; `build_model` wraps it into the `ModelOutput` contract of a
 mode. Parameters are drawn on the host from a `torch.Generator` seeded
 with `seed` and then moved to `device`.
 
-Ported so far: `-mode ori` with TGCN and MSDR. Other modes and
-predictors raise `NotImplementedError` naming the slice they wait for.
+Ported so far: `-mode pretrain` (GPT-ST) and `-mode ori` with TGCN and
+MSDR. Other modes and predictors raise `NotImplementedError` naming the
+slice they wait for.
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.graph.artifacts import random_sensor_graph
 from gptst_tpu_torch.models.api import ModelOutput
 from gptst_tpu_torch.ops.graph_conv import (
-    SparseSupport, make_support, sharding_mesh, use_sharding_mesh,
+    SparseSupport, make_support, use_sharding_mesh,
 )
-from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
 from gptst_tpu_torch.utils.device import resolve_device
 
 
@@ -53,8 +53,7 @@ _LATER = {
        for m in ("GWN", "MTGNN", "CCRNN", "STMGCN", "ASTGCN", "STSGCN",
                  "STFGNN", "STGODE", "ST_WA", "DMVSTNET")},
 }
-_LATER_MODES = {"pretrain": "the GPT-ST pretrain slice",
-                "eval": "the eval/test-mode slice",
+_LATER_MODES = {"eval": "the eval/test-mode slice",
                 "test": "the eval/test-mode slice"}
 
 
@@ -156,10 +155,44 @@ def predictor_forward(cfg: FrameworkConfig, predictor: nn.Module) -> OriModel:
     return OriModel(predictor, cfg.input_base_dim)
 
 
+class PretrainModel(nn.Module):
+    """Pretrain mode: GPT-ST in the `ModelOutput` contract. Called with
+    a generator and an epoch it runs the masked autoencoder
+    (`GPTST.pretrain`); without them, the encoder alone (`pred` is the
+    embedding)."""
+
+    def __init__(self, gptst: nn.Module):
+        super().__init__()
+        self.gptst = gptst
+
+    def forward(self, x: torch.Tensor, y=None, step=None,
+                generator: torch.Generator | None = None,
+                epoch: int | None = None) -> ModelOutput:
+        out = self.gptst(x, generator, epoch)
+        if generator is None:
+            return ModelOutput(pred=out)
+        flow_out, dec, inv_mask, prob, hs_cat = out
+        return ModelOutput(pred=flow_out, out_time=dec, mask=inv_mask,
+                           probability=prob, routing=hs_cat)
+
+
+def build_pretrain(cfg: FrameworkConfig, scaler_zeros: float = 0.0,
+                   device="cuda", seed: int | None = None) -> PretrainModel:
+    """GPT-ST masked-autoencoder pretraining model on `device`, its
+    parameters drawn from `seed` (default `cfg.seed`)."""
+    from gptst_tpu_torch.models.gptst import GPTST, GPTSTConfig
+
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    net = GPTST(GPTSTConfig.from_framework(cfg, scaler_zeros), gen)
+    return PretrainModel(net).to(resolve_device(device))
+
+
 def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
                 device="cuda", seed: int | None = None,
-                mesh=None) -> nn.Module:
-    """Mode dispatch; the port has the ori branch (bare predictor).
+                mesh=None, scaler_zeros: float = 0.0) -> nn.Module:
+    """Mode dispatch: pretrain -> GPT-ST (`scaler_zeros` is the
+    normalized zero that fills masked inputs); ori -> the bare
+    predictor.
 
     With `mesh` (`parallel/mesh.make_mesh`, graph axis above 1), the
     predictor's graph supports are built node-sharded on the mesh's
@@ -167,6 +200,8 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
     activations stay on `device`."""
     if cfg.mode in _LATER_MODES:
         raise _not_ported(f"-mode {cfg.mode}", _LATER_MODES[cfg.mode])
+    if cfg.mode == "pretrain":
+        return build_pretrain(cfg, scaler_zeros, device, seed)
     with use_sharding_mesh(mesh):
         return predictor_forward(
             cfg, build_predictor(cfg, adj=adj, device=device, seed=seed))
@@ -227,21 +262,14 @@ def _build_msdr(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
         MSDR, MSDRConfig, dual_random_walk_supports,
     )
 
-    mesh = sharding_mesh()
-    if mesh is not None and mesh.shape[GRAPH_AXIS] > 1:
-        # its learned adjacency has no node-sharded path: the JAX
-        # package's `make_sharded_support` takes a constant numpy graph,
-        # so there the learned adjacency stays one dense (N, N) product
-        raise NotImplementedError(
-            "MSDR under a mesh with a graph axis above 1 is not supported: "
-            "its learned adjacency has no node-sharded path (in "
-            "gptst_tpu_torch or gptst_tpu)")
     pcfg = make_predictor_config(MSDRConfig, cfg, num_nodes=cfg.num_nodes)
     mats = dual_random_walk_supports(adj)
     supports = tuple(make_support(s, device=device) for s in mats)
     # above the dense threshold the learned adjacency cannot be dense
     # (softmax(relu(E1 E2)) is O(N^2) memory): it is restricted to the
-    # static graph's block pattern through the SDDMM path
+    # static graph's block pattern through the SDDMM path. Under a mesh
+    # the static supports are node-sharded and the learned adjacency
+    # stays one dense product, as in the JAX package.
     pattern = None
     if isinstance(supports[0], SparseSupport):
         pattern = msdr_adapt_pattern(mats[0], cfg.num_nodes, device)

@@ -2,6 +2,7 @@
 
 Usage:
 
+  python -m gptst_tpu_torch.run -dataset PEMS08 -mode pretrain
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model TGCN
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model MSDR
   python -m gptst_tpu_torch.run ... -device cpu      # no card needed
@@ -15,9 +16,15 @@ the device (default `cuda`; raises when no card is present) and
 `-metrics_out` writes the final report as JSON.
 
 Flow: config -> seed -> dataset -> model -> trainer. The port runs
-`-mode ori` with TGCN and MSDR (above 4096 nodes MSDR's learned
-adjacency is sparse: `kernels/sddmm.adaptive_support`); other modes and
-predictors raise `NotImplementedError` naming the slice they wait for.
+`-mode pretrain` (GPT-ST; `-model` is not read) and `-mode ori` with
+TGCN and MSDR (above 4096 nodes MSDR's learned adjacency is sparse:
+`kernels/sddmm.adaptive_support`); other modes and predictors raise
+`NotImplementedError` naming the slice they wait for.
+
+`-mode pretrain` ends by writing the best GPT-ST parameters with
+`torch.save(state_dict)` to `<log_dir>/<dataset>/<save_pretrain_path>`
+(`_pretrain_ckpt_path`); the key layout is in `models/gptst.py`'s
+docstring.
 """
 
 from __future__ import annotations
@@ -106,6 +113,11 @@ def make_config(ns: argparse.Namespace):
     return cfg.replace(**overrides)
 
 
+def _pretrain_ckpt_path(cfg, save: bool) -> str:
+    name = cfg.save_pretrain_path if save else cfg.load_pretrain_path
+    return os.path.abspath(os.path.join(cfg.log_dir, cfg.dataset, name))
+
+
 def set_precision(cfg) -> str:
     """True-f32 matmuls for f32 runs (`matmul_precision` "auto" ->
     "highest", as the JAX package resolves it): TF32 off for both
@@ -144,7 +156,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     init_determinism(cfg.seed, cfg.seed_mode)
     ds = build_dataset(cfg, data_root=cfg.data_root, num_steps=ns.num_steps,
                        seed=cfg.seed)
-    model = build_model(cfg, device=device, seed=cfg.seed)
+    model = build_model(cfg, device=device, seed=cfg.seed,
+                        scaler_zeros=ds.scaler_zeros)
     count_parameters(model, logger)
 
     log_dir = os.path.join(cfg.log_dir, cfg.dataset)
@@ -152,6 +165,12 @@ def main(argv: Optional[list[str]] = None) -> int:
     tr = Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
                  log_dir=log_dir, device=device)
     result = tr.train()
+    if cfg.mode == "pretrain":
+        import torch
+
+        path = _pretrain_ckpt_path(cfg, save=True)
+        torch.save(model.gptst.state_dict(), path)
+        logger.info("Saved the pretrained GPT-ST to %s", path)
     logger.info("best loss: %.6f  avg MAE: %.4f", result["best_loss"],
                 result["report"]["average"][0])
     if ns.metrics_out:

@@ -52,6 +52,14 @@ def make_scaler_huber_loss(mean: float, std: float,
     return loss
 
 
+def kl_div_sum(log_prob: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """`torch.nn.KLDivLoss(reduction='sum')` (`model/Run.py:132`) in f32:
+    sum(target * (log(target) - log_prob)), with 0 * log(0) := 0."""
+    log_prob, target = log_prob.float(), target.float()
+    t_log = torch.where(target > 0, target.clamp_min(1e-38).log(), 0.0)
+    return torch.where(target > 0, target * (t_log - log_prob), 0.0).sum()
+
+
 def build_loss(loss_func: str, mean: float, std: float,
                mask_value: float | None, pretrain: bool) -> LossFn:
     """Loss selection of `model/Run.py:115-131` (pretrain always falls

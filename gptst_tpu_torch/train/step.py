@@ -1,7 +1,9 @@
 """Loss assembly and one optimizer step.
 
-Mirrors the JAX package's `train/step.py` for the ported modes: the
-loss is the flow loss on the labels (`model/BasicTrainer.py:81-97`).
+Mirrors the JAX package's `train/step.py` (`model/BasicTrainer.py:81-97`):
+ori mode is the flow loss on the labels; pretrain mode is the flow loss
+on the input itself under the model's mask, plus 0.1 * KL(mask policy ||
+routing) once the epoch passes `change_epoch`.
 `cfg.compute_dtype == "bfloat16"` runs the forward on a bf16 cast of
 the parameters and inputs while the master parameters, the optimizer
 state and the loss stay f32; gradients flow back through the cast and
@@ -17,6 +19,7 @@ from torch import nn
 from torch.func import functional_call
 
 from gptst_tpu_torch.config.config import FrameworkConfig
+from gptst_tpu_torch.train.loss import kl_div_sum
 
 
 def _cast_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -25,35 +28,43 @@ def _cast_bf16(t: torch.Tensor) -> torch.Tensor:
 
 def make_loss_terms(model: nn.Module, loss_fn: Callable,
                     cfg: FrameworkConfig) -> Callable:
-    """Returns loss_terms(x, y, step=None) -> (total, flow), running
-    `model` (a `ModelOutput` module, `models/build.build_model`)."""
-    if cfg.mode == "pretrain":
-        raise NotImplementedError(
-            "pretrain loss terms come with the GPT-ST pretrain slice")
+    """Returns loss_terms(x, y, step=None, epoch=None, generator=None)
+    -> (total, flow), running `model` (a `ModelOutput` module,
+    `models/build.build_model`). `epoch` and `generator` (the mask's
+    draws) are pretrain's; the ori path ignores them."""
+    pretrain = cfg.mode == "pretrain"
     bf16 = cfg.compute_dtype == "bfloat16"
 
-    def loss_terms(x, y, step=None):
-        label = y
+    def loss_terms(x, y, step=None, epoch=None, generator=None):
+        label = x if pretrain else y
+        kw = {"y": y, "step": step}
+        if pretrain:
+            kw.update(generator=generator, epoch=epoch)
         if bf16:
             params = {k: _cast_bf16(p) for k, p in model.named_parameters()}
             out = functional_call(model, params, (_cast_bf16(x),),
-                                  {"y": _cast_bf16(y), "step": step})
+                                  {**kw, "y": _cast_bf16(y)})
         else:
-            out = model(x, y=y, step=step)
+            out = model(x, **kw)
         pred = out.pred.float()
-        flow = loss_fn(pred, label[..., : cfg.output_dim], None)
+        mask = None if out.mask is None else out.mask.float()
+        flow = loss_fn(pred, label[..., : cfg.output_dim], mask)
+        if pretrain and epoch > cfg.change_epoch:
+            log_prob = out.probability.float().clamp_min(1e-38).log()
+            return flow + 0.1 * kl_div_sum(log_prob, out.routing), flow
         return flow, flow
 
     return loss_terms
 
 
 def train_step(loss_terms: Callable, optimizer: torch.optim.Optimizer,
-               x: torch.Tensor, y: torch.Tensor, step=None
+               x: torch.Tensor, y: torch.Tensor, step=None, **kw
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One optimizer step on a batch; returns the (total, flow) losses
-    as detached tensors (reading them synchronizes the device)."""
+    """One optimizer step on a batch (`kw`: pretrain's epoch and
+    generator); returns the (total, flow) losses as detached tensors
+    (reading them synchronizes the device)."""
     optimizer.zero_grad(set_to_none=True)
-    total, flow = loss_terms(x, y, step)
+    total, flow = loss_terms(x, y, step, **kw)
     total.backward()
     optimizer.step()
     return total.detach(), flow.detach()

@@ -1,4 +1,4 @@
-"""Training loop for the ori mode.
+"""Training loop for the ori and pretrain modes.
 
 The JAX package's `train/trainer.py` behaviour, step for step:
   - batch order: the permutation
@@ -13,7 +13,13 @@ The JAX package's `train/trainer.py` behaviour, step for step:
   - validation every epoch, best parameters by val loss, `up_epoch`
     watermark resets, divergence abort at a train loss above 1e6,
     early stopping, and the per-horizon test report
-    (`model/BasicTrainer.py:130-248`).
+    (`model/BasicTrainer.py:130-248`);
+  - pretrain (GPT-ST): each epoch's mask draws come from a generator
+    seeded with `seed * 10_000 + epoch`; no validation pass, the best
+    epoch is the one with the lowest mean train flow loss; the final
+    report is on the train split, the mask drawn at epoch `cfg.epochs`
+    (the adaptive branch) from a generator seeded with `seed + 777`,
+    predictions and labels multiplied by it.
 
 Best parameters are saved with `torch.save` when `log_dir` is set.
 Periodic checkpoints and resume come with the eval/test-mode slice.
@@ -129,10 +135,11 @@ class Trainer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.logger = get_logger("trainer", debug=self.cfg.debug)
-        if self.cfg.mode != "ori":
+        if self.cfg.mode not in ("ori", "pretrain"):
             raise NotImplementedError(
-                f"the Trainer of gptst_tpu_torch runs -mode ori; -mode "
-                f"{self.cfg.mode} comes with a later slice")
+                f"the Trainer of gptst_tpu_torch runs -mode ori and "
+                f"pretrain; -mode {self.cfg.mode} comes with a later slice")
+        self.pretrain = self.cfg.mode == "pretrain"
         if self.cfg.ckpt_every_epochs:
             raise NotImplementedError(
                 "periodic checkpoints and resume come with the "
@@ -144,7 +151,7 @@ class Trainer:
         s = self.dataset.scaler_data
         self.loss_fn = build_loss(
             self.cfg.loss_func, self._stat(s.mean), self._stat(s.std),
-            self.cfg.mape_thresh, False)
+            self.cfg.mape_thresh, self.pretrain)
         self._loss_terms = make_loss_terms(self.model, self.loss_fn,
                                            self.cfg)
         self.batch_seen = 0
@@ -159,24 +166,35 @@ class Trainer:
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     # --- epoch loops ----------------------------------------------------
-    def _train_batch(self, xb: np.ndarray, yb: np.ndarray):
-        """One optimizer step; returns (total, flow) as device scalars."""
+    def _train_batch(self, xb: np.ndarray, yb: np.ndarray, **kw):
+        """One optimizer step (`kw`: pretrain's epoch and generator);
+        returns (total, flow) as device scalars."""
         self.batch_seen += 1
         return train_step(self._loss_terms, self.optimizer, self._put(xb),
-                          self._put(yb), self.batch_seen)
+                          self._put(yb), self.batch_seen, **kw)
 
     def train_epoch(self, epoch: int) -> float:
+        """Mean train loss of the epoch: the total in ori mode, the flow
+        loss in pretrain (`BasicTrainer.py:120-121`)."""
         self.model.train()
+        kw = {}
+        if self.pretrain:
+            kw = dict(epoch=epoch,
+                      generator=self._generator(self.seed * 10_000 + epoch))
         it = self.dataset.batches("train", self.cfg.batch_size, shuffle=True,
                                   seed=self.seed * 10_000 + epoch)
         # losses stay on the device until the epoch ends: one sync
-        totals = [self._train_batch(xb, yb)[0] for xb, yb in it]
-        losses = torch.stack(totals).tolist()
-        for i, loss in enumerate(losses):
+        steps = [self._train_batch(xb, yb, **kw) for xb, yb in it]
+        totals, flows = torch.stack([torch.stack(s) for s in steps]).T.tolist()
+        for i, loss in enumerate(totals):
             if i % self.cfg.log_step == 0:
                 self.logger.info("Train Epoch %d: %d/%d Loss: %.6f",
                                  epoch, i, self.steps_per_epoch, loss)
+        losses = flows if self.pretrain else totals
         return sum(losses) / max(len(losses), 1)
 
     @torch.no_grad()
@@ -216,7 +234,8 @@ class Trainer:
                                  epoch, dt, n_train / dt)
             if epoch in set(self.cfg.up_epoch):
                 best_loss = float("inf")  # watermark reset
-            cur = self.val_epoch(epoch, val_split)
+            cur = (train_loss if self.pretrain
+                   else self.val_epoch(epoch, val_split))
             if cur < best_loss:
                 best_loss = cur
                 not_improved = 0
@@ -238,7 +257,7 @@ class Trainer:
         self.model.load_state_dict(best_state)
         if self.log_dir:
             self.save_checkpoint(os.path.join(self.log_dir, "best_model.pt"))
-        report = self.test()
+        report = self.test("train" if self.pretrain else "test")
         return {"best_loss": best_loss, "history": history,
                 "epoch_seconds": epoch_seconds,
                 "steps_per_epoch": self.steps_per_epoch, "report": report}
@@ -251,13 +270,24 @@ class Trainer:
     @torch.no_grad()
     def test(self, split: str = "test") -> dict:
         """Full-split prediction and per-horizon metrics
-        (`BasicTrainer.py:210-248`)."""
+        (`BasicTrainer.py:210-248`). In pretrain the label is the input
+        and both sides are multiplied by the mask of epoch
+        `cfg.epochs`."""
         self.model.eval()
+        od = self.cfg.output_dim
+        gen = self._generator(self.seed + 777) if self.pretrain else None
         preds, trues = [], []
         for xb, yb in self.dataset.batches(split, self.cfg.batch_size):
-            pred = self.model(self._put(xb)).pred
-            preds.append(pred.float().cpu().numpy())
-            trues.append(yb[..., : self.cfg.output_dim])
+            x = self._put(xb)
+            if self.pretrain:
+                out = self.model(x, generator=gen, epoch=self.cfg.epochs)
+                mask = out.mask.float()
+                pred = out.pred.float() * mask
+                label = (x[..., :od] * mask).cpu().numpy()
+            else:
+                pred, label = self.model(x).pred.float(), yb[..., :od]
+            preds.append(pred.cpu().numpy())
+            trues.append(label)
         s = self.dataset.scaler_data
         y_pred = torch.from_numpy(
             np.asarray(s.inverse_transform(np.concatenate(preds)), np.float32))

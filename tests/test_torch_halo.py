@@ -496,10 +496,64 @@ def test_build_model_with_a_mesh_gives_tgcn_a_sharded_support():
     assert tgc.sharding_mesh() is None
     plain = build_model(cfg, device="cpu")
     assert not isinstance(plain.predictor.graph[0], tgc.ShardedSupport)
-    with pytest.raises(NotImplementedError, match="MSDR"):
-        build_model(dataclasses.replace(cfg, model="MSDR",
-                                        predictor_overrides=()),
-                    device="cpu", mesh=mesh)
+
+
+def test_msdr_under_a_mesh_matches_jax():
+    """MSDR built under a 4-rank graph mesh in both packages: the two
+    static supports node-sharded (halo), the learned adjacency one dense
+    product (no SDDMM pattern). Random nonzero weights (the port's init
+    plus N(0, 0.1^2) noise: at MSDR's init W, b, R and the attention are
+    zero and the learned-adjacency gradients vanish) go to both through
+    `convert.py`; forward rtol 1e-4, every gradient rtol 1e-4 with an
+    atol of 1e-4 of its largest entry (att_b's, zero in exact
+    arithmetic, 1e-5), as `tests/test_torch_msdr.py` holds the
+    unsharded model."""
+    from gptst_tpu.config.config import default_config as jdefault_config
+    from gptst_tpu.models import build as jbuild
+
+    n = 64
+    adj = random_sensor_graph(n, avg_degree=4, seed=0)
+    kw = dict(mode="ori", model="MSDR", num_nodes=n,
+              predictor_overrides=(("rnn_units", "8"),))
+    jmesh, mesh = _meshes(4)
+    model = build_model(default_config("PEMS08", **kw), adj=adj,
+                        device="cpu", mesh=mesh)
+    supports, pattern = model.predictor.graph
+    assert pattern is None and all(
+        isinstance(sp, tgc.ShardedSupport) and sp.kind == "halo"
+        for sp in supports)
+    noise = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.add_(0.1 * torch.randn(prm.shape, generator=noise))
+    params = state_dict_to_flax(model.predictor.net.state_dict())
+    _, forward = jbuild.build_model(jdefault_config("PEMS08", **kw),
+                                    adj=adj, mesh=jmesh)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 12, n, 3)).astype(np.float32)
+    g = rng.standard_normal((2, 12, n, 1)).astype(np.float32)
+
+    def jloss(prm):
+        pred = forward(prm, jnp.asarray(x)).pred
+        return jnp.sum(pred * g), pred
+
+    (_, jpred), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
+    pred = model(torch.tensor(x)).pred
+    (pred * torch.tensor(g)).sum().backward()
+    assert pred.shape == (2, 12, n, 1)
+    np.testing.assert_allclose(pred.detach().numpy(), np.asarray(jpred),
+                               rtol=1e-4, atol=1e-5)
+    tgrads = state_dict_to_flax(
+        {k: prm.grad for k, prm in model.predictor.net.named_parameters()})
+    for (path, want), got in zip(
+            jax.tree_util.tree_leaves_with_path(jgrads),
+            jax.tree_util.tree_leaves(tgrads)):
+        want = np.asarray(want)
+        scale = 1e-1 if path[-1].key == "att_b" else np.abs(want).max()
+        assert scale > 0, path
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale,
+                                   err_msg=str(path))
 
 
 def test_mesh_errors():

@@ -56,6 +56,20 @@ out = net(torch.zeros(2, 12, 42, 1), sup)
 assert out.shape == (2, 12, 42, 1)
 ring, n_pad = make_fused_ring_spmm(mesh, adj, 3)
 assert len(ring(shard_rows(torch.zeros(n_pad, 3), mesh))) == 4
+from gptst_tpu_torch.config.config import default_config
+from gptst_tpu_torch.models.build import build_model
+from gptst_tpu_torch.train.loss import build_loss
+from gptst_tpu_torch.train.step import make_loss_terms
+cfg = default_config("PEMS08", mode="pretrain", num_nodes=6, hidden_dim=8,
+                     embed_dim=4, HS=3, HT=4, HT_Tem=2, change_epoch=1)
+gpt = build_model(cfg, device="cpu")
+loss_terms = make_loss_terms(gpt, build_loss("mask_mae", 0.0, 1.0, 0.0, True),
+                             cfg)
+x6 = torch.randn(2, 12, 6, 3)
+total, flow = loss_terms(x6, x6, 1, epoch=2,
+                         generator=torch.Generator().manual_seed(0))
+total.backward()
+assert total > flow and gpt(x6).pred.shape == (2, 12, 6, 8)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN})
 print("LOADED", bad)
