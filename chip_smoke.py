@@ -9,16 +9,18 @@ Phases, one JSON line each; any failure exits non-zero:
   bsr        `bsr_spmm` at the CLI graph's shape: the support TGCN
              builds from `sym_adj(random_sensor_graph(16384))` (RCM,
              block-CSR, COO tail). Forward and transposed structure,
-             F = 16 and 1600, f32 / bf16 x / bf16 values (no block may
-             run densely), a NaN in a stored block, and the non-finite
-             cases that make blocks run densely (a NaN in x under zero
-             slots, an Inf in x, a NaN and a finite value outside the
-             entries; the dense-block counter must rise); each against
-             the plain PyTorch version. Times the kernel, the plain
-             version, `torch.sparse.mm` on the CSR of the same matrix
-             and the kernel on the same blocks with zero values and no
-             entries, which stages and checks every x tile but sums
-             nothing (CUDA events, median of 20).
+             F = 16, 1024 (eval mode's x) and 1600, f32 / bf16 x / bf16
+             values (no block may run densely), a NaN in a stored block,
+             and the non-finite cases that make blocks run densely (a
+             NaN in x under zero slots, an Inf in x, a NaN and a finite
+             value outside the entries; the dense-block counter must
+             rise); each against the plain PyTorch version. Times the
+             kernel, the plain version, `torch.sparse.mm` on the CSR of
+             the same matrix and the kernel on the same blocks with zero
+             values and no entries, which stages and checks every x tile
+             but sums nothing (CUDA events, median of 20); and, at
+             F = 1024, the kernel on both structures, the plain version
+             and `torch.sparse.mm`.
   dia        `dia_spmm` the same way on the road graph (DIA band, w=1)
              and on a w=5 band at 4096 nodes, plus a NaN in x that
              reaches the first row tile through the clamped band block.
@@ -78,19 +80,41 @@ Phases, one JSON line each; any failure exits non-zero:
              PEMS08.npz the phase writes; the pretrain checkpoint must
              load strictly into a fresh GPT-ST whose `encode` equals the
              trained model's.
+  eval_cli   the main path: `run.main` at 16,384 nodes from a 600-step
+             PEMS08.npz, `-mode pretrain` (batch 8, 1 epoch), then
+             `-mode eval -model TGCN` (frozen encoder, Fusion head,
+             TGCN at dim_in 64; batch 16, 2 epochs, under
+             `-profile_dir`, whose trace must be non-empty and is then
+             deleted), then `-mode test`. `bsr_spmm` must launch,
+             transposed launches at F = 1,024 (the gradient into the
+             head) included, with no block run densely; the encoder
+             bitwise equal to the pretrain checkpoint; the test report
+             equal to the eval run's (rtol 1e-4: atomics in
+             `index_add_`).
+  eval_model eval-mode TGCN train steps through the library on the road
+             graph's DIA support (1 warm, 3 timed; encoder from
+             `build_pretrain`'s random init): `dia_spmm`, no block run
+             densely.
+  stgcn_cli  STGCN (the default `-model`) through `run.main` at 170
+             nodes, batch 64: `-mode ori`, then pretrain -> eval ->
+             test; finite losses, the test report equal to eval's.
   profile    `torch.profiler` over 2 TGCN train steps on each graph (and
              on the CLI graph's halo support),
-             2 MSDR train steps on the CLI graph and 2 GPT-ST pretrain
-             steps of `gptst_model`'s shape: device time by kernel
+             2 MSDR train steps on the CLI graph, 2 GPT-ST pretrain
+             steps of `gptst_model`'s shape and 2 eval-mode TGCN steps
+             on the CLI graph (with the encoder's no-grad forward
+             profiled alone as its share): device time by kernel
              group, the busy share and the 10 costliest kernels.
   reference  a small ragged graph (1000 nodes) with and without RCM
-             (DIA and block-CSR): the TGCN and MSDR (learned sparse
-             adjacency, random nonzero weights) forward and gradients
+             (DIA and block-CSR): the TGCN, MSDR (learned sparse
+             adjacency, random nonzero weights) and eval-mode TGCN
+             (encoder, head, TGCN at dim_in 64) forward and gradients
              with the kernels on the card against the plain versions on
              the CPU; TGCN at 1002 nodes through a halo and a ring
              `ShardedSupport` on 4 ranks of the card against 4 CPU ranks;
              GPT-ST's pretrain loss, `encode` and gradients at 64 nodes
-             (hidden 16, mask_ratio 1.0), card against CPU.
+             (hidden 16, mask_ratio 1.0), and STGCN at 170 nodes, card
+             against CPU.
 
 Before the last line: one JSON object with every kernel's launches on
 its main path, error, times and bound, and the card's name and power
@@ -116,7 +140,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "sddmm", "dvals", "ring", "cli",
           "dia_model", "msdr_cli", "msdr_model", "sharded_model",
-          "gptst_model", "gptst_cli", "profile", "reference")
+          "gptst_model", "gptst_cli", "eval_cli", "eval_model", "stgcn_cli",
+          "profile", "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
 # dense TF32 on the tensor cores, and HBM3 bandwidth
@@ -129,6 +154,9 @@ N_BIG = 16384
 BATCH, UNITS = 16, 100
 F_WIDE = BATCH * UNITS          # the h aggregations of a TGCN step
 F_NARROW = BATCH * 1            # the x aggregation (input_base_dim 1)
+# eval mode: TGCN's x is the 64-wide fused embedding (hidden_dim 64)
+HIDDEN = 64
+F_EVAL = BATCH * HIDDEN
 # MSDR at its published width: rnn_units 64, so z = [x ‖ h] is 128 wide
 MSDR_BATCH = 8
 F_MSDR = MSDR_BATCH * 128       # every aggregation of an MSDR step
@@ -322,7 +350,7 @@ def kernel_cases(name, kernel, plain, structs, n, seed):
     main_err = None
     reset_launch_counts()
     for sname, st, vals_attr in structs:
-        for f in (F_NARROW, F_WIDE):
+        for f in (F_NARROW, F_EVAL, F_WIDE):
             x32 = torch.randn(n, f, device="cuda", generator=gen)
             cases = [("f32", st, x32, "f32"),
                      ("bf16_x", st, x32.bfloat16(), "bf16"),
@@ -455,7 +483,7 @@ def phase_bsr(rec: dict) -> None:
               + (a.block_ptr.numel() + nnzb) * 4
               + 2 * a.n * F_WIDE * x.element_size())
     rec["bsr_spmm"] = dict(
-        name="bsr_spmm", route="cuda",
+        name="bsr_spmm", route="cuda", launches_by_path={},
         source="gptst_tpu_torch/csrc/block_spmm.cu",
         replaces="gptst_tpu/kernels/spmm.py:213 (_spmm_kernel; also "
                  ":280 _spmm_kernel_stream, :369 _spmm_kernel_panel)",
@@ -468,6 +496,26 @@ def phase_bsr(rec: dict) -> None:
          bytes=nbytes, entry_bytes=entry_bytes(a),
          l2_bytes_computed=l2_bytes_computed(nnzb, a.tile, x),
          **bound(flops, nbytes), achieved_bytes_per_s=nbytes / ms * 1e3)
+    eval_width_timing("bsr", K.bsr_spmm, K.bsr_spmm_plain, a, sup.bcsr_t,
+                      csr, nnz, nbytes - 2 * a.n * F_WIDE * x.element_size())
+
+
+def eval_width_timing(name, kernel, plain, a, a_t, csr, nnz,
+                      struct_bytes) -> None:
+    """Times at the eval-mode x width (F = 1,024): the kernel on A and
+    on the transposed structure (the launch that carries the gradient
+    into the head), the plain version and `torch.sparse.mm`; the bound
+    counts the structure's `struct_bytes`, x and the output once."""
+    import torch
+
+    x = torch.randn(a.n, F_EVAL, device="cuda")
+    ms = time_ms(lambda: kernel(a, x))
+    nbytes = struct_bytes + 2 * a.n * F_EVAL * x.element_size()
+    emit(name, case="timing_eval_width", shape=[a.n, F_EVAL], ms=ms,
+         ms_transposed=time_ms(lambda: kernel(a_t, x)),
+         plain_ms=time_ms(lambda: plain(a, x)),
+         library_ms=time_ms(lambda: torch.sparse.mm(csr, x)),
+         **bound(2 * nnz * F_EVAL, nbytes))
 
 
 def entry_bytes(a) -> int:
@@ -585,7 +633,7 @@ def phase_dia(rec: dict) -> None:
     nbytes = (d.vals.numel() * d.vals.element_size()
               + 2 * d.n * F_WIDE * x.element_size())
     rec["dia_spmm"] = dict(
-        name="dia_spmm", route="cuda",
+        name="dia_spmm", route="cuda", launches_by_path={},
         source="gptst_tpu_torch/csrc/block_spmm.cu",
         replaces="gptst_tpu/kernels/spmm.py:784 (_dia_kernel; also "
                  ":813 _dia_kernel_ring)",
@@ -598,6 +646,8 @@ def phase_dia(rec: dict) -> None:
          bytes=nbytes, entry_bytes=entry_bytes(d),
          l2_bytes_computed=l2_bytes_computed(rt * nd, tb, x),
          **bound(flops, nbytes), achieved_bytes_per_s=nbytes / ms * 1e3)
+    eval_width_timing("dia", K.dia_spmm, K.dia_spmm_plain, d, sup.dia_t, csr,
+                      nnz, d.vals.numel() * d.vals.element_size())
 
 
 def phase_sddmm(rec: dict) -> None:
@@ -995,8 +1045,6 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
     import numpy as np
     import torch
 
-    from gptst_tpu_torch.config.datasets import get_dataset_spec
-    from gptst_tpu_torch.data.synthetic import synthesize_raw_series
     from gptst_tpu_torch.kernels.spmm import (
         LAUNCHES, dense_block_counts, reset_launch_counts,
     )
@@ -1014,12 +1062,7 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        spec = dataclasses.replace(get_dataset_spec("PEMS08"),
-                                   num_nodes=N_BIG)
-        os.makedirs(os.path.join(tmp, "data", "PEMS08"))
-        np.savez(os.path.join(tmp, "data", "PEMS08", "PEMS08.npz"),
-                 data=synthesize_raw_series(spec, num_steps=num_steps,
-                                            seed=0))
+        data = write_pems08(tmp, N_BIG, num_steps)
         metrics = os.path.join(tmp, "metrics.json")
         torch.cuda.reset_peak_memory_stats()
         Trainer._train_batch = counted
@@ -1027,8 +1070,8 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
         t0 = time.perf_counter()
         try:
             main(["-dataset", "PEMS08", "-mode", "ori", "-model", model,
-                  "-num_nodes", str(N_BIG), "-data_root",
-                  os.path.join(tmp, "data"), "-batch_size", str(batch),
+                  "-num_nodes", str(N_BIG), "-data_root", data,
+                  "-batch_size", str(batch),
                   "-epochs", str(epochs), "-lr_decay", "False",
                   "-early_stop", "False", "-log_dir",
                   os.path.join(tmp, "save"), "-log_step", "1000",
@@ -1064,6 +1107,7 @@ def phase_cli(rec: dict) -> None:
     launches = line["launches"]
     assert launches["bsr_spmm"] > 0 and launches["dia_spmm"] == 0, launches
     rec["bsr_spmm"]["launches"] = launches["bsr_spmm"]
+    rec["bsr_spmm"]["launches_by_path"]["cli"] = launches["bsr_spmm"]
     emit("cli", model="TGCN", rnn_units=UNITS, **line)
 
 
@@ -1187,6 +1231,7 @@ def phase_dia_model(rec: dict) -> None:
     assert launches["dia_spmm"] > 0 and launches["bsr_spmm"] == 0, launches
     assert not any(dense.values()), dense
     rec["dia_spmm"]["launches"] = launches["dia_spmm"]
+    rec["dia_spmm"]["launches_by_path"]["dia_model"] = launches["dia_spmm"]
     rec["_road_losses"] = losses
     emit("dia_model", nodes=N_BIG, batch=BATCH, rnn_units=UNITS,
          steps=warm + steps, ms_per_step=ms, samples_per_s=BATCH / ms * 1e3,
@@ -1366,7 +1411,6 @@ def phase_gptst_cli(rec: dict) -> None:
     import torch
 
     from gptst_tpu_torch.config.datasets import get_dataset_spec
-    from gptst_tpu_torch.data.synthetic import synthesize_raw_series
     from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
     from gptst_tpu_torch.models.gptst import GPTST, GPTSTConfig
     from gptst_tpu_torch.run import main
@@ -1375,18 +1419,14 @@ def phase_gptst_cli(rec: dict) -> None:
     trainers = []
     train = Trainer.train
 
-    def keep(self):
+    def keep(self, *args, **kw):
         trainers.append(self)
-        return train(self)
+        return train(self, *args, **kw)
 
     epochs, num_steps = 2, 2000
     with tempfile.TemporaryDirectory() as tmp:
-        spec = get_dataset_spec("PEMS08")
-        assert spec.num_nodes == GPTST_CLI_NODES
-        os.makedirs(os.path.join(tmp, "data", "PEMS08"))
-        np.savez(os.path.join(tmp, "data", "PEMS08", "PEMS08.npz"),
-                 data=synthesize_raw_series(spec, num_steps=num_steps,
-                                            seed=0))
+        assert get_dataset_spec("PEMS08").num_nodes == GPTST_CLI_NODES
+        data = write_pems08(tmp, GPTST_CLI_NODES, num_steps)
         metrics = os.path.join(tmp, "metrics.json")
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -1394,8 +1434,8 @@ def phase_gptst_cli(rec: dict) -> None:
         t0 = time.perf_counter()
         try:
             main(["-dataset", "PEMS08", "-mode", "pretrain", "-data_root",
-                  os.path.join(tmp, "data"), "-batch_size",
-                  str(GPTST_CLI_BATCH), "-epochs", str(epochs),
+                  data, "-batch_size", str(GPTST_CLI_BATCH),
+                  "-epochs", str(epochs),
                   "-change_epoch", "1", "-lr_decay", "False", "-log_dir",
                   os.path.join(tmp, "save"), "-log_step", "1000",
                   "-metrics_out", metrics])
@@ -1436,6 +1476,231 @@ def phase_gptst_cli(rec: dict) -> None:
          wall_s=wall)
 
 
+def write_pems08(tmp: str, nodes: int, num_steps: int) -> str:
+    """A synthetic `PEMS08/PEMS08.npz` of `nodes` sensors and
+    `num_steps` time steps under `tmp`; returns the `-data_root`."""
+    import numpy as np
+
+    from gptst_tpu_torch.config.datasets import get_dataset_spec
+    from gptst_tpu_torch.data.synthetic import synthesize_raw_series
+
+    spec = dataclasses.replace(get_dataset_spec("PEMS08"), num_nodes=nodes)
+    root = os.path.join(tmp, "data")
+    os.makedirs(os.path.join(root, "PEMS08"))
+    np.savez(os.path.join(root, "PEMS08", "PEMS08.npz"),
+             data=synthesize_raw_series(spec, num_steps=num_steps, seed=0))
+    return root
+
+
+def run_main(argv: list[str]) -> float:
+    """`gptst_tpu_torch.run.main(argv)` on the card; returns its wall
+    seconds (synchronized)."""
+    import torch
+
+    from gptst_tpu_torch.run import main
+
+    t0 = time.perf_counter()
+    assert main(argv) == 0
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_report(got: dict, want: dict, rtol: float) -> float:
+    """Max relative difference of two test reports (per-horizon and
+    average MAE/RMSE/MAPE/CORR); raises above `rtol`."""
+    import numpy as np
+
+    g = np.asarray(got["per_horizon"] + [got["average"]], np.float64)
+    w = np.asarray(want["per_horizon"] + [want["average"]], np.float64)
+    assert np.isfinite(g).all() and np.isfinite(w).all()
+    np.testing.assert_allclose(g, w, rtol=rtol)
+    return float((np.abs(g - w) / np.abs(w)).max())
+
+
+def phase_eval_cli(rec: dict) -> None:
+    """The slice's main path through `run.main` at 16,384 nodes: GPT-ST
+    pretrain (batch 8, 1 epoch), then `-mode eval -model TGCN` (batch
+    16, 2 epochs, under `-profile_dir`), then `-mode test`. Every
+    aggregation of the eval run is `bsr_spmm` on the CLI graph: x at
+    F = 1,024 (the fused embedding), h at 1,600, and the transposed
+    launches of the backward, x's included (it comes from the trainable
+    head). Launches are counted from 0 over the eval run alone."""
+    import torch
+
+    from gptst_tpu_torch.kernels import spmm as K
+    from gptst_tpu_torch.ops.graph_conv import SparseSupport
+    from gptst_tpu_torch.train.trainer import Trainer
+
+    calls = []
+    block_kernel = K._block_kernel
+
+    def recording(name, a, x):
+        calls.append((name, a.block_vals.data_ptr(), x.shape[1]))
+        return block_kernel(name, a, x)
+
+    trainers = []
+    train = Trainer.train
+
+    def keep(self, *args, **kw):
+        trainers.append(self)
+        return train(self, *args, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "save")
+        common = ["-dataset", "PEMS08", "-num_nodes", str(N_BIG),
+                  "-data_root", write_pems08(tmp, N_BIG, 600),
+                  "-lr_decay", "False", "-early_stop", "False",
+                  "-log_dir", save, "-log_step", "1000"]
+        pretrain_s = run_main(["-mode", "pretrain", "-batch_size", "8",
+                               "-epochs", "1", *common])
+        want_enc = torch.load(
+            os.path.join(save, "PEMS08", "gptst_pretrain.ckpt"),
+            map_location="cuda", weights_only=True)
+        eval_flags = ["-model", "TGCN", "-batch_size", str(BATCH), *common]
+        prof, ev, te = (os.path.join(tmp, f)
+                        for f in ("profile", "eval.json", "test.json"))
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        K._block_kernel, Trainer.train = recording, keep
+        try:
+            eval_s = run_main(["-mode", "eval", "-epochs", "2",
+                               "-profile_dir", prof, "-metrics_out", ev,
+                               *eval_flags])
+        finally:
+            K._block_kernel, Trainer.train = block_kernel, train
+        launches = dict(K.LAUNCHES)
+        dense = K.dense_block_counts()
+        peak = torch.cuda.max_memory_allocated()
+        trace = os.path.join(prof, "trace.json")
+        trace_bytes = os.path.getsize(trace)
+        assert trace_bytes > 0
+        os.remove(trace)    # tens of MB: not brought back
+        (tr,) = trainers
+        for k, v in tr.model.encoder.state_dict().items():
+            assert torch.equal(v, want_enc[k]), k
+        (sup,) = tr.model.predictor.graph
+        assert isinstance(sup, SparseSupport) and sup.dia is None
+        t_ptr = sup.bcsr_t.block_vals.data_ptr()
+        by_width: dict = {}
+        for name, ptr, f in calls:
+            key = f"{'AT' if ptr == t_ptr else 'A'}_F{f}"
+            by_width[key] = by_width.get(key, 0) + 1
+        test_s = run_main(["-mode", "test", "-metrics_out", te, *eval_flags])
+        with open(ev) as f:
+            ev = json.load(f)
+        with open(te) as f:
+            te = json.load(f)
+    assert launches["bsr_spmm"] > 0 and launches["dia_spmm"] == 0, launches
+    assert by_width.get(f"AT_F{F_EVAL}", 0) > 0, by_width
+    assert not any(dense.values()), dense
+    # the test run rebuilds the support and the head: the same report,
+    # up to the order of `index_add_`'s float atomics
+    rel = same_report(te, ev, rtol=1e-4)
+    steps = ev["steps_per_epoch"]
+    rec["bsr_spmm"]["launches"] = launches["bsr_spmm"]
+    rec["bsr_spmm"]["launches_by_path"]["eval_cli"] = launches["bsr_spmm"]
+    emit("eval_cli", model="TGCN", nodes=N_BIG, batch=BATCH, epochs=2,
+         hidden_dim=HIDDEN, rnn_units=UNITS, time_steps=600,
+         steps_per_epoch=steps,
+         ms_per_step_by_epoch=[s / steps * 1e3 for s in ev["epoch_seconds"]],
+         samples_per_s_epoch2=steps * BATCH / ev["epoch_seconds"][-1],
+         profiled=True, train_loss_by_epoch=ev["history"],
+         test_average=ev["average"], test_report_max_rel_diff=rel,
+         max_memory_allocated=peak, launches=launches, dense_blocks=dense,
+         bsr_spmm_launches_by_structure_and_width=by_width,
+         encoder_bitwise_unchanged=True, trace_bytes=trace_bytes,
+         pretrain_s=pretrain_s, eval_s=eval_s, test_s=test_s)
+
+
+def eval_net(sup, n: int = N_BIG, seed: int = 0):
+    """The eval-mode model at PEMS08's published widths on the CPU: a
+    GPT-ST encoder from `build_pretrain`'s random init (seed `seed`),
+    the Fusion head and TGCN at dim_in 64 (seed `seed + 1`), TGCN bound
+    to `sup` (which `.to()` does not move)."""
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import GraphPredictor, build_pretrain
+    from gptst_tpu_torch.models.enhance import EnhanceHead, EnhancedModel
+    from gptst_tpu_torch.models.predictors.tgcn import TGCN, TGCNConfig
+
+    cfg = default_config("PEMS08", mode="pretrain", num_nodes=n)
+    encoder = build_pretrain(cfg, device="cpu", seed=seed).gptst
+    gen = torch.Generator().manual_seed(seed + 1)
+    head = EnhanceHead(cfg.hidden_dim, cfg.input_base_dim, gen)
+    tgcn = TGCN(TGCNConfig(num_nodes=n), dim_in=cfg.hidden_dim, dim_out=1,
+                horizon=12, generator=gen)
+    return EnhancedModel(encoder, head, GraphPredictor(tgcn, sup))
+
+
+def phase_eval_model(rec: dict) -> None:
+    """Eval-mode TGCN train steps through the library on the road
+    graph's DIA support (1 warm, 3 timed): `dia_spmm` on x at F = 1,024
+    and h at 1,600, forward and transposed; no block run densely; the
+    encoder unchanged."""
+    import torch
+
+    model = eval_net(rec["_supports"]["road_graph"]).to("cuda")
+    enc = {k: v.clone() for k, v in model.encoder.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    warm, steps = 1, 3
+    losses, ms, launches, dense = train_steps("TGCN", model, BATCH, warm,
+                                              steps)
+    assert launches["dia_spmm"] > 0 and launches["bsr_spmm"] == 0, launches
+    assert not any(dense.values()), dense
+    for k, v in model.encoder.state_dict().items():
+        assert torch.equal(v, enc[k]), k
+    rec["dia_spmm"]["launches"] = launches["dia_spmm"]
+    rec["dia_spmm"]["launches_by_path"]["eval_model"] = launches["dia_spmm"]
+    emit("eval_model", graph="road_graph_edges(16384, 16, 48)", nodes=N_BIG,
+         batch=BATCH, hidden_dim=HIDDEN, rnn_units=UNITS, steps=warm + steps,
+         ms_per_step=ms, samples_per_s=BATCH / ms * 1e3, losses=losses,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, dense_blocks=dense,
+         launches_per_step=launches["dia_spmm"] / (warm + steps))
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_stgcn_cli(rec: dict) -> None:
+    """STGCN, the CLI's default `-model`, through `run.main` at PEMS08's
+    170 nodes, batch 64, 2 epochs each: `-mode ori`, then pretrain ->
+    eval -> test. Dense Chebyshev products only (no kernel of `csrc/`).
+    Losses finite; the test report equal to eval's (rtol 1e-5)."""
+    import numpy as np
+
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["-dataset", "PEMS08",
+                  "-data_root", write_pems08(tmp, GPTST_CLI_NODES, 2000),
+                  "-batch_size", str(GPTST_CLI_BATCH), "-epochs", "2",
+                  "-change_epoch", "1", "-lr_decay", "False",
+                  "-log_dir", os.path.join(tmp, "save"), "-log_step", "1000"]
+        reset_launch_counts()
+        for mode in ("ori", "pretrain", "eval", "test"):
+            path = os.path.join(tmp, f"{mode}.json")
+            secs[mode] = run_main(["-mode", mode, "-metrics_out", path,
+                                   *common])
+            with open(path) as f:
+                out[mode] = json.load(f)
+    for mode in ("ori", "pretrain", "eval"):
+        assert np.isfinite(out[mode]["history"]).all(), mode
+    rel = same_report(out["test"], out["eval"], rtol=1e-5)
+    assert not any(LAUNCHES.values()), LAUNCHES   # dense products only
+    emit("stgcn_cli", model="STGCN (default)", nodes=GPTST_CLI_NODES,
+         batch=GPTST_CLI_BATCH, epochs=2, seconds=secs,
+         ms_per_step_by_epoch={
+             m: [t / out[m]["steps_per_epoch"] * 1e3
+                 for t in out[m]["epoch_seconds"]]
+             for m in ("ori", "pretrain", "eval")},
+         train_loss_by_epoch={m: out[m]["history"]
+                              for m in ("ori", "pretrain", "eval")},
+         average={m: out[m]["average"] for m in out},
+         test_report_max_rel_diff=rel)
+
+
 # kernel-name fragments -> what they are on the TGCN and MSDR steps
 KERNEL_GROUPS = (
     ("bsr_spmm_kernel", "bsr_spmm"), ("bsr_spmm_value_pass", "bsr_spmm"),
@@ -1449,9 +1714,11 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_line(run: str, ms: float, path: str, steps: int = 2) -> None:
+def profile_line(run: str, ms: float, path: str, steps: int = 2,
+                 **extra) -> None:
     """Device ms per step by kernel group, the busy share and the 10
-    costliest kernels of a profiler trace of `steps` train steps."""
+    costliest kernels of a profiler trace of `steps` train steps
+    (`extra` joins the line)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     kern = [e for e in events if e.get("ph") == "X"
@@ -1469,7 +1736,7 @@ def profile_line(run: str, ms: float, path: str, steps: int = 2) -> None:
          device_ms_by_group=dict(sorted(groups.items(),
                                         key=lambda kv: -kv[1])),
          top_kernels=[[k[:120], v] for k, v in sorted(
-             names.items(), key=lambda kv: -kv[1])[:10]])
+             names.items(), key=lambda kv: -kv[1])[:10]], **extra)
 
 
 def phase_profile(rec: dict) -> None:
@@ -1499,6 +1766,21 @@ def phase_profile(rec: dict) -> None:
         _, ms = gptst_steps(gptst_net(cfg), cfg, GPTST_BATCH, (2, 2, 2),
                             trace=path)
         profile_line("gptst_pretrain", ms, path)
+    torch.cuda.empty_cache()
+    # eval TGCN on the CLI graph; the encoder's share is its no-grad
+    # forward alone on a batch of the same shape
+    model = eval_net(rec["_supports"]["cli_graph"]).to("cuda")
+    x = torch.randn(BATCH, 12, N_BIG, 3, device="cuda")
+    enc = device_ms_by_kernel(lambda: model.encode(x), reps=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        _, ms, _, _ = train_steps("TGCN", model, BATCH, 1, 2, trace=path)
+        profile_line("eval_tgcn_cli_graph", ms, path,
+                     encoder_device_ms_per_step=sum(enc.values()),
+                     encoder_device_ms_by_kernel=dict(sorted(
+                         enc.items(), key=lambda kv: -kv[1])[:5]))
+    del model
+    torch.cuda.empty_cache()
 
 
 def reference_grads(make_net, graph_on, x, dev: str) -> dict:
@@ -1610,6 +1892,8 @@ def phase_reference(rec: dict) -> None:
     assert {"dia_spmm", "bsr_spmm", "sddmm", "spmm_dvals"} <= paths, paths
     reference_sharded(b)
     reference_gptst(b)
+    reference_eval(b)
+    reference_stgcn(b)
 
 
 def reference_sharded(b: int) -> None:
@@ -1715,6 +1999,106 @@ def reference_gptst(b: int) -> None:
          grad_max_abs_err=max(errs.values()), parameters=len(errs),
          tol={"rtol": 1e-4, "atol": "1e-5 * max|want|",
               "loss_rtol": 1e-5})
+
+
+def reference_eval(b: int) -> None:
+    """Eval-mode TGCN (frozen GPT-ST encoder, Fusion head, TGCN at
+    dim_in 64, PEMS08's widths) at 1,000 nodes with and without RCM (a
+    DIA band and block-CSR), card against CPU from the same weights:
+    the prediction and every head and predictor gradient of
+    mean(pred^2), rtol and atol 1e-4 as TGCN's, under deterministic
+    algorithms."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.models.build import GraphPredictor
+    from gptst_tpu_torch.models.enhance import EnhancedModel
+    from gptst_tpu_torch.ops.graph_conv import make_support
+
+    n = 1000
+    adj = sym_adj(random_sensor_graph(n, avg_degree=6, seed=3))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (b, 12, n, 3), np.float32))
+    base = eval_net(None, n=n, seed=2)
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for reorder in (True, False):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                sup = make_support(adj, dense_threshold=0, reorder=reorder,
+                                   device=dev)
+                model = EnhancedModel(
+                    copy.deepcopy(base.encoder), copy.deepcopy(base.head),
+                    GraphPredictor(copy.deepcopy(base.predictor.net), sup)
+                ).to(dev)
+                reset_launch_counts()
+                pred = model(x.to(dev)).pred
+                pred.square().mean().backward()
+                ran = sorted(k for k, v in LAUNCHES.items() if v)
+                out[dev] = {"pred": pred.detach().cpu(), **{
+                    k: p.grad.cpu() for k, p in model.named_parameters()}}
+            errs = {}
+            for k, w in out["cpu"].items():
+                errs[k] = float((out["cuda"][k] - w).abs().max())
+                torch.testing.assert_close(out["cuda"][k], w, rtol=1e-4,
+                                           atol=1e-4,
+                                           msg=lambda m: f"eval {k}: {m}")
+            assert ran == (["dia_spmm"] if reorder else ["bsr_spmm"]), ran
+            assert any(k.startswith("head.") for k in errs)
+            emit("reference", model="eval TGCN", nodes=n, batch=b,
+                 reorder=reorder, kernels=ran,
+                 pred_max_abs_err=errs.pop("pred"),
+                 grad_max_abs_err=max(errs.values()), parameters=len(errs),
+                 tol={"rtol": 1e-4, "atol": 1e-4})
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+
+
+def reference_stgcn(b: int) -> None:
+    """STGCN at PEMS08's 170 nodes and published widths, card against
+    CPU from the same random weights: the prediction and every gradient
+    of mean(pred^2), rtol 1e-4 and an atol of 1e-5 of each tensor's
+    largest entry."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.graph.artifacts import (
+        cheb_poly_stack, random_sensor_graph, scaled_laplacian,
+    )
+    from gptst_tpu_torch.models.predictors.stgcn import STGCN, STGCNConfig
+
+    n = GPTST_CLI_NODES
+    cheb = torch.from_numpy(cheb_poly_stack(scaled_laplacian(
+        random_sensor_graph(n, avg_degree=6, seed=5)), 3).astype(np.float32))
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (b, 12, n, 1), np.float32))
+    net = STGCN(STGCNConfig(num_nodes=n), dim_in=1, dim_out=1,
+                generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(net).to(dev)
+        pred = m(x.to(dev), cheb.to(dev))
+        pred.square().mean().backward()
+        out[dev] = {"pred": pred.detach().cpu(), **{
+            k: p.grad.cpu() for k, p in m.named_parameters()}}
+    errs = {}
+    for k, w in out["cpu"].items():
+        errs[k] = float((out["cuda"][k] - w).abs().max())
+        torch.testing.assert_close(out["cuda"][k], w, rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=lambda m: f"STGCN {k}: {m}")
+    emit("reference", model="STGCN", nodes=n, batch=b,
+         pred_max_abs_err=errs.pop("pred"),
+         grad_max_abs_err=max(errs.values()), parameters=len(errs),
+         tol={"rtol": 1e-4, "atol": "1e-5 * max|want|"})
 
 
 def main() -> int:

@@ -1,6 +1,6 @@
 """Carry weights between the JAX package's flax trees and the port's
-`state_dict`s, for TGCN, MSDR and GPT-ST (told apart by the tree's
-keys).
+`state_dict`s, for TGCN, MSDR, STGCN, GPT-ST and the eval-mode
+(enhanced) model (told apart by the tree's keys).
 
 TGCN's flax tree (numpy arrays):
   {'params': {'ScanGraphGRUCell_0': {'weights_0': (D+U, 2U), 'bias_0',
@@ -27,10 +27,22 @@ name is the same. Trunk remat (`pretrain_remat` full/dots) gives the
 same flax tree as none (the JAX package's `remat_cell` keeps the class
 names), so one mapping serves both.
 
+STGCN's tree is renamed scope by scope as `models/predictors/stgcn.py`'s
+docstring lists: `STConvBlock_i` <-> `block{i}`, `OutputLayer_0` <->
+`output`, `TemporalConv_j` <-> `tconv{j}` (its `Conv_0` kernel and bias
+sit on the tconv itself, in flax's (kt, 1, C_in, C_out) layout),
+`SpatioConvLayer_0` <-> `sconv`, `LayerNorm_0` <-> `norm` (`scale` <->
+`weight`), `Dense_0` <-> `proj` (`dense` in the output layer).
+
+The eval-mode (enhanced) tree `{"head": {"params": {"Dense_0",
+"Fusion_0": {"Dense_0", "Dense_1", "Dense_2"}}}, "predictor": <a
+predictor's tree>}` maps to `EnhancedModel`'s keys: `head.proj`,
+`head.fusion.dense.{0,1,2}` and `predictor.net.<the predictor's keys>`.
+
 Recurrent weights keep flax's (in, out) layout (the cells compute
 `x @ W`); Dense kernels are transposed into `nn.Linear.weight`. Keys of
-the returned state dict are those of `TGCN` / `MSDR`; pass `prefix` for
-a wrapping module's keys.
+the returned state dict are those of `TGCN` / `MSDR` / `STGCN` /
+`GPTST` / `EnhancedModel`; pass `prefix` for a wrapping module's keys.
 """
 
 from __future__ import annotations
@@ -114,20 +126,100 @@ def _gptst_to_state_dict(p: dict, path: tuple[str, ...] = ()) -> dict:
     return sd
 
 
-def _gptst_to_flax(sd: dict) -> dict:
+
+
+_STGCN_SCOPES = {"STConvBlock": "block", "TemporalConv": "tconv"}
+_STGCN_NAMES = {"OutputLayer_0": "output", "SpatioConvLayer_0": "sconv",
+                "LayerNorm_0": "norm"}
+
+
+def _stgcn_key(path: tuple[str, ...]) -> tuple[str, bool]:
+    """The port's key of a flax STGCN leaf path, and whether the leaf is
+    a Dense kernel (transposed into `nn.Linear.weight`)."""
+    out, leaf = [], path[-1]
+    for i, name in enumerate(path[:-1]):
+        m = re.fullmatch(r"([A-Za-z]+)_(\d+)", name)
+        if name in _STGCN_NAMES:
+            out.append(_STGCN_NAMES[name])
+        elif m[1] in _STGCN_SCOPES:
+            out.append(_STGCN_SCOPES[m[1]] + m[2])
+        elif m[1] == "Dense":
+            out.append("dense" if path[i - 1] == "OutputLayer_0"
+                       else "proj")
+        # Conv_0: its kernel and bias sit on the TemporalConv itself
+    dense_kernel = out[-1] in ("proj", "dense") and leaf == "kernel"
+    if dense_kernel or leaf == "scale":
+        leaf = "weight"
+    return ".".join(out + [leaf]), dense_kernel
+
+
+def _stgcn_path(key: str) -> list[str]:
+    """The flax leaf path of a port STGCN key (`_stgcn_key`'s inverse)."""
+    names = {v: k for k, v in _STGCN_NAMES.items()}
+    *scopes, leaf = key.split(".")
+    out = []
+    for name in scopes:
+        m = re.fullmatch(r"(block|tconv)(\d+)", name)
+        if m:
+            flax = {v: k for k, v in _STGCN_SCOPES.items()}[m[1]]
+            out.append(f"{flax}_{m[2]}")
+        elif name in ("proj", "dense"):
+            out.append("Dense_0")
+        else:
+            out.append(names[name])
+    if scopes[-1].startswith("tconv"):
+        out.append("Conv_0")
+    elif scopes[-1] == "norm" and leaf == "weight":
+        leaf = "scale"
+    elif scopes[-1] in ("proj", "dense") and leaf == "weight":
+        leaf = "kernel"
+    return out + [leaf]
+
+
+def _stgcn_to_state_dict(p: dict, path: tuple[str, ...] = ()) -> dict:
+    sd = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            sd.update(_stgcn_to_state_dict(v, path + (k,)))
+        else:
+            key, transpose = _stgcn_key(path + (k,))
+            a = np.asarray(v)
+            sd[key] = _t(a.T if transpose else a)
+    return sd
+
+
+def _nested(sd: dict, path_of, transpose) -> dict:
+    """A flax tree from port keys: `path_of(key)` gives the leaf path,
+    `transpose(path)` whether the leaf is a Dense kernel."""
     p: dict = {}
     for k, v in sd.items():
-        *scopes, leaf = _gptst_path(k)
+        *scopes, leaf = path = path_of(k)
         d = p
         for name in scopes:
             d = d.setdefault(name, {})
-        d[leaf] = v.T.copy() if leaf == "kernel" else v
+        d[leaf] = v.T.copy() if transpose(path) else v
     return {"params": p}
 
 
+def _head_to_state_dict(p: dict) -> dict:
+    sd = _dense_to_linear(p["Dense_0"], "proj")
+    for i in range(3):
+        sd.update(_dense_to_linear(p["Fusion_0"][f"Dense_{i}"],
+                                   f"fusion.dense.{i}"))
+    return sd
+
+
 def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
+    if "head" in params and "predictor" in params:
+        return {**flax_to_state_dict(params["head"], prefix + "head."),
+                **flax_to_state_dict(params["predictor"],
+                                     prefix + "predictor.net.")}
     p = params.get("params", params)
-    if "dim_in_flow" in p:
+    if "Fusion_0" in p:
+        sd = _head_to_state_dict(p)
+    elif "STConvBlock_0" in p:
+        sd = _stgcn_to_state_dict(p)
+    elif "dim_in_flow" in p:
         sd = _gptst_to_state_dict(p)
     elif "enc_mlp" in p:
         sd = _msdr_to_state_dict(p)
@@ -139,17 +231,28 @@ def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
 
 def state_dict_to_flax(sd: dict, prefix: str = "",
                        chunked: bool = False) -> dict:
-    """The flax tree of a TGCN, MSDR or GPT-ST state dict; `chunked`
-    nests MSDR's cells as the chunked-remat layout does."""
+    """The flax tree of a TGCN, MSDR, STGCN, GPT-ST or `EnhancedModel`
+    state dict; `chunked` nests MSDR's cells as the chunked-remat layout
+    does."""
+    if f"{prefix}head.proj.weight" in sd:
+        return {"head": state_dict_to_flax(sd, prefix + "head."),
+                "predictor": state_dict_to_flax(
+                    sd, prefix + "predictor.net.", chunked)}
     sd = {k[len(prefix):]: v.detach().cpu().numpy()
           for k, v in sd.items() if k.startswith(prefix)}
     if "dim_in_flow.weight" in sd:
-        return _gptst_to_flax(sd)
+        return _nested(sd, _gptst_path, lambda path: path[-1] == "kernel")
+    if "block0.tconv0.kernel" in sd:
+        return _nested(sd, _stgcn_path, lambda path: path[-1] == "kernel"
+                       and path[-2] == "Dense_0")
 
     def dense(key):
         return {"kernel": sd[f"{key}.weight"].T.copy(),
                 "bias": sd[f"{key}.bias"]}
 
+    if "fusion.dense.0.weight" in sd:
+        return {"params": {"Dense_0": dense("proj"), "Fusion_0": {
+            f"Dense_{i}": dense(f"fusion.dense.{i}") for i in range(3)}}}
     if "enc_mlp.weight" not in sd:
         return {"params": {_CELL: {k: sd[f"cell.{k}"] for k in _GRU},
                            "Dense_0": dense("dense")}}

@@ -7,9 +7,10 @@ channels; `build_model` wraps it into the `ModelOutput` contract of a
 mode. Parameters are drawn on the host from a `torch.Generator` seeded
 with `seed` and then moved to `device`.
 
-Ported so far: `-mode pretrain` (GPT-ST) and `-mode ori` with TGCN and
-MSDR. Other modes and predictors raise `NotImplementedError` naming the
-slice they wait for.
+Ported: the four modes (`pretrain`: GPT-ST; `eval`: the frozen GPT-ST
+encoder, the Fusion head and a predictor; `ori` and `test`: the bare
+predictor) with STGCN, TGCN and MSDR. The other predictors raise
+`NotImplementedError` naming the slice they wait for.
 """
 
 from __future__ import annotations
@@ -42,19 +43,15 @@ def load_base_adjacency(cfg: FrameworkConfig, seed: int = 0) -> np.ndarray:
     return random_sensor_graph(cfg.num_nodes, avg_degree=6, seed=seed)
 
 
-_PREDICTOR_CONFIGS = {"TGCN": ("tgcn", "TGCNConfig"),
+_PREDICTOR_CONFIGS = {"STGCN": ("stgcn", "STGCNConfig"),
+                      "TGCN": ("tgcn", "TGCNConfig"),
                       "MSDR": ("msdr", "MSDRConfig")}
 
 # predictors of the JAX package not ported yet, and the slice each one
 # waits for
-_LATER = {
-    "STGCN": "the STGCN slice",
-    **{m: "the slice of the remaining predictors"
-       for m in ("GWN", "MTGNN", "CCRNN", "STMGCN", "ASTGCN", "STSGCN",
-                 "STFGNN", "STGODE", "ST_WA", "DMVSTNET")},
-}
-_LATER_MODES = {"eval": "the eval/test-mode slice",
-                "test": "the eval/test-mode slice"}
+_LATER = {m: "the slice of the remaining predictors"
+          for m in ("GWN", "MTGNN", "CCRNN", "STMGCN", "ASTGCN", "STSGCN",
+                    "STFGNN", "STGODE", "ST_WA", "DMVSTNET")}
 
 
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -144,9 +141,11 @@ class OriModel(nn.Module):
         self.predictor = predictor
         self.input_base_dim = input_base_dim
 
-    def forward(self, x: torch.Tensor, y=None, step=None) -> ModelOutput:
+    def forward(self, x: torch.Tensor, y=None, step=None,
+                generator: torch.Generator | None = None) -> ModelOutput:
         return ModelOutput(pred=self.predictor(
-            x[..., : self.input_base_dim], y=y, step=step))
+            x[..., : self.input_base_dim], y=y, step=step,
+            generator=generator))
 
 
 def predictor_forward(cfg: FrameworkConfig, predictor: nn.Module) -> OriModel:
@@ -187,41 +186,98 @@ def build_pretrain(cfg: FrameworkConfig, scaler_zeros: float = 0.0,
     return PretrainModel(net).to(resolve_device(device))
 
 
+def build_enhanced(cfg: FrameworkConfig, scaler_zeros: float,
+                   encoder_or_state, adj: np.ndarray | None = None,
+                   device="cuda", seed: int | None = None) -> nn.Module:
+    """Eval mode (`model/Model.py:106-117`): the frozen GPT-ST encoder,
+    the Fusion head and the predictor at `dim_in = hidden_dim`.
+
+    `encoder_or_state` is the pretrained GPT-ST (a `GPTST` or a
+    `PretrainModel`) or its `state_dict` (the pretrain checkpoint),
+    loaded strictly into `build_pretrain(cfg.replace(mode="pretrain"))`'s
+    GPT-ST. The head is drawn from a generator seeded with `seed`
+    (default `cfg.seed`), the predictor from `seed + 1`."""
+    from gptst_tpu_torch.models.enhance import EnhanceHead, EnhancedModel
+
+    dev = resolve_device(device)
+    seed = cfg.seed if seed is None else seed
+    encoder = encoder_or_state
+    if isinstance(encoder, PretrainModel):
+        encoder = encoder.gptst
+    elif not isinstance(encoder, nn.Module):
+        encoder = build_pretrain(cfg.replace(mode="pretrain"), scaler_zeros,
+                                 dev, seed).gptst
+        encoder.load_state_dict(encoder_or_state, strict=True)
+    head = EnhanceHead(cfg.hidden_dim, cfg.input_base_dim,
+                       torch.Generator().manual_seed(seed))
+    predictor = build_predictor(cfg, dim_in=cfg.hidden_dim, adj=adj,
+                                device=dev, seed=seed + 1)
+    return EnhancedModel(encoder, head, predictor).to(dev)
+
+
 def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
                 device="cuda", seed: int | None = None,
-                mesh=None, scaler_zeros: float = 0.0) -> nn.Module:
+                mesh=None, scaler_zeros: float = 0.0,
+                pretrain_params=None) -> nn.Module:
     """Mode dispatch: pretrain -> GPT-ST (`scaler_zeros` is the
-    normalized zero that fills masked inputs); ori -> the bare
-    predictor.
+    normalized zero that fills masked inputs); eval -> the frozen
+    encoder, Fusion head and predictor (`build_enhanced`;
+    `pretrain_params` is the pretrained GPT-ST or its state dict, and
+    is required); ori and test -> the bare predictor.
 
     With `mesh` (`parallel/mesh.make_mesh`, graph axis above 1), the
     predictor's graph supports are built node-sharded on the mesh's
     devices (`ops/graph_conv.make_sharded_support`); parameters and
     activations stay on `device`."""
-    if cfg.mode in _LATER_MODES:
-        raise _not_ported(f"-mode {cfg.mode}", _LATER_MODES[cfg.mode])
     if cfg.mode == "pretrain":
         return build_pretrain(cfg, scaler_zeros, device, seed)
     with use_sharding_mesh(mesh):
+        if cfg.mode == "eval":
+            if pretrain_params is None:
+                raise ValueError("eval mode requires pretrain_params (the "
+                                 "pretrained GPT-ST or its state dict)")
+            return build_enhanced(cfg, scaler_zeros, pretrain_params, adj,
+                                  device, seed)
         return predictor_forward(
             cfg, build_predictor(cfg, adj=adj, device=device, seed=seed))
 
 
 class GraphPredictor(nn.Module):
     """A predictor network bound to its constant graph arguments (the
-    support, or MSDR's static supports and learned-adjacency
-    pattern)."""
+    support, STGCN's Chebyshev stack, or MSDR's static supports and
+    learned-adjacency pattern). With `takes_generator` the trainer's
+    generator reaches the network (STGCN's dropout)."""
 
-    def __init__(self, net: nn.Module, *graph):
+    def __init__(self, net: nn.Module, *graph, takes_generator=False):
         super().__init__()
         self.net = net
         self.graph = graph
+        self.takes_generator = takes_generator
 
-    def forward(self, x_base: torch.Tensor, y=None, step=None):
+    def forward(self, x_base: torch.Tensor, y=None, step=None,
+                generator: torch.Generator | None = None):
+        if self.takes_generator:
+            return self.net(x_base, *self.graph, generator=generator)
         return self.net(x_base, *self.graph)
 
 
 # --- registrations ----------------------------------------------------------
+
+@register_model("STGCN")
+def _build_stgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                 device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.graph.artifacts import (
+        cheb_poly_stack, scaled_laplacian,
+    )
+    from gptst_tpu_torch.models.predictors.stgcn import STGCN, STGCNConfig
+
+    pcfg = make_predictor_config(STGCNConfig, cfg, num_nodes=cfg.num_nodes)
+    cheb = torch.as_tensor(cheb_poly_stack(scaled_laplacian(adj), pcfg.ks),
+                           dtype=torch.float32, device=device)
+    net = STGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                generator=generator).to(device)
+    return GraphPredictor(net, cheb, takes_generator=True)
+
 
 @register_model("TGCN")
 def _build_tgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,

@@ -31,7 +31,9 @@ from torch.nn import functional as F
 
 from gptst_tpu_torch.graph.artifacts import asym_adj
 from gptst_tpu_torch.kernels.sddmm import adaptive_support
-from gptst_tpu_torch.ops.graph_conv import graph_matmul
+from gptst_tpu_torch.ops.graph_conv import (
+    graph_matmul, refuse_promoting_dense_support,
+)
 from gptst_tpu_torch.ops.recurrent import (
     remat_cell, resolve_remat, variance_scaling_, xavier_normal_,
 )
@@ -187,6 +189,7 @@ class MSDR(nn.Module):
         # adapt_pattern: None -> each layer's learned adjacency is the
         # reference's dense softmax(relu(E1 E2)), O(N^2) memory; an
         # SDDMMPattern -> the same graph restricted to the pattern
+        refuse_promoting_dense_support("MSDR", supports, x)
         c = self.cfg
         B, T, N, _ = x.shape
         L = c.num_rnn_layers

@@ -17,7 +17,10 @@ import functools
 import torch
 from torch import nn
 
-from gptst_tpu_torch.ops.graph_conv import ShardedSupport
+from gptst_tpu_torch.ops.dtypes import linear
+from gptst_tpu_torch.ops.graph_conv import (
+    ShardedSupport, refuse_promoting_dense_support,
+)
 from gptst_tpu_torch.ops.recurrent import (
     GraphGRUCell, GraphGRUCellNM, remat_cell, resolve_remat, scan_over_time,
     variance_scaling_,
@@ -56,6 +59,7 @@ class TGCN(nn.Module):
 
     def forward(self, x: torch.Tensor, support) -> torch.Tensor:
         B, T, N, _ = x.shape
+        refuse_promoting_dense_support("TGCN", (support,), x)
         if isinstance(support, ShardedSupport):
             # the sharded fn takes batch-major (..., N, C) operands: the
             # batch-major cell on the same parameters, remat off as in
@@ -72,6 +76,6 @@ class TGCN(nn.Module):
             for t in range(T):
                 h = step(h, xt[t], support)
             h = h.transpose(0, 1)                         # (B, N, U)
-        out = self.dense(h)                               # (B, N, T_out*D)
+        out = linear(self.dense, h)                       # (B, N, T_out*D)
         out = out.reshape(B, N, self.horizon, self.dim_out)
         return out.permute(0, 2, 1, 3)

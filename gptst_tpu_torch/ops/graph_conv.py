@@ -3,8 +3,9 @@
 All graph aggregation flows through `graph_matmul`, which dispatches on
 the support representation:
 
-  * a plain (N, N) tensor — one dense matmul; the default at reference
-    scale (N <= 266) and below `DENSE_THRESHOLD` nodes;
+  * a plain (N, N) tensor — one dense matmul (f32 support, the product
+    in the promoted dtype); the default at reference scale (N <= 266)
+    and below `DENSE_THRESHOLD` nodes;
   * `SparseSupport` — the hand-written CUDA kernels of
     `kernels/spmm.py` (DIA band or block-CSR) plus the COO straggler
     tail, with an optional RCM node reordering that concentrates the
@@ -30,6 +31,7 @@ from gptst_tpu_torch.kernels.spmm import (
     BlockCSR, COOTail, DIABand, coo_matmul, coo_split_mask, dia_matmul,
     dia_pair_from_coo, spmm, split_coo_hybrid,
 )
+from gptst_tpu_torch.ops.dtypes import promoted
 from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
 from gptst_tpu_torch.utils.device import resolve_device
 
@@ -210,11 +212,13 @@ def graph_matmul(support, x: torch.Tensor) -> torch.Tensor:
     """support @ x over the node axis.
 
     support: (N, N) tensor, `SparseSupport` or `ShardedSupport`; x:
-    (..., N, C). Dense: one matmul, the support cast to x's dtype.
-    Sparse: the DIA or block-CSR kernel (leading dims fold into the
-    feature axis inside the call) plus the COO tail, inside the RCM
-    permutation. Sharded: x zero-padded to the support's node count,
-    the sharded product, the padding sliced off.
+    (..., N, C). Dense: one matmul in the promoted dtype of the support
+    and x, as `jnp.einsum` promotes in the JAX package (a bf16 x on the
+    f32 support gives an f32 product). Sparse: the DIA or block-CSR
+    kernel (leading dims fold into the feature axis inside the call)
+    plus the COO tail, inside the RCM permutation. Sharded: x
+    zero-padded to the support's node count, the sharded product, the
+    padding sliced off.
     """
     if isinstance(support, ShardedSupport):
         n = x.shape[-2]
@@ -234,4 +238,41 @@ def graph_matmul(support, x: torch.Tensor) -> torch.Tensor:
         if support.inv_perm is not None:
             out = out.index_select(-2, support.inv_perm)
         return out
-    return torch.matmul(support.to(x.dtype), x)
+    support, x = promoted(support, x)
+    return torch.matmul(support, x)
+
+
+def refuse_promoting_dense_support(model: str, supports,
+                                   x: torch.Tensor) -> None:
+    """Raise the JAX package's TypeError for a recurrent predictor whose
+    input `x` would be promoted by a dense support (a bf16 x on an f32
+    support): its state would change dtype between steps, which the JAX
+    package's scan carry refuses (ROADMAP.md Queue 3, item 6)."""
+    for s in supports:
+        if (isinstance(s, torch.Tensor)
+                and torch.promote_types(s.dtype, x.dtype) != x.dtype):
+            raise TypeError(
+                f"{model} on a dense {s.dtype} support with a {x.dtype} "
+                "input: the dense product promotes to the support's "
+                "dtype, so the recurrent state would change dtype between "
+                "steps. The JAX package raises a TypeError here too (its "
+                "scan carry); see ROADMAP.md Queue 3, item 6. Use "
+                "compute_dtype=float32, or a sparse support (above 4096 "
+                "nodes) for bfloat16.")
+
+
+def cheb_conv(x: torch.Tensor, cheb_stack: torch.Tensor,
+              theta: torch.Tensor, bias: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """Chebyshev spatial convolution with a precomputed polynomial stack
+    (the JAX package's `cheb_conv`, STGCN's SpatioConvLayer).
+
+    x: (B, T, N, Ci); cheb_stack: (K, N, N); theta: (Ci, Co, K); bias:
+    (Co,) or None. Returns (B, T, N, Co). Two dense products, each in
+    the promoted dtype of its operands, as `jnp.einsum` computes them:
+    a bf16 x on the f32 stack gives f32."""
+    cheb_stack, x = promoted(cheb_stack, x)
+    xc = torch.einsum("knm,btmi->btkni", cheb_stack, x)
+    theta, xc = promoted(theta, xc)
+    out = torch.einsum("iok,btkni->btno", theta, xc)
+    return out if bias is None else out + bias

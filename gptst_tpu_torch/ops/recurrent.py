@@ -13,6 +13,7 @@ import math
 import torch
 from torch import nn
 
+from gptst_tpu_torch.ops.dtypes import promoted
 from gptst_tpu_torch.ops.graph_conv import graph_matmul
 
 # flax's truncated-normal initializers draw from N(0, 1) cut at +-2 and
@@ -70,7 +71,8 @@ class GraphGRUCell(nn.Module):
                 support) -> torch.Tensor:
         def gc(inp, state, w, b):
             z = torch.cat([inp, state], dim=-1)
-            return graph_matmul(support, z) @ w + b
+            az, w = promoted(graph_matmul(support, z), w)
+            return az @ w + b
 
         gates = torch.sigmoid(gc(x, h, self.weights_0, self.bias_0))
         r, u = gates.chunk(2, dim=-1)
@@ -100,7 +102,10 @@ class GraphGRUCellNM(GraphGRUCell):
             f = t.shape[-1]
             return graph_matmul(support, t.reshape(n, b * f)).reshape(n, b, f)
 
-        w0, w1 = self.weights_0, self.weights_1
+        # an f32 x (the eval-mode fused embedding) against bf16 weights
+        # computes in f32, as the JAX cell's `@` promotes
+        dt = torch.promote_types(x.dtype, self.weights_0.dtype)
+        w0, w1 = self.weights_0.to(dt), self.weights_1.to(dt)
         ax = agg(x)
         ah = agg(h)
         gates = torch.sigmoid(ax @ w0[:d] + ah @ w0[d:] + self.bias_0)

@@ -3,7 +3,8 @@
 Usage:
 
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode pretrain
-  python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model TGCN
+  python -m gptst_tpu_torch.run -dataset PEMS08 -mode eval -model TGCN
+  python -m gptst_tpu_torch.run -dataset PEMS08 -mode test -model TGCN
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model MSDR
   python -m gptst_tpu_torch.run ... -device cpu      # no card needed
 
@@ -12,19 +13,28 @@ field); the predictor's config fields are `--flags`. Extras:
 `-num_steps` limits the synthetic dataset length, `-data_root` points
 at real `.npz` files (and at a `PEMS08/PEMS08.npz` of any node count,
 the way to train above the dataset's own node count), `-device` picks
-the device (default `cuda`; raises when no card is present) and
-`-metrics_out` writes the final report as JSON.
+the device (default `cuda`; raises when no card is present),
+`-metrics_out` writes the final report as JSON, `-resume True`
+restarts from `<log_dir>/<dataset>/full_ckpt.pt` (written every
+`-ckpt_every_epochs` epochs), `-profile_dir` writes a `torch.profiler`
+Chrome trace of the training there, and `-device_seed` is parsed and
+unused, as in the JAX package.
 
-Flow: config -> seed -> dataset -> model -> trainer. The port runs
-`-mode pretrain` (GPT-ST; `-model` is not read) and `-mode ori` with
-TGCN and MSDR (above 4096 nodes MSDR's learned adjacency is sparse:
-`kernels/sddmm.adaptive_support`); other modes and predictors raise
-`NotImplementedError` naming the slice they wait for.
-
-`-mode pretrain` ends by writing the best GPT-ST parameters with
-`torch.save(state_dict)` to `<log_dir>/<dataset>/<save_pretrain_path>`
-(`_pretrain_ckpt_path`); the key layout is in `models/gptst.py`'s
-docstring.
+Flow: config -> seed -> dataset -> model -> trainer. The predictors
+are STGCN (the default `-model`), TGCN and MSDR (above 4096 nodes
+MSDR's learned adjacency is sparse: `kernels/sddmm.adaptive_support`);
+the others raise `NotImplementedError` naming the slice they wait for.
+Files, under `<log_dir>/<dataset>/`:
+  * `-mode pretrain` (GPT-ST; `-model` is not read) writes the best
+    GPT-ST parameters with `torch.save(state_dict)` to
+    `<save_pretrain_path>` (default `gptst_pretrain.ckpt`; keys in
+    `models/gptst.py`'s docstring);
+  * `-mode eval` reads `<load_pretrain_path>` into the frozen encoder
+    and, like `ori`, writes `best_model.pt` (eval: `head.*` and
+    `predictor.*` keys, no encoder);
+  * `-mode test` reads `best_model.pt` and rebuilds the model it holds
+    (`checkpoint_is_enhanced`: eval semantics, the pretrain checkpoint
+    read again, or ori semantics), then reports on the test split.
 """
 
 from __future__ import annotations
@@ -55,6 +65,13 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("-metrics_out", type=str, default=None,
                    help="write the final test report (per-horizon + "
                         "average MAE/RMSE/MAPE/CORR) to this JSON file")
+    p.add_argument("-resume", default="False",
+                   help="resume from <log_dir>/<dataset>/full_ckpt.pt "
+                        "(written every -ckpt_every_epochs epochs)")
+    p.add_argument("-device_seed", type=int, default=None)
+    p.add_argument("-profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the training "
+                        "here")
     # every FrameworkConfig field becomes an override flag
     fw_names = set()
     for f in dataclasses.fields(FrameworkConfig):
@@ -118,6 +135,39 @@ def _pretrain_ckpt_path(cfg, save: bool) -> str:
     return os.path.abspath(os.path.join(cfg.log_dir, cfg.dataset, name))
 
 
+def checkpoint_is_enhanced(path: str) -> bool:
+    """True when the `best_model.pt` at `path` holds an eval-mode
+    (enhanced) model, its keys `head.*` and `predictor.*`; False when
+    it holds a bare predictor or is missing. Only the saved dict is
+    read (memory-mapped), no model is built. The reference's `-mode
+    test` breaks for eval-trained models (`model/Model.py:40-44`); this
+    tells `main` to rebuild the frozen-encoder model instead."""
+    import torch
+
+    if not os.path.isfile(path):
+        return False
+    keys = torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=True).keys()
+    return (any(k.startswith("head.") for k in keys)
+            and any(k.startswith("predictor.") for k in keys))
+
+
+def load_pretrain_params(cfg, scaler_zeros: float, device="cuda"):
+    """The pretrained GPT-ST for eval mode (`model/Model.py:95-98`): a
+    strict `load_state_dict` of `<log_dir>/<dataset>/<load_pretrain_path>`
+    into `build_pretrain(cfg.replace(mode="pretrain"))`'s GPT-ST."""
+    import torch
+
+    from gptst_tpu_torch.models.build import build_pretrain
+
+    net = build_pretrain(cfg.replace(mode="pretrain"), scaler_zeros,
+                         device).gptst
+    path = _pretrain_ckpt_path(cfg, save=False)
+    net.load_state_dict(torch.load(path, map_location=net.neb4mask.device,
+                                   weights_only=True), strict=True)
+    return net
+
+
 def set_precision(cfg) -> str:
     """True-f32 matmuls for f32 runs (`matmul_precision` "auto" ->
     "highest", as the JAX package resolves it): TF32 off for both
@@ -144,7 +194,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     from gptst_tpu_torch.utils.device import resolve_device
     from gptst_tpu_torch.utils.logger import get_logger
     from gptst_tpu_torch.utils.observability import (
-        count_parameters, init_determinism,
+        count_parameters, init_determinism, profile_trace,
     )
 
     device = resolve_device(ns.device)
@@ -156,15 +206,35 @@ def main(argv: Optional[list[str]] = None) -> int:
     init_determinism(cfg.seed, cfg.seed_mode)
     ds = build_dataset(cfg, data_root=cfg.data_root, num_steps=ns.num_steps,
                        seed=cfg.seed)
-    model = build_model(cfg, device=device, seed=cfg.seed,
-                        scaler_zeros=ds.scaler_zeros)
+    log_dir = os.path.join(cfg.log_dir, cfg.dataset)
+    best_path = os.path.join(log_dir, "best_model.pt")
+    # `-mode test` rebuilds what best_model.pt holds: the enhanced model
+    # (which needs the pretrain checkpoint) or the bare predictor
+    build_cfg = cfg
+    if cfg.mode == "test":
+        build_cfg = cfg.replace(
+            mode="eval" if checkpoint_is_enhanced(best_path) else "ori")
+    pretrain = None
+    if build_cfg.mode == "eval":
+        pretrain = load_pretrain_params(cfg, ds.scaler_zeros, device)
+    model = build_model(build_cfg, device=device, seed=cfg.seed,
+                        scaler_zeros=ds.scaler_zeros,
+                        pretrain_params=pretrain)
     count_parameters(model, logger)
 
-    log_dir = os.path.join(cfg.log_dir, cfg.dataset)
     os.makedirs(log_dir, exist_ok=True)
     tr = Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
                  log_dir=log_dir, device=device)
-    result = tr.train()
+    if cfg.mode == "test":
+        tr.load_checkpoint(best_path)
+        report = tr.test()
+        if ns.metrics_out:
+            with open(ns.metrics_out, "w") as f:
+                json.dump(report, f)
+        return 0
+    resume = str(ns.resume).strip().lower() in ("true", "1", "yes")
+    with profile_trace(ns.profile_dir):
+        result = tr.train(resume=resume)
     if cfg.mode == "pretrain":
         import torch
 

@@ -30,16 +30,18 @@ def make_loss_terms(model: nn.Module, loss_fn: Callable,
                     cfg: FrameworkConfig) -> Callable:
     """Returns loss_terms(x, y, step=None, epoch=None, generator=None)
     -> (total, flow), running `model` (a `ModelOutput` module,
-    `models/build.build_model`). `epoch` and `generator` (the mask's
-    draws) are pretrain's; the ori path ignores them."""
+    `models/build.build_model`). `generator` draws pretrain's mask (and
+    a predictor's dropout in the other modes); `epoch` is pretrain's.
+    In eval mode the cast reaches only the trainable parameters: the
+    frozen encoder, outside them, stays f32."""
     pretrain = cfg.mode == "pretrain"
     bf16 = cfg.compute_dtype == "bfloat16"
 
     def loss_terms(x, y, step=None, epoch=None, generator=None):
         label = x if pretrain else y
-        kw = {"y": y, "step": step}
+        kw = {"y": y, "step": step, "generator": generator}
         if pretrain:
-            kw.update(generator=generator, epoch=epoch)
+            kw["epoch"] = epoch
         if bf16:
             params = {k: _cast_bf16(p) for k, p in model.named_parameters()}
             out = functional_call(model, params, (_cast_bf16(x),),

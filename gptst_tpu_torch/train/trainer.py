@@ -1,4 +1,5 @@
-"""Training loop for the ori and pretrain modes.
+"""Training loop for the ori, eval and pretrain modes (and the test
+report of `-mode test`).
 
 The JAX package's `train/trainer.py` behaviour, step for step:
   - batch order: the permutation
@@ -19,10 +20,17 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     epoch is the one with the lowest mean train flow loss; the final
     report is on the train split, the mask drawn at epoch `cfg.epochs`
     (the adaptive branch) from a generator seeded with `seed + 777`,
-    predictions and labels multiplied by it.
+    predictions and labels multiplied by it;
+  - ori and eval: each epoch's generator (seeded the same way) reaches
+    the predictor for its dropout (STGCN's `drop_prob`).
 
-Best parameters are saved with `torch.save` when `log_dir` is set.
-Periodic checkpoints and resume come with the eval/test-mode slice.
+Best parameters are saved with `torch.save` to `<log_dir>/best_model.pt`
+when `log_dir` is set. Every `ckpt_every_epochs` epochs the full state
+(the model's `state_dict`, `ClippedAdam`'s state and step count, the
+best state and `{epoch, batch_seen, best_loss, not_improved}`) goes to
+`<log_dir>/full_ckpt.pt` in one `torch.save`; `train(resume=True)`
+restarts from it at the next epoch. The batch order and the generators
+are seeded per epoch, so a resumed run reproduces the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -81,6 +89,16 @@ class ClippedAdam(torch.optim.Optimizer):
         self.max_norm = max_norm
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """torch's optimizer state (per-parameter `mu`, `nu`) plus the
+        step count that drives the schedule and the bias correction."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
     @torch.no_grad()
     def step(self, closure=None):
         norm = None
@@ -135,15 +153,7 @@ class Trainer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.logger = get_logger("trainer", debug=self.cfg.debug)
-        if self.cfg.mode not in ("ori", "pretrain"):
-            raise NotImplementedError(
-                f"the Trainer of gptst_tpu_torch runs -mode ori and "
-                f"pretrain; -mode {self.cfg.mode} comes with a later slice")
         self.pretrain = self.cfg.mode == "pretrain"
-        if self.cfg.ckpt_every_epochs:
-            raise NotImplementedError(
-                "periodic checkpoints and resume come with the "
-                "eval/test-mode slice")
         self.steps_per_epoch = self.dataset.num_batches(
             "train", self.cfg.batch_size)
         self.optimizer = make_optimizer(
@@ -155,6 +165,7 @@ class Trainer:
         self._loss_terms = make_loss_terms(self.model, self.loss_fn,
                                            self.cfg)
         self.batch_seen = 0
+        self._step_kw: dict = {}
 
     def _stat(self, v):
         """A scaler statistic: a float, or a tensor on the device for
@@ -170,25 +181,25 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     # --- epoch loops ----------------------------------------------------
-    def _train_batch(self, xb: np.ndarray, yb: np.ndarray, **kw):
-        """One optimizer step (`kw`: pretrain's epoch and generator);
-        returns (total, flow) as device scalars."""
+    def _train_batch(self, xb: np.ndarray, yb: np.ndarray):
+        """One optimizer step with the epoch's generator (and pretrain's
+        epoch); returns (total, flow) as device scalars."""
         self.batch_seen += 1
         return train_step(self._loss_terms, self.optimizer, self._put(xb),
-                          self._put(yb), self.batch_seen, **kw)
+                          self._put(yb), self.batch_seen, **self._step_kw)
 
     def train_epoch(self, epoch: int) -> float:
-        """Mean train loss of the epoch: the total in ori mode, the flow
-        loss in pretrain (`BasicTrainer.py:120-121`)."""
+        """Mean train loss of the epoch: the total in ori and eval mode,
+        the flow loss in pretrain (`BasicTrainer.py:120-121`)."""
         self.model.train()
-        kw = {}
+        self._step_kw = dict(
+            generator=self._generator(self.seed * 10_000 + epoch))
         if self.pretrain:
-            kw = dict(epoch=epoch,
-                      generator=self._generator(self.seed * 10_000 + epoch))
+            self._step_kw["epoch"] = epoch
         it = self.dataset.batches("train", self.cfg.batch_size, shuffle=True,
                                   seed=self.seed * 10_000 + epoch)
         # losses stay on the device until the epoch ends: one sync
-        steps = [self._train_batch(xb, yb, **kw) for xb, yb in it]
+        steps = [self._train_batch(xb, yb) for xb, yb in it]
         totals, flows = torch.stack([torch.stack(s) for s in steps]).T.tolist()
         for i, loss in enumerate(totals):
             if i % self.cfg.log_step == 0:
@@ -213,17 +224,28 @@ class Trainer:
                          epoch, val)
         return val
 
-    def train(self) -> dict:
+    def train(self, resume: bool = False) -> dict:
+        """Train from epoch 1, or with `resume` from the epoch after the
+        one `<log_dir>/full_ckpt.pt` was written at (when it exists).
+        The history holds the epochs this call ran."""
         best_loss = float("inf")
         best_state = self._snapshot()
         not_improved = 0
+        start_epoch = 1
+        ckpt = os.path.join(self.log_dir, "full_ckpt.pt") if self.log_dir \
+            else None
+        if resume and ckpt and os.path.exists(ckpt):
+            start_epoch = self.restore_full_checkpoint(ckpt)
+            best_loss, best_state = self._best_loss, self._best_state
+            not_improved = self._not_improved
+            self.logger.info("Resumed from %s at epoch %d", ckpt, start_epoch)
         history: list[float] = []
         epoch_seconds: list[float] = []
         start = time.time()
         val_split = "val" if self.dataset.x_val.shape[0] > 0 else "test"
         timer = StepTimer(warmup=0)
         n_train = self.dataset.x_train.shape[0]
-        for epoch in range(1, self.cfg.epochs + 1):
+        for epoch in range(start_epoch, self.cfg.epochs + 1):
             timer.start()
             train_loss = self.train_epoch(epoch)
             _sync(self.device)
@@ -252,6 +274,11 @@ class Trainer:
                 self.logger.info("No improvement for %d epochs; stopping.",
                                  self.cfg.early_stop_patience)
                 break
+            if (ckpt and self.cfg.ckpt_every_epochs
+                    and epoch % self.cfg.ckpt_every_epochs == 0):
+                self.save_full_checkpoint(ckpt, epoch, best_state, best_loss,
+                                          not_improved)
+                self.logger.info("Periodic checkpoint at epoch %d", epoch)
         self.logger.info("Total training time: %.4f min, best loss: %.6f",
                          (time.time() - start) / 60, best_loss)
         self.model.load_state_dict(best_state)
@@ -318,3 +345,31 @@ class Trainer:
     def load_checkpoint(self, path: str) -> None:
         self.model.load_state_dict(
             torch.load(path, map_location=self.device, weights_only=True))
+
+    def save_full_checkpoint(self, path: str, epoch: int, best_state: dict,
+                             best_loss: float, not_improved: int) -> None:
+        """The resumable training state after `epoch`, in one
+        `torch.save` (the reference defines but never calls an
+        equivalent, `BasicTrainer.py:200-207`)."""
+        torch.save({
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "best_state": best_state,
+            "progress": {"epoch": epoch, "batch_seen": self.batch_seen,
+                         "best_loss": best_loss,
+                         "not_improved": not_improved},
+        }, path)
+
+    def restore_full_checkpoint(self, path: str) -> int:
+        """Restore the model, the optimizer and the progress; the best
+        state and bookkeeping land in `_best_state`, `_best_loss` and
+        `_not_improved`. Returns the next epoch."""
+        st = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(st["model"])
+        self.optimizer.load_state_dict(st["optimizer"])
+        prog = st["progress"]
+        self._best_state = st["best_state"]
+        self._best_loss = float(prog["best_loss"])
+        self._not_improved = int(prog["not_improved"])
+        self.batch_seen = int(prog["batch_seen"])
+        return int(prog["epoch"]) + 1

@@ -1,5 +1,9 @@
-"""Observability: step timing, determinism, model stats.
+"""Observability: profiling, step timing, determinism, model stats.
 
+  * `profile_trace` — context manager around `torch.profiler` (CPU and,
+    where a card is present, CUDA activities) writing a Chrome trace
+    (`-profile_dir`).
+  * `device_memory_stats` — `torch.cuda.memory_stats` per visible card.
   * `StepTimer` — per-step wall clock with samples/s (the caller
     synchronizes the device before each `tick`).
   * `init_determinism` — numpy and torch seeding, the counterpart of the
@@ -9,10 +13,38 @@
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """Profile the block with `torch.profiler` and write its Chrome
+    trace to `<log_dir>/trace.json` when `log_dir` is set, else no-op."""
+    if not log_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_memory_stats() -> dict:
+    """`torch.cuda.memory_stats` per visible card (counterpart of
+    `lib/TrainInits.py:51-54`), or `{"cpu": None}` without one."""
+    if not torch.cuda.is_available():
+        return {"cpu": None}
+    return {f"cuda:{i}": torch.cuda.memory_stats(i)
+            for i in range(torch.cuda.device_count())}
 
 
 class StepTimer:

@@ -175,6 +175,45 @@ def test_cuda_graph_matmul_matches_cpu(card, graph, kernel):
         torch.testing.assert_close(got, want, **TOL[torch.float32])
 
 
+@pytest.mark.parametrize("graph,kernel", [("random", "bsr_spmm"),
+                                          ("scrambled_band", "dia_spmm")])
+def test_cuda_kernels_at_the_eval_width(card, graph, kernel):
+    """F = 1,024, the eval-mode TGCN's x aggregation (batch 16 x the
+    64-wide fused embedding), at TB = 128: the kernel on A and on the
+    transposed structure against its plain version, and the forward and
+    dX through autograd (the transposed launch that carries the
+    gradient into the head) on the card against the CPU. Finite
+    inputs: no block runs densely."""
+    n, f = 1500, 1024
+    adj = (_graph(n, seed=21, density=0.004) if graph == "random"
+           else _scrambled_band(n, seed=21))
+    rng = np.random.default_rng(22)
+    # the node-major (N, B * D) operand TGCN's cell aggregates
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    g = rng.standard_normal((n, f)).astype(np.float32)
+    K.reset_launch_counts()
+    out = {}
+    for dev in ("cpu", card):
+        sup = make_support(adj, dense_threshold=0, device=dev)
+        assert (sup.dia is not None) == (kernel == "dia_spmm")
+        if dev == card:
+            pair = ((sup.dia, sup.dia_t) if sup.dia is not None
+                    else (sup.bcsr, sup.bcsr_t))
+            plain = getattr(K, f"{kernel}_plain")
+            xf = torch.tensor(x, device=card)
+            for s in pair:
+                torch.testing.assert_close(getattr(K, kernel)(s, xf),
+                                           plain(s, xf), **TOL[torch.float32])
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        y = graph_matmul(sup, xt)
+        y.backward(torch.tensor(g, device=dev))
+        out[str(dev)] = (y.detach().cpu(), xt.grad.cpu())
+    for got, want in zip(out[str(card)], out["cpu"]):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+    assert K.LAUNCHES[kernel] == 4
+    assert K.dense_block_counts()[kernel] == 0
+
+
 def test_cuda_nan_in_stored_block_propagates(card):
     n, tile = 100, 16
     a = K.BlockCSR.from_dense(_graph(n, seed=11, density=0.1), tile,

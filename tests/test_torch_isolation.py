@@ -70,6 +70,10 @@ total, flow = loss_terms(x6, x6, 1, epoch=2,
                          generator=torch.Generator().manual_seed(0))
 total.backward()
 assert total > flow and gpt(x6).pred.shape == (2, 12, 6, 8)
+for name in ("TGCN", "STGCN"):
+    ecfg = cfg.replace(mode="eval", model=name)
+    enh = build_model(ecfg, device="cpu", pretrain_params=gpt.gptst)
+    assert enh(x6).pred.shape == (2, 12, 6, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN})
 print("LOADED", bad)
