@@ -39,6 +39,13 @@ Phases, one JSON line each; any failure exits non-zero:
              `torch.sparse.sampled_addmm` on every slot of the stored
              blocks (and, labelled, on the pattern entries); bounds on
              the tensor cores (3xTF32) and on the FP32 pipe.
+  gwn_kernels
+             `bsr_spmm` and `dia_spmm` on the transposed structure that
+             GWN's forward runs (and on A, its backward) of D^-1 A: the
+             CLI graph's (block-CSR behind RCM, values not symmetric)
+             and the directed road graph's (DIA band, pattern and
+             values not symmetric), at F = 3,072 and 256; times against
+             the plain version and `torch.sparse.mm`.
   ring       `make_fused_ring_spmm` (`ring_spmm`) on P ranks of cuda:0: the
              main path at TGCN's batch-major width (F = 16 x 101) on the
              CLI graph, 4 ranks; `scripts/halo_bench.py`'s default (4096
@@ -98,13 +105,29 @@ Phases, one JSON line each; any failure exits non-zero:
   stgcn_cli  STGCN (the default `-model`) through `run.main` at 170
              nodes, batch 64: `-mode ori`, then pretrain -> eval ->
              test; finite losses, the test report equal to eval's.
+  gwn_cli    the slice's main path: `run.main -mode ori -model GWN
+             --aptonly False` at 16,384 nodes on the CLI graph, batch 8,
+             2 epochs of 7 steps. `bsr_spmm` launches 32 times a train
+             step on the supports' transposed structures and 28 on A
+             (the last layer's products reach no loss), 32 per
+             evaluation batch, with no block run densely.
+  gwn_model  GWN library steps on the directed road graph's DIA bands
+             (`dia_spmm` on the transposed bands forward, on A's
+             backward: other bands), then sparse against dense supports
+             on the card at 1,000 nodes.
+  predictors_cli
+             MTGNN (PEMS08, 170 nodes) and CCRNN (NYC_BIKE, 250 nodes)
+             `-mode ori`, then eval and test of GWN, MTGNN and CCRNN
+             from one pretrain checkpoint per dataset, batch 64; each
+             test report equal to its eval run's.
   profile    `torch.profiler` over 2 TGCN train steps on each graph (and
              on the CLI graph's halo support),
              2 MSDR train steps on the CLI graph, 2 GPT-ST pretrain
-             steps of `gptst_model`'s shape and 2 eval-mode TGCN steps
+             steps of `gptst_model`'s shape, 2 eval-mode TGCN steps
              on the CLI graph (with the encoder's no-grad forward
-             profiled alone as its share): device time by kernel
-             group, the busy share and the 10 costliest kernels.
+             profiled alone as its share) and 2 GWN steps of `gwn_cli`'s
+             shape: device time by kernel group, the busy share and the
+             10 costliest kernels.
   reference  a small ragged graph (1000 nodes) with and without RCM
              (DIA and block-CSR): the TGCN, MSDR (learned sparse
              adjacency, random nonzero weights) and eval-mode TGCN
@@ -113,8 +136,9 @@ Phases, one JSON line each; any failure exits non-zero:
              the CPU; TGCN at 1002 nodes through a halo and a ring
              `ShardedSupport` on 4 ranks of the card against 4 CPU ranks;
              GPT-ST's pretrain loss, `encode` and gradients at 64 nodes
-             (hidden 16, mask_ratio 1.0), and STGCN at 170 nodes, card
-             against CPU.
+             (hidden 16, mask_ratio 1.0), STGCN at 170 nodes, GWN on
+             a directed 1,000-node graph with and without RCM, and
+             MTGNN and CCRNN at 64 nodes, card against CPU.
 
 Before the last line: one JSON object with every kernel's launches on
 its main path, error, times and bound, and the card's name and power
@@ -138,10 +162,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("build", "bsr", "dia", "sddmm", "dvals", "ring", "cli",
-          "dia_model", "msdr_cli", "msdr_model", "sharded_model",
+PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
+          "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
           "gptst_model", "gptst_cli", "eval_cli", "eval_model", "stgcn_cli",
-          "profile", "reference")
+          "gwn_cli", "gwn_model", "predictors_cli", "profile", "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
 # dense TF32 on the tensor cores, and HBM3 bandwidth
@@ -467,11 +491,7 @@ def phase_bsr(rec: dict) -> None:
     emit("bsr", case="nan_in_block", nan_rows=nan_rows)
     nonfinite_cases("bsr", K.bsr_spmm, K.bsr_spmm_plain, a, a, "block_vals")
 
-    ptr = a.block_ptr.long()
-    rows_t = torch.repeat_interleave(torch.arange(a.row_tiles,
-                                                  device="cuda"), ptr.diff())
-    csr = csr_of(a.block_vals[:nnzb], rows_t, a.block_cols[:nnzb].long(),
-                 a.tile, a.n)
+    csr = bsr_csr(a)
     ms = time_ms(lambda: K.bsr_spmm(a, x))
     plain_ms = time_ms(lambda: K.bsr_spmm_plain(a, x))
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, x))
@@ -617,12 +637,7 @@ def phase_dia(rec: dict) -> None:
                     "vals")
 
     rt, nd, tb = d.row_tiles, 2 * d.w + 1, d.tile
-    idx = torch.arange(rt, device="cuda")
-    rows_t = idx.repeat_interleave(nd)
-    cols_t = (idx[:, None] + torch.arange(nd, device="cuda") - d.w).reshape(-1)
-    keep = (cols_t >= 0) & (cols_t < rt)
-    csr = csr_of(d.vals.reshape(rt * nd, tb, tb)[keep], rows_t[keep],
-                 cols_t[keep], tb, d.n)
+    csr = dia_csr(d)
     ms = time_ms(lambda: K.dia_spmm(d, x))
     plain_ms = time_ms(lambda: K.dia_spmm_plain(d, x))
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, x))
@@ -1709,8 +1724,8 @@ KERNEL_GROUPS = (
     ("indexFunc", "index_add_ (COO tail scatter, RCM gather backward)"),
     ("indexSelect", "index_select (COO tail gather, RCM permutation)"),
     ("gemm", "dense matmul"), ("xmma", "dense matmul"),
-    ("cutlass", "dense matmul"), ("elementwise", "elementwise"),
-    ("reduce", "reduction"),
+    ("cutlass", "dense matmul"), ("softmax", "softmax"),
+    ("elementwise", "elementwise"), ("reduce", "reduction"),
 )
 
 
@@ -1780,6 +1795,15 @@ def phase_profile(rec: dict) -> None:
                      encoder_device_ms_by_kernel=dict(sorted(
                          enc.items(), key=lambda kv: -kv[1])[:5]))
     del model
+    torch.cuda.empty_cache()
+    # GWN at gwn_cli's shape: the CLI graph's doubletransition supports
+    # (block-CSR behind RCM) and the dense adaptive adjacency
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        _, ms, _, _ = train_steps(
+            "GWN", bind("GWN", gwn_net(), (rec["_gwn"]["cli_graph"],)),
+            GWN_BATCH, 1, 2, trace=path)
+        profile_line("gwn_cli_graph", ms, path)
     torch.cuda.empty_cache()
 
 
@@ -1894,6 +1918,8 @@ def phase_reference(rec: dict) -> None:
     reference_gptst(b)
     reference_eval(b)
     reference_stgcn(b)
+    reference_gwn(b)
+    reference_dense_predictors(b)
 
 
 def reference_sharded(b: int) -> None:
@@ -2099,6 +2125,538 @@ def reference_stgcn(b: int) -> None:
          pred_max_abs_err=errs.pop("pred"),
          grad_max_abs_err=max(errs.values()), parameters=len(errs),
          tol={"rtol": 1e-4, "atol": "1e-5 * max|want|"})
+
+
+# --- GWN, MTGNN and CCRNN ------------------------------------------------
+
+# GWN at its published widths (blocks 4, layers 2, nhid 32), batch 8: x is
+# (8, T_l, N, 32) through the 8 layers, T_l = 12, 10, 9, 7, 6, 4, 3, 1, so
+# the folded widths of its aggregations run from 3,072 down to 256
+GWN_BATCH = 8
+GWN_WIDTHS = (3072, 256)
+# a 130-step series: 55 training windows, 7 steps an epoch (the last one
+# a batch of 7), and 3 validation and 3 test windows (the per-horizon
+# correlation of the test report needs 2 or more)
+GWN_TIME_STEPS = 130
+# per train step: 2 supports x 2 hops x 8 layers forward on the
+# transposed structures; the backward runs on A for all but the last
+# layer's 4 products, whose outputs reach no loss (only the skip path
+# leaves the last layer)
+GWN_FWD, GWN_BWD = 32, 28
+PRED_CLI_STEPS = 1000
+
+
+def gwn_road_supports(n: int, device):
+    """GWN's doubletransition supports of the directed road graph from
+    its edge list (no dense (N, N)): D_out^-1 A and D_in^-1 A^T, no
+    RCM; a DIA band and a COO tail each, and the band of A^T is not
+    A's."""
+    import numpy as np
+
+    from gptst_tpu_torch.ops.graph_conv import make_support_coo
+
+    rows, cols = road_graph_edges(n, 16, 48)
+    deg_out = np.bincount(rows, minlength=n)
+    deg_in = np.bincount(cols, minlength=n)
+    return (make_support_coo(rows, cols,
+                             (1.0 / deg_out[rows]).astype(np.float32), n,
+                             reorder=False, device=device),
+            make_support_coo(cols, rows,
+                             (1.0 / deg_in[cols]).astype(np.float32), n,
+                             reorder=False, device=device))
+
+
+def gwn_net(n: int = N_BIG, seed: int = 0):
+    """GWN at its published widths with two static supports and the
+    adaptive adjacency (`aptonly` off), random weights from `seed`."""
+    import torch
+
+    from gptst_tpu_torch.models.predictors.gwn import GWN, GWNConfig
+
+    return GWN(GWNConfig(num_nodes=n, aptonly=False), dim_in=1, dim_out=1,
+               horizon=12, num_supports=2,
+               generator=torch.Generator().manual_seed(seed)).to("cuda")
+
+
+def record_block_launches(tag=lambda: None):
+    """Wrap `_block_kernel` to record (entry point, values pointer, F,
+    `tag()`) of every launch; returns the list and the function that
+    unwraps."""
+    from gptst_tpu_torch.kernels import spmm as K
+
+    calls, orig = [], K._block_kernel
+
+    def recording(name, a, x):
+        calls.append((name, a.block_vals.data_ptr(), x.shape[1], tag()))
+        return orig(name, a, x)
+
+    K._block_kernel = recording
+
+    def undo():
+        K._block_kernel = orig
+    return calls, undo
+
+
+def by_direction(calls, sups, band: bool) -> dict:
+    """Launches of `calls` on the supports' transposed structures (the
+    forward of GWN's A^T aggregation) and on A (its backward)."""
+    def ptr(st):
+        return (st.vals if band else st.block_vals).data_ptr()
+
+    fwd = {ptr(s.dia_t if band else s.bcsr_t) for s in sups}
+    bwd = {ptr(s.dia if band else s.bcsr) for s in sups}
+    out = {"AT": 0, "A": 0, "other": 0}
+    for _, p, _, _ in calls:
+        out["AT" if p in fwd else "A" if p in bwd else "other"] += 1
+    return out
+
+
+def bsr_csr(a):
+    """`torch.sparse_csr_tensor` of a block-CSR structure's nonzeros."""
+    import torch
+
+    nnzb = a.nnzb_logical
+    rows_t = torch.repeat_interleave(
+        torch.arange(a.row_tiles, device="cuda"), a.block_ptr.long().diff())
+    return csr_of(a.block_vals[:nnzb], rows_t, a.block_cols[:nnzb].long(),
+                  a.tile, a.n)
+
+
+def dia_csr(d):
+    """`torch.sparse_csr_tensor` of a DIA band's nonzeros."""
+    import torch
+
+    rt, nd, tb = d.row_tiles, 2 * d.w + 1, d.tile
+    idx = torch.arange(rt, device="cuda")
+    rows_t = idx.repeat_interleave(nd)
+    cols_t = (idx[:, None] + torch.arange(nd, device="cuda") - d.w).reshape(-1)
+    keep = (cols_t >= 0) & (cols_t < rt)
+    return csr_of(d.vals.reshape(rt * nd, tb, tb)[keep], rows_t[keep],
+                  cols_t[keep], tb, d.n)
+
+
+def phase_gwn_kernels(rec: dict) -> None:
+    """`bsr_spmm` and `dia_spmm` at GWN's shapes: the transposed
+    structure that GWN's forward runs (and A, its backward) of the
+    first doubletransition support, D^-1 A, of the CLI graph (block-CSR
+    behind RCM, values not symmetric) and of the directed road graph
+    (DIA band, pattern and values not symmetric), at F = 3,072 and 256.
+    Each against the plain version, no block run densely; times of the
+    kernel, the plain version and `torch.sparse.mm` on the transposed
+    CSR (CUDA events, median of 20), with the bound."""
+    import torch
+
+    from gptst_tpu_torch.kernels import spmm as K
+    from gptst_tpu_torch.models.build import gwn_adj_mats
+    from gptst_tpu_torch.ops.graph_conv import make_support
+
+    t0 = time.perf_counter()
+    cli = tuple(make_support(m, device="cuda") for m in
+                gwn_adj_mats("doubletransition", rec["_cli_base"]))
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    road = gwn_road_supports(N_BIG, "cuda")
+    road_s = time.perf_counter() - t0
+    rec["_gwn"] = {"cli_graph": cli, "road_graph": road}
+    assert all(s.dia is None and s.perm is not None for s in cli)
+    assert all(s.dia is not None for s in road)
+    for s in road:
+        assert s.dia.vals.shape != s.dia_t.vals.shape or not torch.equal(
+            s.dia.vals, s.dia_t.vals)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for name, kernel, plain, attr, s in (
+            ("bsr", K.bsr_spmm, K.bsr_spmm_plain, "block_vals", cli[0]),
+            ("dia", K.dia_spmm, K.dia_spmm_plain, "vals", road[0])):
+        at, a = (s.dia_t, s.dia) if attr == "vals" else (s.bcsr_t, s.bcsr)
+        csr = dia_csr(at) if attr == "vals" else bsr_csr(at)
+        nnz = int(csr.values().numel())
+        vals = getattr(at, attr)
+        struct_bytes = (vals.numel() * vals.element_size() if attr == "vals"
+                        else at.nnzb_logical * at.tile ** 2
+                        * vals.element_size()
+                        + (at.block_ptr.numel() + at.nnzb_logical) * 4)
+        timing = {}
+        for f in GWN_WIDTHS:
+            x = torch.randn(at.n, f, device="cuda", generator=gen)
+            K.reset_launch_counts()
+            errs = {k: compare(kernel(st, x), plain(st, x), "f32")
+                    for k, st in (("AT", at), ("A", a))}
+            dense = K.dense_block_counts()
+            assert not any(dense.values()), dense
+            ms = time_ms(lambda: kernel(at, x))
+            nbytes = struct_bytes + 2 * at.n * f * x.element_size()
+            line = dict(ms=ms, plain_ms=time_ms(lambda: plain(at, x)),
+                        library_ms=time_ms(lambda: torch.sparse.mm(csr, x)),
+                        **bound(2 * nnz * f, nbytes))
+            timing[f"F{f}"] = line
+            emit("gwn_kernels", kernel=f"{name}_spmm", case=f"timing_F{f}",
+                 structure="AT (GWN's forward)",
+                 graph="cli_graph" if attr == "block_vals" else "road_graph",
+                 shape=[at.n, f], nnz=nnz, max_abs_err=errs,
+                 tol=dict(zip(("rtol", "atol"), TOL["f32"])), flops=2 * nnz
+                 * f, bytes=nbytes, ms_A=time_ms(lambda: kernel(a, x)),
+                 **line)
+        rec[f"{name}_spmm"]["at_gwn_widths"] = timing
+    emit("gwn_kernels", cli_graph_build_s=cli_s, road_graph_build_s=road_s,
+         cli_nnzb=[s.bcsr.nnzb_logical for s in cli],
+         road_band_w=[[s.dia.w, s.dia_t.w] for s in road],
+         coo_tail_edges={k: [0 if s.coo is None else int(s.coo.nnz)
+                             for s in v] for k, v in rec["_gwn"].items()})
+
+
+def phase_gwn_cli(rec: dict) -> None:
+    """The slice's main path: `run.main -mode ori -model GWN --aptonly
+    False` at 16,384 nodes on the CLI graph (doubletransition supports,
+    block-CSR behind RCM, and the adaptive adjacency), batch 8, 2
+    epochs of 7 steps, from a PEMS08.npz the phase writes. Counts from
+    0: per train step `bsr_spmm` launches 32 times on the transposed
+    structures and 28 on A; per evaluation batch 32 on the transposed
+    ones; no block runs densely."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.kernels import spmm as K
+    from gptst_tpu_torch.train.trainer import Trainer
+
+    trainers, train = [], Trainer.train
+    phase = {"train": False}
+    train_batch = Trainer._train_batch
+
+    def keep(self, *args, **kw):
+        trainers.append(self)
+        return train(self, *args, **kw)
+
+    def flagged(self, *args):
+        phase["train"] = True
+        try:
+            return train_batch(self, *args)
+        finally:
+            phase["train"] = False
+
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "metrics.json")
+        argv = ["-dataset", "PEMS08", "-mode", "ori", "-model", "GWN",
+                "--aptonly", "False", "-num_nodes", str(N_BIG),
+                "-data_root", write_pems08(tmp, N_BIG, GWN_TIME_STEPS),
+                "-batch_size", str(GWN_BATCH), "-epochs", "2",
+                "-lr_decay", "False", "-early_stop", "False",
+                "-log_dir", os.path.join(tmp, "save"), "-log_step", "1000",
+                "-metrics_out", metrics]
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        calls, undo = record_block_launches(lambda: phase["train"])
+        Trainer.train, Trainer._train_batch = keep, flagged
+        try:
+            wall = run_main(argv)
+        finally:
+            Trainer.train, Trainer._train_batch = train, train_batch
+            undo()
+        launches = dict(K.LAUNCHES)
+        dense = K.dense_block_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(metrics) as f:
+            rep = json.load(f)
+    (tr,) = trainers
+    (sups,) = tr.model.predictor.graph
+    assert len(sups) == 2 and all(s.dia is None for s in sups)
+    steps, epochs = rep["steps_per_epoch"], 2
+    ds, bs = tr.dataset, GWN_BATCH
+    eval_batches = (epochs * ds.num_batches("val", bs)
+                    + ds.num_batches("test", bs))
+    train_calls = [c for c in calls if c[3]]
+    eval_calls = [c for c in calls if not c[3]]
+    per_train = by_direction(train_calls, sups, band=False)
+    per_eval = by_direction(eval_calls, sups, band=False)
+    assert per_train == {"AT": GWN_FWD * steps * epochs,
+                         "A": GWN_BWD * steps * epochs, "other": 0}, per_train
+    assert per_eval == {"AT": GWN_FWD * eval_batches, "A": 0,
+                        "other": 0}, per_eval
+    assert launches["bsr_spmm"] == len(calls) and launches["dia_spmm"] == 0
+    assert not any(dense.values()), dense
+    vals = np.asarray(rep["per_horizon"] + [rep["average"]], np.float64)
+    assert np.isfinite(vals).all() and np.isfinite(rep["history"]).all()
+    rec["bsr_spmm"]["launches"] = launches["bsr_spmm"]
+    rec["bsr_spmm"]["launches_by_path"]["gwn_cli"] = launches["bsr_spmm"]
+    emit("gwn_cli", model="GWN", aptonly=False, nodes=N_BIG, batch=bs,
+         epochs=epochs, time_steps=GWN_TIME_STEPS, steps_per_epoch=steps,
+         ms_per_step_by_epoch=[s / steps * 1e3 for s in rep["epoch_seconds"]],
+         samples_per_s_by_epoch=[ds.x_train.shape[0] / s
+                                 for s in rep["epoch_seconds"]],
+         train_loss_by_epoch=rep["history"], test_average=rep["average"],
+         max_memory_allocated=peak, launches=launches, dense_blocks=dense,
+         bsr_spmm_train_steps=per_train, bsr_spmm_eval=per_eval,
+         eval_batches=eval_batches,
+         bsr_spmm_per_train_step={k: v / (steps * epochs)
+                                  for k, v in per_train.items()},
+         widths=sorted({c[2] for c in calls}), wall_s=wall)
+
+
+def gwn_grads(net, sups, x) -> dict:
+    """GWN's prediction and every gradient of mean(pred^2) (zeros where
+    a parameter reaches no output: the last layer's gconv and norm)."""
+    import torch
+
+    pred = net(x, sups)
+    pred.square().mean().backward()
+    return {"pred": pred.detach().cpu(), **{
+        k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+        for k, p in net.named_parameters()}}
+
+
+def assert_grads_close(got: dict, want: dict, what: str,
+                       want64: dict | None = None) -> dict:
+    """rtol 1e-4 and an atol of 1e-5 of each tensor's largest entry; a
+    GWN gconv bias (0 in exact arithmetic: a BatchStatsNorm follows it)
+    an atol of 1e-5 of the model's largest gradient. With `want64` (the
+    same run in float64), each atol also gets twice `want`'s own largest
+    distance from it: a gradient that is a difference of nearly equal
+    sums (GWN's nodevecs, through a softmax over 1,000 columns) is
+    that far off in f32 on either device. Returns the errors."""
+    import torch
+
+    scale = max(float(w.abs().max()) for k, w in want.items() if k != "pred")
+    errs = {}
+    for k, w in want.items():
+        atol = 1e-5 * (scale if "gconv_b" in k else float(w.abs().max()))
+        if want64 is not None:
+            atol += 2 * float((w.double() - want64[k]).abs().max())
+        errs[k] = float((got[k] - w).abs().max())
+        torch.testing.assert_close(got[k], w, rtol=1e-4, atol=atol,
+                                   msg=lambda m: f"{what} {k}: {m}")
+    return errs
+
+
+def phase_gwn_model(rec: dict) -> None:
+    """GWN train steps through the library on the directed road graph's
+    doubletransition supports (DIA bands and COO tails, built from the
+    edge list): `dia_spmm` launches 32 times a step on the transposed
+    bands and 28 on A's, which are other bands; no block runs densely.
+    Then, on a ragged 1,000-node cut of the same generator, the loss and
+    every gradient on the sparse supports against the same model on the
+    dense supports, both on the card (deterministic algorithms): rtol
+    1e-4 with an atol of 1e-5 of each tensor's largest entry."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.kernels import spmm as K
+
+    sups = rec["_gwn"]["road_graph"]
+    torch.cuda.reset_peak_memory_stats()
+    warm, steps = 1, 3
+    calls, undo = record_block_launches()
+    try:
+        losses, ms, launches, dense = train_steps(
+            "GWN", bind("GWN", gwn_net(), (sups,)), GWN_BATCH, warm, steps)
+    finally:
+        undo()
+    per = by_direction(calls, sups, band=True)
+    n_steps = warm + steps
+    assert per == {"AT": GWN_FWD * n_steps, "A": GWN_BWD * n_steps,
+                   "other": 0}, per
+    assert launches["bsr_spmm"] == 0 and not any(dense.values())
+    rec["dia_spmm"]["launches"] = launches["dia_spmm"]
+    rec["dia_spmm"]["launches_by_path"]["gwn_model"] = launches["dia_spmm"]
+    emit("gwn_model", graph="road_graph_edges(16384, 16, 48), directed",
+         nodes=N_BIG, batch=GWN_BATCH, steps=n_steps, ms_per_step=ms,
+         samples_per_s=GWN_BATCH / ms * 1e3, losses=losses,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, dense_blocks=dense, dia_spmm_by_structure=per)
+    torch.cuda.empty_cache()
+
+    n = 1000
+    small = gwn_road_supports(n, "cuda")
+    assert all(s.dia is not None for s in small)
+    rows, cols = road_graph_edges(n, 16, 48)
+    a = np.zeros((n, n), np.float32)
+    a[rows, cols] = 1.0
+    from gptst_tpu_torch.models.build import gwn_adj_mats
+
+    dense_sups = tuple(torch.tensor(m, device="cuda")
+                       for m in gwn_adj_mats("doubletransition", a))
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (4, 12, n, 1), np.float32)).cuda()
+    base = gwn_net(n, seed=1)
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        K.reset_launch_counts()
+        got = gwn_grads(copy.deepcopy(base), small, x)
+        ran = dict(K.LAUNCHES)
+        want = gwn_grads(copy.deepcopy(base), dense_sups, x)
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+    assert ran["dia_spmm"] == GWN_FWD + GWN_BWD and ran["bsr_spmm"] == 0, ran
+    errs = assert_grads_close(got, want, "GWN sparse vs dense")
+    emit("gwn_model", check="sparse_vs_dense_supports", nodes=n, batch=4,
+         pred_max_abs_err=errs.pop("pred"),
+         grad_max_abs_err=max(errs.values()), parameters=len(errs),
+         tol={"rtol": 1e-4, "atol": "1e-5 * max|want| (gconv_b: of the "
+              "model's largest gradient)"})
+
+
+def phase_predictors_cli(rec: dict) -> None:
+    """MTGNN (PEMS08, 170 nodes) and CCRNN (NYC_BIKE, 250 nodes)
+    through `run.main -mode ori`, batch 64, 2 epochs; then, from one
+    `-mode pretrain` checkpoint per dataset, `-mode eval` and `-mode
+    test` of GWN, MTGNN (PEMS08) and CCRNN (NYC_BIKE), each test report
+    equal to its eval run's (rtol 1e-5: dense products only). Losses
+    finite; no kernel of `csrc/` launches (GWN's default is the adaptive
+    adjacency alone)."""
+    import numpy as np
+
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = {"PEMS08": ["-data_root", write_pems08(
+            tmp, GPTST_CLI_NODES, PRED_CLI_STEPS)],
+            "NYC_BIKE": ["-num_steps", str(PRED_CLI_STEPS)]}
+
+        def run(dataset, mode, model=None):
+            key = f"{mode}_{model or 'GPTST'}"
+            path = os.path.join(tmp, f"{key}.json")
+            argv = ["-dataset", dataset, "-mode", mode, *data[dataset],
+                    "-batch_size", str(GPTST_CLI_BATCH), "-epochs", "2",
+                    "-change_epoch", "1", "-lr_decay", "False",
+                    "-log_dir", os.path.join(tmp, "save"),
+                    "-log_step", "1000", "-metrics_out", path]
+            secs[key] = run_main(argv + (["-model", model] if model else []))
+            with open(path) as f:
+                out[key] = json.load(f)
+
+        reset_launch_counts()
+        run("PEMS08", "ori", "MTGNN")
+        run("NYC_BIKE", "ori", "CCRNN")
+        for dataset, models in (("PEMS08", ("GWN", "MTGNN")),
+                                ("NYC_BIKE", ("CCRNN",))):
+            run(dataset, "pretrain")
+            for model in models:
+                run(dataset, "eval", model)
+                run(dataset, "test", model)
+    rel = {m: same_report(out[f"test_{m}"], out[f"eval_{m}"], rtol=1e-5)
+           for m in ("GWN", "MTGNN", "CCRNN")}
+    trained = [k for k in out if not k.startswith("test")]
+    for k in trained:
+        assert np.isfinite(out[k]["history"]).all(), k
+    assert not any(LAUNCHES.values()), LAUNCHES
+    emit("predictors_cli", nodes={"PEMS08": GPTST_CLI_NODES,
+                                  "NYC_BIKE": 250},
+         batch=GPTST_CLI_BATCH, epochs=2, time_steps=PRED_CLI_STEPS,
+         seconds=secs,
+         ms_per_step_by_epoch={k: [t / out[k]["steps_per_epoch"] * 1e3
+                                   for t in out[k]["epoch_seconds"]]
+                               for k in trained},
+         train_loss_by_epoch={k: out[k]["history"] for k in trained},
+         test_report_max_rel_diff=rel,
+         average={k: out[k]["average"] for k in out})
+
+
+def reference_gwn(b: int) -> None:
+    """GWN at its published widths (aptonly off: doubletransition
+    supports of a directed 1,000-node graph and the adaptive adjacency)
+    with and without RCM (a DIA band and block-CSR), card against CPU
+    from the same weights, under deterministic algorithms: the
+    prediction and every gradient of mean(pred^2), rtol 1e-4 and an
+    atol of 1e-5 of each tensor's largest entry (gconv biases: of the
+    model's largest gradient) plus twice the CPU's own distance from
+    the float64 run on the dense supports (`assert_grads_close`)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.models.build import gwn_adj_mats
+    from gptst_tpu_torch.ops.graph_conv import make_support
+
+    n = 1000
+    base = random_sensor_graph(n, avg_degree=6, seed=3, directed=True)
+    mats = gwn_adj_mats("doubletransition", base)
+    assert not np.array_equal(mats[0] != 0, mats[0].T != 0)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (b, 12, n, 1), np.float32))
+    net = gwn_net(n, seed=2).cpu()
+    want64 = gwn_grads(copy.deepcopy(net).double(), tuple(
+        torch.tensor(m, dtype=torch.float64) for m in mats), x.double())
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for reorder in (True, False):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                sups = tuple(make_support(m, dense_threshold=0,
+                                          reorder=reorder, device=dev)
+                             for m in mats)
+                reset_launch_counts()
+                out[dev] = gwn_grads(copy.deepcopy(net).to(dev), sups,
+                                     x.to(dev))
+                ran = sorted(k for k, v in LAUNCHES.items() if v)
+            assert ran == (["dia_spmm"] if sups[0].dia is not None
+                           else ["bsr_spmm"]), ran
+            errs = assert_grads_close(out["cuda"], out["cpu"], "GWN",
+                                      want64)
+            emit("reference", model="GWN", nodes=n, batch=b,
+                 reorder=reorder, graph="directed", kernels=ran,
+                 pred_max_abs_err=errs.pop("pred"),
+                 grad_max_abs_err=max(errs.values()), parameters=len(errs),
+                 nodevec_grad_err={k: [errs[k], float(
+                     (out["cpu"][k].double() - want64[k]).abs().max())]
+                     for k in ("nodevec1", "nodevec2")},
+                 tol={"rtol": 1e-4, "atol": "1e-5 * max|want| (gconv_b: "
+                      "of the model's largest gradient) + 2 * max|want - "
+                      "want_float64|"})
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+
+
+def reference_dense_predictors(b: int) -> None:
+    """MTGNN (PEMS08's widths) and CCRNN (NYC_BIKE's) at 64 nodes, card
+    against CPU from the same weights: the prediction and every
+    gradient of mean(pred^2), rtol 1e-4 and an atol of 1e-5 of each
+    tensor's largest entry plus twice the CPU's own distance from its
+    float64 run (`assert_grads_close`). MTGNN's embeddings are scaled to 0.1 of
+    their init: its top-k is a threshold, and where tanh saturates an
+    entry that rounds to 1.0 on one side and 1 - 2^-24 on the other
+    falls on the other side of a tie (as in the CPU tests)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import build_predictor
+
+    n = 64
+    for model, dataset in (("MTGNN", "PEMS08"), ("CCRNN", "NYC_BIKE")):
+        cfg = default_config(dataset, mode="ori", model=model, num_nodes=n)
+        net = build_predictor(cfg, device="cpu", seed=0).net
+        if model == "MTGNN":
+            with torch.no_grad():
+                net.gc.emb1.mul_(0.1)
+                net.gc.emb2.mul_(0.1)
+        x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+            (b, 12, n, cfg.input_base_dim), np.float32))
+        out = {}
+        for key, dev, dt in (("cpu", "cpu", torch.float32),
+                             ("cuda", "cuda", torch.float32),
+                             ("f64", "cpu", torch.float64)):
+            m = copy.deepcopy(net).to(dev, dt)
+            pred = m(x.to(dev, dt))
+            pred.square().mean().backward()
+            out[key] = {"pred": pred.detach().cpu(), **{
+                k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                for k, p in m.named_parameters()}}
+        errs = assert_grads_close(out["cuda"], out["cpu"], model, out["f64"])
+        emit("reference", model=model, nodes=n, batch=b,
+             pred_max_abs_err=errs.pop("pred"),
+             grad_max_abs_err=max(errs.values()), parameters=len(errs),
+             tol={"rtol": 1e-4, "atol": "1e-5 * max|want| + 2 * max|want "
+                  "- want_float64|"})
 
 
 def main() -> int:

@@ -1,6 +1,6 @@
 """Carry weights between the JAX package's flax trees and the port's
-`state_dict`s, for TGCN, MSDR, STGCN, GPT-ST and the eval-mode
-(enhanced) model (told apart by the tree's keys).
+`state_dict`s, for TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN and the
+eval-mode (enhanced) model (told apart by the tree's keys).
 
 TGCN's flax tree (numpy arrays):
   {'params': {'ScanGraphGRUCell_0': {'weights_0': (D+U, 2U), 'bias_0',
@@ -38,6 +38,15 @@ The eval-mode (enhanced) tree `{"head": {"params": {"Dense_0",
 "Fusion_0": {"Dense_0", "Dense_1", "Dense_2"}}}, "predictor": <a
 predictor's tree>}` maps to `EnhancedModel`'s keys: `head.proj`,
 `head.fusion.dense.{0,1,2}` and `predictor.net.<the predictor's keys>`.
+
+GWN's, MTGNN's and CCRNN's trees are renamed by the path rules of
+`_RULES` (the modules' docstrings list their keys): flax scopes such as
+`DilatedCausal_j/Conv_0` <-> `dilated.j`, `Dense_k` <-> `dense.k`,
+`Scan_EncoderStep_0` <-> `encoder`. A Dense `kernel` (in, out) becomes
+an `nn.Linear` `weight` (out, in); a Conv `kernel` (kt, 1, in, out) a
+`TimeConv` `weight` (out, in, kt, 1); raw parameters (`gconv_w_*`,
+`mixprop*`, `nodevec*`, `w1`, ...) and norm parameters keep their names
+and layouts.
 
 Recurrent weights keep flax's (in, out) layout (the cells compute
 `x @ W`); Dense kernels are transposed into `nn.Linear.weight`. Keys of
@@ -209,13 +218,115 @@ def _head_to_state_dict(p: dict) -> dict:
     return sd
 
 
+# (flax leaf path, port key) templates of GWN, MTGNN and CCRNN, tried in
+# order. `{leaf}` is a Dense or Conv leaf (`kernel` <-> `weight`, with
+# the layout change), `{p}` a leaf kept as it is; `{i}`, `{j}` are
+# indices and `{a}`, `{b}` names.
+_RULES = {
+    "GWN": (("DilatedCausal_{i}/Conv_0/{leaf}", "dilated.{i}.{leaf}"),
+            ("Dense_{i}/{leaf}", "dense.{i}.{leaf}"),
+            ("BatchStatsNorm_{i}/{p}", "norm.{i}.{p}"),
+            ("{a}/{leaf}", "{a}.{leaf}"),
+            ("{p}", "{p}")),
+    "MTGNN": (("gc/{a}/{leaf}", "gc.{a}.{leaf}"),
+              ("gc/{p}", "gc.{p}"),
+              ("DilatedInception_{i}/Conv_{j}/{leaf}",
+               "inception.{i}.conv.{j}.{leaf}"),
+              ("Conv_{i}/{leaf}", "skips.{i}.{leaf}"),
+              ("Dense_{i}/{leaf}", "dense.{i}.{leaf}"),
+              ("NodeLayerNorm_{i}/{p}", "norm.{i}.{p}"),
+              ("{a}/{leaf}", "{a}.{leaf}"),
+              ("{p}", "{p}")),
+    "CCRNN": (("Scan_EncoderStep_0/{a}/{b}/{p}/{leaf}",
+               "encoder.{a}.{b}.{p}.{leaf}"),
+              ("Scan_DecoderStep_0/{a}/{b}/{p}/{leaf}",
+               "decoder.{a}.{b}.{p}.{leaf}"),
+              ("Scan_DecoderStep_0/{a}/{leaf}", "decoder.{a}.{leaf}"),
+              ("{p}", "{p}")),
+}
+# a key of each model's tree, flax side and port side
+_RULE_KEYS = {"GWN": ("DilatedCausal_0", "dilated.0.weight"),
+              "MTGNN": ("skip0", "skip0.weight"),
+              "CCRNN": ("Scan_EncoderStep_0",
+                        "encoder.cell0.ru.attlinear.weight")}
+
+
+def _template_re(tpl: str, sep: str) -> re.Pattern:
+    groups = {"i": r"\d+", "j": r"\d+", "a": r"[A-Za-z0-9_]+",
+              "b": r"[A-Za-z0-9_]+", "p": r"[A-Za-z0-9_]+",
+              "leaf": r"[A-Za-z0-9_]+"}
+    pat = re.escape(tpl.replace("/", sep))
+    for g, rx in groups.items():
+        pat = pat.replace(re.escape("{" + g + "}"), f"(?P<{g}>{rx})")
+    return re.compile(pat + "$")
+
+
+def _rename(path: str, model: str, to_port: bool) -> tuple[str, bool]:
+    """The other side's name of `path` ('/'-joined flax path or port
+    key), and whether the leaf is a Dense or Conv kernel."""
+    src, dst = (0, 1) if to_port else (1, 0)
+    for rule in _RULES[model]:
+        m = _template_re(rule[src], "/" if to_port else ".").match(path)
+        if m is None:
+            continue
+        g = m.groupdict()
+        kernel = "leaf" in g and g["leaf"] == ("kernel" if to_port
+                                               else "weight")
+        if kernel:
+            g["leaf"] = "weight" if to_port else "kernel"
+        return rule[dst].replace("/", "." if to_port else "/").format(
+            **g), kernel
+    raise KeyError(f"{model}: no rule for {path!r}")
+
+
+def _kernel_to_port(a: np.ndarray) -> np.ndarray:
+    # Dense (in, out) -> (out, in); Conv (kt, 1, in, out) -> (out, in, kt, 1)
+    return a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1))
+
+
+def _kernel_to_flax(a: np.ndarray) -> np.ndarray:
+    return a.T if a.ndim == 2 else np.transpose(a, (2, 3, 1, 0))
+
+
+def _flat(p: dict, path: tuple[str, ...] = ()):
+    for k, v in p.items():
+        if isinstance(v, dict):
+            yield from _flat(v, path + (k,))
+        else:
+            yield "/".join(path + (k,)), v
+
+
+def _rules_to_state_dict(p: dict, model: str) -> dict:
+    sd = {}
+    for path, v in _flat(p):
+        key, kernel = _rename(path, model, to_port=True)
+        a = np.asarray(v)
+        sd[key] = _t(_kernel_to_port(a) if kernel else a)
+    return sd
+
+
+def _rules_to_flax(sd: dict, model: str) -> dict:
+    p: dict = {}
+    for k, v in sd.items():
+        path, kernel = _rename(k, model, to_port=False)
+        *scopes, leaf = path.split("/")
+        d = p
+        for name in scopes:
+            d = d.setdefault(name, {})
+        d[leaf] = np.ascontiguousarray(_kernel_to_flax(v)) if kernel else v
+    return {"params": p}
+
+
 def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
     if "head" in params and "predictor" in params:
         return {**flax_to_state_dict(params["head"], prefix + "head."),
                 **flax_to_state_dict(params["predictor"],
                                      prefix + "predictor.net.")}
     p = params.get("params", params)
-    if "Fusion_0" in p:
+    model = next((m for m, (k, _) in _RULE_KEYS.items() if k in p), None)
+    if model is not None:
+        sd = _rules_to_state_dict(p, model)
+    elif "Fusion_0" in p:
         sd = _head_to_state_dict(p)
     elif "STConvBlock_0" in p:
         sd = _stgcn_to_state_dict(p)
@@ -231,15 +342,18 @@ def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
 
 def state_dict_to_flax(sd: dict, prefix: str = "",
                        chunked: bool = False) -> dict:
-    """The flax tree of a TGCN, MSDR, STGCN, GPT-ST or `EnhancedModel`
-    state dict; `chunked` nests MSDR's cells as the chunked-remat layout
-    does."""
+    """The flax tree of a TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN
+    or `EnhancedModel` state dict; `chunked` nests MSDR's cells as the
+    chunked-remat layout does."""
     if f"{prefix}head.proj.weight" in sd:
         return {"head": state_dict_to_flax(sd, prefix + "head."),
                 "predictor": state_dict_to_flax(
                     sd, prefix + "predictor.net.", chunked)}
     sd = {k[len(prefix):]: v.detach().cpu().numpy()
           for k, v in sd.items() if k.startswith(prefix)}
+    for model, (_, key) in _RULE_KEYS.items():
+        if key in sd:
+            return _rules_to_flax(sd, model)
     if "dim_in_flow.weight" in sd:
         return _nested(sd, _gptst_path, lambda path: path[-1] == "kernel")
     if "block0.tconv0.kernel" in sd:

@@ -42,6 +42,35 @@ def masked_mape(pred, true, thresh: float | None = None):
     return _masked_mean(((true - pred) / safe_true).abs(), m)
 
 
+def masked_pnbi(pred, true, thresh: float | None = None):
+    """Positive-negative bias indicator (`lib/metrics.py:88-94`)."""
+    return _masked_mean((pred - true > 0).float(), _mask(true, thresh))
+
+
+def masked_opnbi(pred, true, thresh: float | None = None):
+    """Overall PNBI: mean of (true + pred) / (2 true)
+    (`lib/metrics.py:96-102`)."""
+    m = _mask(true, thresh)
+    safe_true = torch.where(m > 0, true, torch.ones_like(true))
+    return _masked_mean((true + pred) / (2.0 * safe_true), m)
+
+
+def masked_mare(pred, true, thresh: float | None = None):
+    """Mean absolute relative error: sum|err| / sum(true)
+    (`lib/metrics.py:104-109`)."""
+    m = _mask(true, thresh)
+    return ((true - pred).abs() * m).sum() / (true * m).sum().clamp(
+        min=1e-12)
+
+
+def masked_smape(pred, true, thresh: float | None = None):
+    """Symmetric MAPE (`lib/metrics.py:111-117`)."""
+    m = _mask(true, thresh)
+    denom = true.abs() + pred.abs()
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+    return _masked_mean((true - pred).abs() / safe, m)
+
+
 def masked_rrse(pred, true, thresh: float | None = None):
     """Root relative squared error (`lib/metrics.py:47-52`), with the
     mean of `true` over the masked values as the reference takes it."""

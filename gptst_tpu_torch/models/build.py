@@ -9,8 +9,8 @@ with `seed` and then moved to `device`.
 
 Ported: the four modes (`pretrain`: GPT-ST; `eval`: the frozen GPT-ST
 encoder, the Fusion head and a predictor; `ori` and `test`: the bare
-predictor) with STGCN, TGCN and MSDR. The other predictors raise
-`NotImplementedError` naming the slice they wait for.
+predictor) with STGCN, TGCN, MSDR, GWN, MTGNN and CCRNN. The other
+predictors raise `NotImplementedError` naming the slice they wait for.
 """
 
 from __future__ import annotations
@@ -45,13 +45,16 @@ def load_base_adjacency(cfg: FrameworkConfig, seed: int = 0) -> np.ndarray:
 
 _PREDICTOR_CONFIGS = {"STGCN": ("stgcn", "STGCNConfig"),
                       "TGCN": ("tgcn", "TGCNConfig"),
-                      "MSDR": ("msdr", "MSDRConfig")}
+                      "MSDR": ("msdr", "MSDRConfig"),
+                      "GWN": ("gwn", "GWNConfig"),
+                      "MTGNN": ("mtgnn", "MTGNNConfig"),
+                      "CCRNN": ("ccrnn", "CCRNNConfig")}
 
 # predictors of the JAX package not ported yet, and the slice each one
 # waits for
 _LATER = {m: "the slice of the remaining predictors"
-          for m in ("GWN", "MTGNN", "CCRNN", "STMGCN", "ASTGCN", "STSGCN",
-                    "STFGNN", "STGODE", "ST_WA", "DMVSTNET")}
+          for m in ("STMGCN", "ASTGCN", "STSGCN", "STFGNN", "STGODE",
+                    "ST_WA", "DMVSTNET")}
 
 
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -244,18 +247,25 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
 
 class GraphPredictor(nn.Module):
     """A predictor network bound to its constant graph arguments (the
-    support, STGCN's Chebyshev stack, or MSDR's static supports and
-    learned-adjacency pattern). With `takes_generator` the trainer's
-    generator reaches the network (STGCN's dropout)."""
+    support, STGCN's Chebyshev stack, MSDR's static supports and
+    learned-adjacency pattern, GWN's supports or MTGNN's predefined
+    adjacency). With `takes_generator` the trainer's generator reaches
+    the network (dropout); with `takes_targets` the labels, the step
+    count and the generator do (CCRNN's scheduled sampling)."""
 
-    def __init__(self, net: nn.Module, *graph, takes_generator=False):
+    def __init__(self, net: nn.Module, *graph, takes_generator=False,
+                 takes_targets=False):
         super().__init__()
         self.net = net
         self.graph = graph
         self.takes_generator = takes_generator
+        self.takes_targets = takes_targets
 
     def forward(self, x_base: torch.Tensor, y=None, step=None,
                 generator: torch.Generator | None = None):
+        if self.takes_targets:
+            return self.net(x_base, *self.graph, y=y, step=step,
+                            generator=generator)
         if self.takes_generator:
             return self.net(x_base, *self.graph, generator=generator)
         return self.net(x_base, *self.graph)
@@ -332,3 +342,93 @@ def _build_msdr(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = MSDR(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                num_supports=len(supports), generator=generator).to(device)
     return GraphPredictor(net, supports, pattern)
+
+
+@register_model("CCRNN")
+def _build_ccrnn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                 device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.data.pipeline import load_raw_series, split_by_ratio
+    from gptst_tpu_torch.graph.artifacts import svd_rbf_support
+    from gptst_tpu_torch.models.predictors.ccrnn import (
+        CCRNN, CCRNNConfig, svd_graph_embeddings,
+    )
+
+    pcfg = make_predictor_config(CCRNNConfig, cfg, num_nodes=cfg.num_nodes,
+                                 n_dim=min(50, cfg.num_nodes))
+    # the data-driven support of the training period (`args.py:57-76`),
+    # from the dataset's default series as the JAX package reads it
+    raw = load_raw_series(cfg.dataset)[:, : cfg.num_nodes]
+    train, _, _ = split_by_ratio(raw, cfg.val_ratio, cfg.test_ratio)
+    e1, e2 = svd_graph_embeddings(svd_rbf_support(train, hidden_size=20),
+                                  pcfg.n_dim)
+    net = CCRNN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                horizon=cfg.horizon, emb1_init=e1, emb2_init=e2,
+                generator=generator).to(device)
+    return GraphPredictor(net, takes_targets=True)
+
+
+@register_model("MTGNN")
+def _build_mtgnn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                 device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.models.predictors.mtgnn import MTGNN, MTGNNConfig
+
+    pcfg = make_predictor_config(MTGNNConfig, cfg, num_nodes=cfg.num_nodes)
+    net = MTGNN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                horizon=cfg.horizon, lag=cfg.lag,
+                generator=generator).to(device)
+    # the predefined graph of `build_adj=False` (`MTGNN.py` reads A - I)
+    pre_adj = torch.as_tensor(
+        np.asarray(adj - np.eye(cfg.num_nodes, dtype=adj.dtype), np.float32),
+        device=device)
+    return GraphPredictor(net, pre_adj, takes_generator=True)
+
+
+def gwn_adj_mats(adjtype: str, adj: np.ndarray) -> list[np.ndarray]:
+    """GWN's support preprocessing (`GWN.py:299-313`)."""
+    from gptst_tpu_torch.graph.artifacts import (
+        asym_adj, scaled_laplacian, sym_adj, sym_norm_laplacian,
+    )
+
+    if adjtype == "doubletransition":
+        return [asym_adj(adj), asym_adj(adj.T)]
+    if adjtype == "transition":
+        return [asym_adj(adj)]
+    if adjtype == "symnadj":
+        return [sym_adj(adj)]
+    if adjtype == "scalap":
+        return [np.asarray(scaled_laplacian(adj), np.float32)]
+    if adjtype == "normlap":
+        return [np.asarray(sym_norm_laplacian(adj), np.float32)]
+    if adjtype == "identity":
+        return [np.eye(adj.shape[0], dtype=np.float32)]
+    raise ValueError(f"adj type not defined: {adjtype}")
+
+
+@register_model("GWN")
+def _build_gwn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+               device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.models.predictors.gwn import GWN, GWNConfig
+
+    pcfg = make_predictor_config(GWNConfig, cfg, num_nodes=cfg.num_nodes)
+    # aptonly drops the static supports from the forward, but the
+    # SVD-seeded nodevecs still read supports[0] (`GWN.py:143-149`): the
+    # matrices are built whenever either needs them
+    mats = None
+    supports: tuple = ()
+    if not pcfg.aptonly:
+        mats = gwn_adj_mats(pcfg.adjtype, adj)
+        supports = tuple(make_support(m, device=device) for m in mats)
+    nodevec_init = None
+    if pcfg.gcn_bool and pcfg.addaptadj and not pcfg.randomadj:
+        # E1 = U_k sqrt(S_k), E2 = sqrt(S_k) V_k^T of supports[0]
+        # (`GWN.py:159-175`)
+        if mats is None:
+            mats = gwn_adj_mats(pcfg.adjtype, adj)
+        u, s, vh = np.linalg.svd(mats[0].astype(np.float64))
+        k = pcfg.adapt_rank
+        nodevec_init = ((u[:, :k] * np.sqrt(s[:k])).astype(np.float32),
+                        (np.sqrt(s[:k])[:, None] * vh[:k]).astype(np.float32))
+    net = GWN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+              horizon=cfg.horizon, num_supports=len(supports),
+              nodevec_init=nodevec_init, generator=generator).to(device)
+    return GraphPredictor(net, supports, takes_generator=True)

@@ -239,6 +239,11 @@ def graph_matmul(support, x: torch.Tensor) -> torch.Tensor:
             out = out.index_select(-2, support.inv_perm)
         return out
     support, x = promoted(support, x)
+    if x.dim() > 3:
+        # one (N, N) @ (N, prod(...) * C) product, as `jnp.einsum` folds
+        # it: `torch.matmul` would broadcast the support over the
+        # leading dims (B * T copies of (N, N) at GWN's 16,384 nodes)
+        return torch.einsum("nm,...mc->...nc", support, x)
     return torch.matmul(support, x)
 
 
@@ -276,3 +281,62 @@ def cheb_conv(x: torch.Tensor, cheb_stack: torch.Tensor,
     theta, xc = promoted(theta, xc)
     out = torch.einsum("iok,btkni->btno", theta, xc)
     return out if bias is None else out + bias
+
+
+def diffusion_conv(x: torch.Tensor, supports, weight: torch.Tensor,
+                   bias: torch.Tensor | None = None, order: int = 2,
+                   include_self: bool = True) -> torch.Tensor:
+    """GWN's diffusion convolution (`model/GWN/GWN.py:77-98`): [x, A1 x,
+    A1^2 x, ..., Ak x, Ak^2 x, ...] along channels, then one projection.
+    x: (..., N, Ci); each support dense, `SparseSupport` (or its `.T`)
+    or sharded, through `graph_matmul`; weight:
+    ((1 + order * len(supports)) * Ci, Co)."""
+    feats = [x] if include_self else []
+    for a in supports:
+        h = x
+        for _ in range(order):
+            h = graph_matmul(a, h)
+            feats.append(h)
+    h, weight = promoted(torch.cat(feats, dim=-1), weight)
+    out = h @ weight
+    return out if bias is None else out + bias
+
+
+def mixprop(x: torch.Tensor, adj: torch.Tensor, weight: torch.Tensor,
+            gdep: int, alpha: float) -> torch.Tensor:
+    """MTGNN's MixProp (`model/MTGNN/MTGNN.py:57-77`): with A the
+    row-normalized (adj + I), h_k = alpha x + (1 - alpha) A h_{k-1};
+    every hop concatenated on channels, then projected. x: (..., N, Ci);
+    weight: ((gdep + 1) * Ci, Co)."""
+    a = adj + torch.eye(adj.shape[0], dtype=adj.dtype, device=adj.device)
+    a = a / a.sum(dim=1, keepdim=True)
+    h = x
+    outs = [h]
+    for _ in range(gdep):
+        h = alpha * x + (1.0 - alpha) * graph_matmul(a, h)
+        outs.append(h)
+    h, weight = promoted(torch.cat(outs, dim=-1), weight)
+    return h @ weight
+
+
+def adaptive_adj(e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
+    """GWN's adaptive adjacency softmax(relu(E1 @ E2)) over rows
+    (`GWN.py:238`). e1: (N, r), e2: (r, N); returns (N, N)."""
+    e1, e2 = promoted(e1, e2)
+    return torch.softmax(torch.relu(e1 @ e2), dim=1)
+
+
+def mtgnn_graph(v1: torch.Tensor, v2: torch.Tensor, alpha: float,
+                k: int) -> torch.Tensor:
+    """MTGNN's learned directed graph (`MTGNN.py:149-202`): with
+    m_i = tanh(alpha v_i), relu(tanh(alpha (m1 m2^T - m2 m1^T))), each
+    row kept where it is at least its k-th largest value (ties and the
+    zeros of a row with fewer than k positive entries included, as the
+    JAX package's `jax.lax.top_k` threshold keeps them)."""
+    m1 = torch.tanh(alpha * v1)
+    m2 = torch.tanh(alpha * v2)
+    a = torch.relu(torch.tanh(alpha * (m1 @ m2.T - m2 @ m1.T)))
+    if k >= a.shape[0]:
+        return a
+    kth = torch.topk(a, k, dim=1).values[:, -1:]
+    return torch.where(a >= kth, a, 0.0)

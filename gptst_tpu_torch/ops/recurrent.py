@@ -40,6 +40,15 @@ def xavier_normal_(t: torch.Tensor,
     return variance_scaling_(t, (t.shape[0] + t.shape[1]) / 2.0, generator)
 
 
+def xavier_uniform_(t: torch.Tensor,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax `xavier_uniform()` for an (in, out) kernel, in place:
+    U(+-sqrt(6 / (in + out)))."""
+    lim = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+    with torch.no_grad():
+        return t.uniform_(-lim, lim, generator=generator)
+
+
 class GraphGRUCell(nn.Module):
     """TGCN's GRU with graph-convolution gates, batch-major (the JAX
     package's `GraphGRUCell`, the reference's `model/TGCN/TGCN.py`):

@@ -1,11 +1,13 @@
 """Temporal convolution blocks (the JAX package's `ops/temporal.py`).
 
 Channels-last (B, T, N, C) layout: the time axis is convolved with a
-(kt, 1) kernel kept in flax's `Conv` layout (kt, 1, C_in, C_out), as
-one matmul over the kt time-shifted copies of x stacked on the channel
-axis (an im2col). Equivalent to the reference's Conv2d over a
-(B, C, T, N) layout (`model/STGCN/stgcn.py:25-53`). The products
-follow JAX's dtype promotion (`ops/dtypes.py`).
+(kt, 1) kernel as one matmul over the kt time-shifted copies of x
+stacked on the channel axis (an im2col). Equivalent to the reference's
+Conv2d over a (B, C, T, N) layout (`model/STGCN/stgcn.py:25-53`).
+STGCN's `TemporalConv` keeps flax's `Conv` kernel layout
+(kt, 1, C_in, C_out); `TimeConv` (GWN, MTGNN) keeps torch's `Conv2d`
+layout (C_out, C_in, kt, 1). The products follow JAX's dtype promotion
+(`ops/dtypes.py`).
 """
 
 from __future__ import annotations
@@ -75,3 +77,57 @@ class TemporalConv(nn.Module):
         if self.act == "sigmoid":
             return torch.sigmoid(x_conv + x_in)
         return torch.relu(x_conv + x_in)
+
+
+class TimeConv(nn.Module):
+    """flax `Conv(c_out, kernel_size=(kt, 1), kernel_dilation=(d, 1),
+    padding="VALID")` over the T axis of (B, T, N, C_in): T shrinks by
+    d * (kt - 1). `weight` (C_out, C_in, kt, 1), lecun-normal over
+    fan_in = kt * C_in, and a zero `bias`."""
+
+    def __init__(self, c_in: int, c_out: int, kt: int, dilation: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kt, self.dilation = kt, dilation
+        self.weight = nn.Parameter(torch.empty(c_out, c_in, kt, 1))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+        variance_scaling_(self.weight, kt * c_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, N, C)
+        kt, d = self.kt, self.dilation
+        t_out = x.shape[1] - d * (kt - 1)
+        if t_out < 1:
+            raise ValueError(f"time axis {x.shape[1]} shorter than the "
+                             f"kernel's reach {d * (kt - 1) + 1}")
+        cols = torch.cat([x[:, k * d:k * d + t_out] for k in range(kt)],
+                         dim=-1) if kt > 1 else x
+        # (C_out, C_in, kt) -> (kt * C_in, C_out), the order of `cols`
+        w = self.weight[..., 0].permute(2, 1, 0).reshape(-1,
+                                                         self.weight.shape[0])
+        cols, w, b = promoted(cols, w, self.bias)
+        return cols @ w + b
+
+
+# the dilated inception layer's kernel sizes (`MTGNN.py:130-146`)
+INCEPTION_KERNELS = (2, 3, 6, 7)
+
+
+class DilatedInception(nn.Module):
+    """MTGNN's dilated inception layer (`model/MTGNN/MTGNN.py:130-146`):
+    VALID convs with kernels 2, 3, 6 and 7 at one dilation, c_out / 4
+    channels each, every output cut to the shortest time (its last
+    steps) and concatenated. Parameters: `conv.{0..3}` (flax's
+    `Conv_0..3`)."""
+
+    def __init__(self, c_in: int, c_out: int, dilation: int = 1,
+                 kernel_set: tuple[int, ...] = INCEPTION_KERNELS,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        per = c_out // len(kernel_set)
+        self.conv = nn.ModuleList(TimeConv(c_in, per, k, dilation, generator)
+                                  for k in kernel_set)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [conv(x) for conv in self.conv]
+        t_min = min(o.shape[1] for o in outs)
+        return torch.cat([o[:, -t_min:] for o in outs], dim=-1)

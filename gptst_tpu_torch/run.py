@@ -6,6 +6,9 @@ Usage:
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode eval -model TGCN
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode test -model TGCN
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model MSDR
+  python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model GWN
+  python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model MTGNN
+  python -m gptst_tpu_torch.run -dataset NYC_BIKE -mode ori -model CCRNN
   python -m gptst_tpu_torch.run ... -device cpu      # no card needed
 
 Single-hyphen flags override the framework config (any FrameworkConfig
@@ -21,9 +24,10 @@ Chrome trace of the training there, and `-device_seed` is parsed and
 unused, as in the JAX package.
 
 Flow: config -> seed -> dataset -> model -> trainer. The predictors
-are STGCN (the default `-model`), TGCN and MSDR (above 4096 nodes
-MSDR's learned adjacency is sparse: `kernels/sddmm.adaptive_support`);
-the others raise `NotImplementedError` naming the slice they wait for.
+are STGCN (the default `-model`), TGCN, MSDR (above 4096 nodes MSDR's
+learned adjacency is sparse: `kernels/sddmm.adaptive_support`), GWN
+(`--aptonly False` adds its static supports), MTGNN and CCRNN; the
+others raise `NotImplementedError` naming the slice they wait for.
 Files, under `<log_dir>/<dataset>/`:
   * `-mode pretrain` (GPT-ST; `-model` is not read) writes the best
     GPT-ST parameters with `torch.save(state_dict)` to

@@ -22,7 +22,10 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     (the adaptive branch) from a generator seeded with `seed + 777`,
     predictions and labels multiplied by it;
   - ori and eval: each epoch's generator (seeded the same way) reaches
-    the predictor for its dropout (STGCN's `drop_prob`).
+    the predictor for its dropout, and CCRNN's teacher-forcing coins;
+  - the step count a predictor reads (CCRNN's scheduled sampling):
+    batch by batch the count the JAX trainer's default dispatch passes
+    (`jax_step_counts`), not the number of steps taken.
 
 Best parameters are saved with `torch.save` to `<log_dir>/best_model.pt`
 when `log_dir` is set. Every `ckpt_every_epochs` epochs the full state
@@ -133,6 +136,49 @@ def make_optimizer(cfg: FrameworkConfig, params: Iterable[torch.Tensor],
                        max_norm=cfg.max_grad_norm if cfg.grad_norm else None)
 
 
+def jax_step_counts(n_samples: int, batch_size: int, scan_steps: int,
+                    device_data: bool, batch_seen: int) -> list[int]:
+    """The step count each batch of an epoch gets in the JAX package's
+    trainer (`train/trainer.py:train_epoch`), from `batch_seen` batches
+    before the epoch, for `n_samples` training windows.
+
+    `scan_steps` 0 means 16 there. Batches dispatched K at a time
+    (the device-resident indexed path for full chunks of full batches,
+    or a scan over a chunk of equal shapes) see batch_seen + 0 .. K - 1,
+    0-based; the one-step path (scan_steps 1, a chunk of one, or a
+    chunk with the ragged tail beside full batches) sees batch_seen + 1,
+    1-based. With `device_data` the leftover batches after the full
+    chunks go as one chunk; without it, every chunk of K comes from the
+    batch iterator, ragged tail last."""
+    k = 16 if scan_steps == 0 else scan_steps
+    full, tail = divmod(n_samples, batch_size)
+    sizes = [batch_size] * full + ([tail] if tail else [])
+    counts: list[int] = []
+    seen = batch_seen
+
+    def dispatch(chunk: list[int]):
+        nonlocal seen
+        if k > 1 and len(chunk) > 1 and len(set(chunk)) == 1:
+            counts.extend(range(seen, seen + len(chunk)))
+            seen += len(chunk)
+        else:
+            for _ in chunk:
+                seen += 1
+                counts.append(seen)
+
+    if k > 1 and device_data:
+        usable = (full // k) * k
+        for _ in range(0, usable, k):
+            counts.extend(range(seen, seen + k))
+            seen += k
+        if sizes[usable:]:
+            dispatch(sizes[usable:])
+    else:
+        for c in range(0, len(sizes), k):
+            dispatch(sizes[c:c + k])
+    return counts
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -183,10 +229,12 @@ class Trainer:
     # --- epoch loops ----------------------------------------------------
     def _train_batch(self, xb: np.ndarray, yb: np.ndarray):
         """One optimizer step with the epoch's generator (and pretrain's
-        epoch); returns (total, flow) as device scalars."""
+        epoch), the predictor reading the batch's step count; returns
+        (total, flow) as device scalars."""
         self.batch_seen += 1
         return train_step(self._loss_terms, self.optimizer, self._put(xb),
-                          self._put(yb), self.batch_seen, **self._step_kw)
+                          self._put(yb), next(self._step_counts),
+                          **self._step_kw)
 
     def train_epoch(self, epoch: int) -> float:
         """Mean train loss of the epoch: the total in ori and eval mode,
@@ -198,6 +246,9 @@ class Trainer:
             self._step_kw["epoch"] = epoch
         it = self.dataset.batches("train", self.cfg.batch_size, shuffle=True,
                                   seed=self.seed * 10_000 + epoch)
+        self._step_counts = iter(jax_step_counts(
+            self.dataset.x_train.shape[0], self.cfg.batch_size,
+            self.cfg.scan_steps, self.cfg.device_data, self.batch_seen))
         # losses stay on the device until the epoch ends: one sync
         steps = [self._train_batch(xb, yb) for xb, yb in it]
         totals, flows = torch.stack([torch.stack(s) for s in steps]).T.tolist()

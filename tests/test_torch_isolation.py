@@ -70,10 +70,18 @@ total, flow = loss_terms(x6, x6, 1, epoch=2,
                          generator=torch.Generator().manual_seed(0))
 total.backward()
 assert total > flow and gpt(x6).pred.shape == (2, 12, 6, 8)
-for name in ("TGCN", "STGCN"):
+for name in ("TGCN", "STGCN", "GWN", "MTGNN"):
     ecfg = cfg.replace(mode="eval", model=name)
     enh = build_model(ecfg, device="cpu", pretrain_params=gpt.gptst)
     assert enh(x6).pred.shape == (2, 12, 6, 1)
+gwn = build_model(cfg.replace(mode="ori", model="GWN", predictor_overrides=(
+    ("aptonly", "False"),)), device="cpu")
+assert gwn(x6).pred.shape == (2, 12, 6, 1)
+ccfg = default_config("NYC_BIKE", mode="ori", model="CCRNN", num_nodes=6)
+cc = build_model(ccfg, device="cpu")
+x2 = torch.randn(2, 12, 6, 4)
+assert cc(x2, y=x2, step=3, generator=torch.Generator()).pred.shape == (
+    2, 12, 6, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN})
 print("LOADED", bad)
