@@ -120,6 +120,22 @@ Phases, one JSON line each; any failure exits non-zero:
              `-mode ori`, then eval and test of GWN, MTGNN and CCRNN
              from one pretrain checkpoint per dataset, batch 64; each
              test report equal to its eval run's.
+  graph_predictors_cli
+             STMGCN (NYC_BIKE, 250 nodes), ASTGCN, STSGCN, STFGNN and
+             STGODE (PEMS08, 170 nodes) through `run.main` at published
+             widths, f32 with TF32 off, batch 64, 2 epochs: `-mode ori`,
+             then `-mode eval` and `-mode test` from one pretrain
+             checkpoint per dataset; each test report equal to its eval
+             run's. STFGNN's and STGODE's DTW graphs are built by the
+             port's native library (`gptst_tpu_torch/native`), which
+             must build here, in a fresh working directory (no cached
+             graph). No kernel of `csrc/` launches.
+  graph_predictors_model
+             library train steps (1 warm, 3 timed) of the same five at
+             2,048 nodes (`random_sensor_graph(2048)`), batch 16,
+             published widths; STMGCN's Pearson graph and STFGNN's and
+             STGODE's DTW graph are a second random sensor graph (seed
+             1): ms per step, samples/s, peak device memory.
   profile    `torch.profiler` over 2 TGCN train steps on each graph (and
              on the CLI graph's halo support),
              2 MSDR train steps on the CLI graph, 2 GPT-ST pretrain
@@ -138,7 +154,8 @@ Phases, one JSON line each; any failure exits non-zero:
              GPT-ST's pretrain loss, `encode` and gradients at 64 nodes
              (hidden 16, mask_ratio 1.0), STGCN at 170 nodes, GWN on
              a directed 1,000-node graph with and without RCM, and
-             MTGNN and CCRNN at 64 nodes, card against CPU.
+             MTGNN, CCRNN, STMGCN, ASTGCN, STSGCN, STFGNN and STGODE
+             at 64 nodes, card against CPU.
 
 Before the last line: one JSON object with every kernel's launches on
 its main path, error, times and bound, and the card's name and power
@@ -165,7 +182,8 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
           "gptst_model", "gptst_cli", "eval_cli", "eval_model", "stgcn_cli",
-          "gwn_cli", "gwn_model", "predictors_cli", "profile", "reference")
+          "gwn_cli", "gwn_model", "predictors_cli", "graph_predictors_cli",
+          "graph_predictors_model", "profile", "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
 # dense TF32 on the tensor cores, and HBM3 bandwidth
@@ -1163,13 +1181,13 @@ def msdr_net():
                 generator=torch.Generator().manual_seed(0)).to("cuda")
 
 
-def bind(model: str, net, graph: tuple):
+def bind(model: str, net, graph: tuple, dataset: str = "PEMS08"):
     """`net` bound to its graph arguments in the ori-mode contract, as
     `models/build.py` binds them."""
     from gptst_tpu_torch.config.config import default_config
     from gptst_tpu_torch.models.build import GraphPredictor, predictor_forward
 
-    return predictor_forward(default_config("PEMS08", mode="ori", model=model),
+    return predictor_forward(default_config(dataset, mode="ori", model=model),
                              GraphPredictor(net, *graph))
 
 
@@ -1202,12 +1220,14 @@ def run_steps(step, warm: int, steps: int, trace: str | None = None):
 
 
 def train_steps(model: str, forward, batch: int, warm: int,
-                steps: int, trace: str | None = None):
-    """Train steps of a `model` (TGCN or MSDR) module in the ori-mode
-    contract, through the port's library, on random data from seed 0.
-    Returns the losses, ms per timed step, the kernel launches of all
-    steps and their dense-block counts, and (with `trace`) writes the
-    timed steps' profiler trace."""
+                steps: int, trace: str | None = None, nodes: int = N_BIG,
+                dataset: str = "PEMS08", loss_func: str = "mask_mae"):
+    """Train steps of a `model` module in the ori-mode contract, through
+    the port's library, on random (batch, 12, nodes, base + 2) data of
+    `dataset` from seed 0 under `loss_func`. Returns the losses, ms per
+    timed step, the kernel launches of all steps and their dense-block
+    counts, and (with `trace`) writes the timed steps' profiler
+    trace."""
     import numpy as np
     import torch
 
@@ -1219,13 +1239,13 @@ def train_steps(model: str, forward, batch: int, warm: int,
     from gptst_tpu_torch.train.step import make_loss_terms, train_step
     from gptst_tpu_torch.train.trainer import make_optimizer
 
-    cfg = default_config("PEMS08", mode="ori", model=model,
-                         num_nodes=N_BIG, batch_size=batch, lr_decay=False)
+    cfg = default_config(dataset, mode="ori", model=model,
+                         num_nodes=nodes, batch_size=batch, lr_decay=False)
     opt = make_optimizer(cfg, forward.parameters(), steps_per_epoch=10)
     loss_terms = make_loss_terms(
-        forward, build_loss("mask_mae", 200.0, 100.0, 0.0, False), cfg)
+        forward, build_loss(loss_func, 200.0, 100.0, 0.0, False), cfg)
     rng = np.random.default_rng(0)
-    shape = (batch, cfg.lag, N_BIG, 3)
+    shape = (batch, cfg.lag, nodes, cfg.input_base_dim + 2)
     x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     y = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     reset_launch_counts()
@@ -1920,6 +1940,7 @@ def phase_reference(rec: dict) -> None:
     reference_stgcn(b)
     reference_gwn(b)
     reference_dense_predictors(b)
+    reference_graph_predictors(b)
 
 
 def reference_sharded(b: int) -> None:
@@ -2655,6 +2676,221 @@ def reference_dense_predictors(b: int) -> None:
         emit("reference", model=model, nodes=n, batch=b,
              pred_max_abs_err=errs.pop("pred"),
              grad_max_abs_err=max(errs.values()), parameters=len(errs),
+             tol={"rtol": 1e-4, "atol": "1e-5 * max|want| + 2 * max|want "
+                  "- want_float64|"})
+
+
+# --- STMGCN, ASTGCN, STSGCN, STFGNN and STGODE -----------------------------
+
+GRAPH_MODELS = (("STMGCN", "NYC_BIKE"), ("ASTGCN", "PEMS08"),
+                ("STSGCN", "PEMS08"), ("STFGNN", "PEMS08"),
+                ("STGODE", "PEMS08"))
+GRAPH_MODEL_NODES, GRAPH_MODEL_BATCH = 2048, 16
+
+
+def count_native_dtw():
+    """Wrap the port's native DTW entry point: every call must return
+    costs (the library built). Returns the call list and an undo."""
+    from gptst_tpu_torch import native
+
+    orig = native.native_banded_dtw_pairs
+    calls = []
+
+    def counted(x, ii, *a, **k):
+        out = orig(x, ii, *a, **k)
+        assert out is not None, "the native DTW library did not build"
+        calls.append(int(ii.size))
+        return out
+
+    native.native_banded_dtw_pairs = counted
+    return calls, lambda: setattr(native, "native_banded_dtw_pairs", orig)
+
+
+def phase_graph_predictors_cli(rec: dict) -> None:
+    """The slice's five predictors through `run.main` at published
+    widths, batch 64, 2 epochs, f32 with TF32 off: STMGCN on NYC_BIKE
+    (250 nodes), the other four on PEMS08 (170 nodes, from a PEMS08.npz
+    the phase writes). `-mode ori` of each, then one `-mode pretrain`
+    per dataset and `-mode eval` and `-mode test` of each from it; each
+    test report equal to its eval run's (rtol 1e-5: dense products
+    only). The run works in a fresh directory, so STFGNN's and STGODE's
+    DTW graphs are built there, by the port's native library (the DTW
+    graphs read the dataset's default series, as the JAX package's
+    builders do). Losses finite; no kernel of `csrc/` launches."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch import native
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+
+    assert native.load("dtw") is not None, "g++ could not build libdtw.so"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    out, secs, peak, held = {}, {}, {}, {}
+    cwd = os.getcwd()
+    dtw_calls, undo = count_native_dtw()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # a working directory with no `./data` or `../data`, where
+            # `load_raw_series` would look for the default series
+            work = os.path.join(tmp, "run", "work")
+            os.makedirs(work)
+            os.chdir(work)
+            data = {"PEMS08": ["-data_root", write_pems08(
+                tmp, GPTST_CLI_NODES, PRED_CLI_STEPS)],
+                "NYC_BIKE": ["-num_steps", str(PRED_CLI_STEPS)]}
+
+            def run(dataset, mode, model=None):
+                key = f"{mode}_{model or dataset}"
+                path = os.path.join(tmp, f"{key}.json")
+                argv = ["-dataset", dataset, "-mode", mode, *data[dataset],
+                        "-batch_size", str(GPTST_CLI_BATCH), "-epochs", "2",
+                        "-change_epoch", "1", "-lr_decay", "False",
+                        "-log_dir", os.path.join(
+                            tmp, "save_ori" if mode == "ori" else "save"),
+                        "-log_step", "1000", "-metrics_out", path]
+                torch.cuda.reset_peak_memory_stats()
+                held[key] = torch.cuda.memory_allocated()
+                secs[key] = run_main(
+                    argv + (["-model", model] if model else []))
+                peak[key] = torch.cuda.max_memory_allocated()
+                with open(path) as f:
+                    out[key] = json.load(f)
+
+            reset_launch_counts()
+            for model, dataset in GRAPH_MODELS:
+                run(dataset, "ori", model)
+            for dataset in ("NYC_BIKE", "PEMS08"):
+                run(dataset, "pretrain")
+                for model, ds in GRAPH_MODELS:
+                    if ds == dataset:
+                        run(dataset, "eval", model)
+                        run(dataset, "test", model)
+            cached = sorted(os.listdir(os.path.join(work, ".gptst_cache")))
+    finally:
+        os.chdir(cwd)
+        undo()
+    # STFGNN's and STGODE's graphs, each built once and then read back
+    assert len(dtw_calls) == 2 and len(cached) == 2, (dtw_calls, cached)
+    assert all(c.startswith("torch_") for c in cached), cached
+    models = [m for m, _ in GRAPH_MODELS]
+    rel = {m: same_report(out[f"test_{m}"], out[f"eval_{m}"], rtol=1e-5)
+           for m in models}
+    trained = [k for k in out if not k.startswith("test")]
+    for k in trained:
+        assert np.isfinite(out[k]["history"]).all(), k
+    assert not any(LAUNCHES.values()), LAUNCHES
+    emit("graph_predictors_cli",
+         nodes={"PEMS08": GPTST_CLI_NODES, "NYC_BIKE": 250},
+         batch=GPTST_CLI_BATCH, epochs=2, time_steps=PRED_CLI_STEPS,
+         native_dtw_pairs=dtw_calls, dtw_cache=cached, seconds=secs,
+         ms_per_step_by_epoch={k: [t / out[k]["steps_per_epoch"] * 1e3
+                                   for t in out[k]["epoch_seconds"]]
+                               for k in trained},
+         max_memory_allocated=peak,
+         peak_over_held={k: peak[k] - held[k] for k in peak},
+         train_loss_by_epoch={k: out[k]["history"] for k in trained},
+         test_report_max_rel_diff=rel,
+         average={k: out[k]["average"] for k in out})
+
+
+def graph_predictor(model: str, dataset: str, n: int, device, seed: int = 0):
+    """`model` at published widths on `n` nodes, built by
+    `build_predictor` from `random_sensor_graph(n)`; the series-derived
+    graph (STMGCN's Pearson graph, STFGNN's and STGODE's DTW graph) is
+    `random_sensor_graph(n, seed=1)`, passed as `series_graph`, since
+    the builders' `[:, :num_nodes]` slice of the default series has
+    fewer nodes than `n` here. Returns the `GraphPredictor`."""
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph
+    from gptst_tpu_torch.models.build import build_predictor
+
+    cfg = default_config(dataset, mode="ori", model=model, num_nodes=n)
+    series = (random_sensor_graph(n, avg_degree=6, seed=1)
+              if model in ("STMGCN", "STFGNN", "STGODE") else None)
+    return build_predictor(cfg, adj=random_sensor_graph(n, avg_degree=6,
+                                                         seed=0),
+                           device=device, seed=seed, series_graph=series)
+
+
+def phase_graph_predictors_model(rec: dict) -> None:
+    """Library train steps (1 warm, 3 timed) of the five at 2,048 nodes,
+    batch 16, published widths, each config's loss: STSGCN's and
+    STFGNN's synchronous graphs are 6,144 and 8,192 rows, dense. ms per
+    step, samples/s and peak device memory (also over what was allocated
+    before the model was built); no kernel of `csrc/`."""
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import predictor_forward
+
+    n, b = GRAPH_MODEL_NODES, GRAPH_MODEL_BATCH
+    for model, dataset in GRAPH_MODELS:
+        cfg = default_config(dataset, mode="ori", model=model, num_nodes=n)
+        # the peak over what earlier phases still hold is the model's
+        # footprint: weights, graphs, optimizer state and activations
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pred = graph_predictor(model, dataset, n, "cuda")
+        build_s = time.perf_counter() - t0
+        losses, ms, launches, _ = train_steps(
+            model, predictor_forward(cfg, pred), b, 1, 3, nodes=n,
+            dataset=dataset, loss_func=cfg.loss_func)
+        assert not any(launches.values()), launches
+        peak = torch.cuda.max_memory_allocated()
+        emit("graph_predictors_model", model=model, dataset=dataset,
+             graph="random_sensor_graph(2048, 6, seed 0; series graph "
+                   "seed 1)", nodes=n, batch=b, steps=4,
+             loss_func=cfg.loss_func, build_s=build_s, ms_per_step=ms,
+             samples_per_s=b / ms * 1e3, losses=losses,
+             max_memory_allocated=peak, memory_held_before=held,
+             peak_over_held=peak - held,
+             parameters=sum(p.numel() for p in pred.parameters()))
+        del pred
+        torch.cuda.empty_cache()
+
+
+def reference_graph_predictors(b: int) -> None:
+    """STMGCN (NYC_BIKE's widths), ASTGCN, STSGCN, STFGNN and STGODE
+    (PEMS08's) at 64 nodes, card against CPU from the same weights and
+    graphs (`graph_predictor`): the prediction and every gradient of
+    mean(pred^2), rtol 1e-4 and an atol of 1e-5 of each tensor's largest
+    entry plus twice the CPU's own distance from its float64 run
+    (`assert_grads_close`); a parameter that reaches no output (STGODE's
+    discarded TCN convs) has a zero gradient on every side. TF32 is off
+    (`set_precision`): with it on, the card's products would be ~1e-3
+    from the CPU's."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+
+    n = 64
+    for model, dataset in GRAPH_MODELS:
+        base = graph_predictor(model, dataset, n, "cpu")
+        din = default_config(dataset).input_base_dim
+        x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+            (b, 12, n, din), np.float32))
+        out = {}
+        for key, dev, dt in (("cpu", "cpu", torch.float32),
+                             ("cuda", "cuda", torch.float32),
+                             ("f64", "cpu", torch.float64)):
+            net = copy.deepcopy(base.net).to(dev, dt)
+            graph = tuple(g.to(dev, dt) for g in base.graph)
+            pred = net(x.to(dev, dt), *graph)
+            pred.square().mean().backward()
+            out[key] = {"pred": pred.detach().cpu(), **{
+                k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                for k, p in net.named_parameters()}}
+        errs = assert_grads_close(out["cuda"], out["cpu"], model, out["f64"])
+        emit("reference", model=model, nodes=n, batch=b,
+             pred_max_abs_err=errs.pop("pred"),
+             grad_max_abs_err=max(errs.values()), parameters=len(errs),
+             allow_tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
              tol={"rtol": 1e-4, "atol": "1e-5 * max|want| + 2 * max|want "
                   "- want_float64|"})
 

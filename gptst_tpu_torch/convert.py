@@ -1,6 +1,7 @@
 """Carry weights between the JAX package's flax trees and the port's
-`state_dict`s, for TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN and the
-eval-mode (enhanced) model (told apart by the tree's keys).
+`state_dict`s, for TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN, STMGCN,
+ASTGCN, STSGCN, STFGNN, STGODE and the eval-mode (enhanced) model (told
+apart by the tree's keys).
 
 TGCN's flax tree (numpy arrays):
   {'params': {'ScanGraphGRUCell_0': {'weights_0': (D+U, 2U), 'bias_0',
@@ -39,14 +40,20 @@ The eval-mode (enhanced) tree `{"head": {"params": {"Dense_0",
 predictor's tree>}` maps to `EnhancedModel`'s keys: `head.proj`,
 `head.fusion.dense.{0,1,2}` and `predictor.net.<the predictor's keys>`.
 
-GWN's, MTGNN's and CCRNN's trees are renamed by the path rules of
-`_RULES` (the modules' docstrings list their keys): flax scopes such as
+GWN's, MTGNN's, CCRNN's, STMGCN's, ASTGCN's, STSGCN's, STFGNN's and
+STGODE's trees are renamed by the path rules of `_RULES` (the modules'
+docstrings list their keys): flax scopes such as
 `DilatedCausal_j/Conv_0` <-> `dilated.j`, `Dense_k` <-> `dense.k`,
 `Scan_EncoderStep_0` <-> `encoder`. A Dense `kernel` (in, out) becomes
 an `nn.Linear` `weight` (out, in); a Conv `kernel` (kt, 1, in, out) a
 `TimeConv` `weight` (out, in, kt, 1); raw parameters (`gconv_w_*`,
 `mixprop*`, `nodevec*`, `w1`, ...) and norm parameters keep their names
-and layouts.
+and layouts. STMGCN's `OptimizedLSTMCell_{l}` (`ii`..`io` kernels
+(D, h), `hi`..`ho` kernels (h, h) and biases) becomes one `LSTMCell`
+(`weight_ih` (4h, D), `weight_hh` (4h, h), `bias_hh` (4h,), gates i,
+f, g, o), and back. ASTGCN's `LayerNorm_0` `scale` is the port's norm
+`weight`. STGODE's TCN convs that the forward discards are carried both
+ways like the others.
 
 Recurrent weights keep flax's (in, out) layout (the cells compute
 `x @ W`); Dense kernels are transposed into `nn.Linear.weight`. Keys of
@@ -243,12 +250,76 @@ _RULES = {
                "decoder.{a}.{b}.{p}.{leaf}"),
               ("Scan_DecoderStep_0/{a}/{leaf}", "decoder.{a}.{leaf}"),
               ("{p}", "{p}")),
+    "STMGCN": (("cg_lstm{i}/OptimizedLSTMCell_{j}/{p}",
+                "cg_lstm.{i}.lstm.{j}.{p}"),
+               ("cg_lstm{i}/gconv_temporal/{p}",
+                "cg_lstm.{i}.gconv_temporal.{p}"),
+               ("cg_lstm{i}/fc/{leaf}", "cg_lstm.{i}.fc.{leaf}"),
+               ("gcn{i}/{p}", "gcn.{i}.{p}"),
+               ("fc/{leaf}", "fc.{leaf}")),
+    "ASTGCN": (("ASTGCNBlock_{i}/TemporalAttention_0/{p}",
+                "block.{i}.temporal_att.{p}"),
+               ("ASTGCNBlock_{i}/SpatialAttention_0/{p}",
+                "block.{i}.spatial_att.{p}"),
+               ("ASTGCNBlock_{i}/LayerNorm_0/scale", "block.{i}.norm.weight"),
+               ("ASTGCNBlock_{i}/LayerNorm_0/bias", "block.{i}.norm.bias"),
+               ("ASTGCNBlock_{i}/{a}/{leaf}", "block.{i}.{a}.{leaf}"),
+               ("ASTGCNBlock_{i}/{p}", "block.{i}.{p}"),
+               ("{p}", "{p}")),
+    "STSGCN": (("SyncLayer_{i}/{p}", "sync_layers.{i}.{p}"),
+               ("Dense_{i}/{leaf}", "dense.{i}.{leaf}")),
+    "STFGNN": (("FusionLayer_{i}/{a}/{leaf}", "fusion_layers.{i}.{a}.{leaf}"),
+               ("FusionLayer_{i}/{p}", "fusion_layers.{i}.{p}"),
+               ("Dense_{i}/{leaf}", "dense.{i}.{leaf}"),
+               ("{a}/{leaf}", "{a}.{leaf}")),
+    "STGODE": (("{a}/TemporalConvNet_{i}/Conv_3/{leaf}",
+                "blocks.{a}.tcn.{i}.down.{leaf}"),
+               ("{a}/TemporalConvNet_{i}/Conv_{j}/{leaf}",
+                "blocks.{a}.tcn.{i}.conv.{j}.{leaf}"),
+               ("{a}/ODEG_0/{p}", "blocks.{a}.odeg.{p}"),
+               ("{a}/NodeBatchNorm_0/{p}", "blocks.{a}.norm.{p}"),
+               ("Dense_{i}/{leaf}", "dense.{i}.{leaf}")),
 }
 # a key of each model's tree, flax side and port side
 _RULE_KEYS = {"GWN": ("DilatedCausal_0", "dilated.0.weight"),
               "MTGNN": ("skip0", "skip0.weight"),
               "CCRNN": ("Scan_EncoderStep_0",
-                        "encoder.cell0.ru.attlinear.weight")}
+                        "encoder.cell0.ru.attlinear.weight"),
+              "STMGCN": ("cg_lstm0", "cg_lstm.0.fc.weight"),
+              "ASTGCN": ("ASTGCNBlock_0", "block.0.Theta"),
+              "STSGCN": ("SyncLayer_0", "sync_layers.0.w0"),
+              "STFGNN": ("FusionLayer_0", "fusion_layers.0.w0"),
+              "STGODE": ("sp_0_0", "blocks.sp_0_0.odeg.w")}
+_GATES = ("i", "f", "g", "o")
+
+
+def _lstm_to_port(cell: dict) -> dict:
+    """flax `OptimizedLSTMCell` params -> `LSTMCell`'s, gates stacked
+    i, f, g, o on the rows."""
+    return {"weight_ih": np.concatenate(
+                [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _GATES]),
+            "weight_hh": np.concatenate(
+                [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GATES]),
+            "bias_hh": np.concatenate(
+                [np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])}
+
+
+def _lstm_to_flax(cell: dict) -> dict:
+    """`_lstm_to_port`'s inverse."""
+    w_ih, w_hh, b_hh = (np.split(cell[k], 4) for k in
+                        ("weight_ih", "weight_hh", "bias_hh"))
+    out = {}
+    for g, wi, wh, b in zip(_GATES, w_ih, w_hh, b_hh):
+        out[f"i{g}"] = {"kernel": np.ascontiguousarray(wi.T)}
+        out[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T), "bias": b}
+    return out
+
+
+def _map_lstm_cells(p: dict, fn) -> dict:
+    """`p` with every `OptimizedLSTMCell_{l}` scope mapped by `fn`."""
+    return {k: (fn(v) if k.startswith("OptimizedLSTMCell_")
+                else _map_lstm_cells(v, fn) if isinstance(v, dict) else v)
+            for k, v in p.items()}
 
 
 def _template_re(tpl: str, sep: str) -> re.Pattern:
@@ -324,6 +395,8 @@ def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
                                      prefix + "predictor.net.")}
     p = params.get("params", params)
     model = next((m for m, (k, _) in _RULE_KEYS.items() if k in p), None)
+    if model == "STMGCN":
+        p = _map_lstm_cells(p, _lstm_to_port)
     if model is not None:
         sd = _rules_to_state_dict(p, model)
     elif "Fusion_0" in p:
@@ -342,9 +415,9 @@ def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
 
 def state_dict_to_flax(sd: dict, prefix: str = "",
                        chunked: bool = False) -> dict:
-    """The flax tree of a TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN
-    or `EnhancedModel` state dict; `chunked` nests MSDR's cells as the
-    chunked-remat layout does."""
+    """The flax tree of a TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN,
+    STMGCN, ASTGCN, STSGCN, STFGNN, STGODE or `EnhancedModel` state
+    dict; `chunked` nests MSDR's cells as the chunked-remat layout does."""
     if f"{prefix}head.proj.weight" in sd:
         return {"head": state_dict_to_flax(sd, prefix + "head."),
                 "predictor": state_dict_to_flax(
@@ -353,7 +426,11 @@ def state_dict_to_flax(sd: dict, prefix: str = "",
           for k, v in sd.items() if k.startswith(prefix)}
     for model, (_, key) in _RULE_KEYS.items():
         if key in sd:
-            return _rules_to_flax(sd, model)
+            tree = _rules_to_flax(sd, model)
+            if model == "STMGCN":
+                tree = {"params": _map_lstm_cells(tree["params"],
+                                                  _lstm_to_flax)}
+            return tree
     if "dim_in_flow.weight" in sd:
         return _nested(sd, _gptst_path, lambda path: path[-1] == "kernel")
     if "block0.tconv0.kernel" in sd:

@@ -9,8 +9,9 @@ with `seed` and then moved to `device`.
 
 Ported: the four modes (`pretrain`: GPT-ST; `eval`: the frozen GPT-ST
 encoder, the Fusion head and a predictor; `ori` and `test`: the bare
-predictor) with STGCN, TGCN, MSDR, GWN, MTGNN and CCRNN. The other
-predictors raise `NotImplementedError` naming the slice they wait for.
+predictor) with STGCN, TGCN, MSDR, GWN, MTGNN, CCRNN, STMGCN, ASTGCN,
+STSGCN, STFGNN and STGODE. ST_WA and DMVSTNET raise
+`NotImplementedError` naming the slice they wait for.
 """
 
 from __future__ import annotations
@@ -48,13 +49,17 @@ _PREDICTOR_CONFIGS = {"STGCN": ("stgcn", "STGCNConfig"),
                       "MSDR": ("msdr", "MSDRConfig"),
                       "GWN": ("gwn", "GWNConfig"),
                       "MTGNN": ("mtgnn", "MTGNNConfig"),
-                      "CCRNN": ("ccrnn", "CCRNNConfig")}
+                      "CCRNN": ("ccrnn", "CCRNNConfig"),
+                      "STMGCN": ("stmgcn", "STMGCNConfig"),
+                      "ASTGCN": ("astgcn", "ASTGCNConfig"),
+                      "STSGCN": ("stsgcn", "STSGCNConfig"),
+                      "STFGNN": ("stfgnn", "STFGNNConfig"),
+                      "STGODE": ("stgode", "STGODEConfig")}
 
 # predictors of the JAX package not ported yet, and the slice each one
 # waits for
 _LATER = {m: "the slice of the remaining predictors"
-          for m in ("STMGCN", "ASTGCN", "STSGCN", "STFGNN", "STGODE",
-                    "ST_WA", "DMVSTNET")}
+          for m in ("ST_WA", "DMVSTNET")}
 
 
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -117,10 +122,14 @@ def available_models() -> list[str]:
 
 def build_predictor(cfg: FrameworkConfig, dim_in: int | None = None,
                     adj: np.ndarray | None = None, device="cuda",
-                    seed: int | None = None) -> nn.Module:
+                    seed: int | None = None,
+                    series_graph: np.ndarray | None = None) -> nn.Module:
     """The bare predictor for `cfg.model` (ori-mode input width by
     default), on `device`, its fresh parameters drawn from `seed`
-    (default `cfg.seed`)."""
+    (default `cfg.seed`). `series_graph`, for STMGCN, STFGNN and STGODE
+    only, is the (N, N) graph to use in place of the one their builders
+    derive from the dataset (the Pearson or DTW graph of its series);
+    no prefab or series is read then."""
     if cfg.model in _LATER:
         raise _not_ported(f"predictor {cfg.model!r}", _LATER[cfg.model])
     if cfg.model not in _REGISTRY:
@@ -132,7 +141,8 @@ def build_predictor(cfg: FrameworkConfig, dim_in: int | None = None,
     if adj is None:
         adj = load_base_adjacency(cfg)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    return _REGISTRY[cfg.model](cfg, dim_in, adj, dev, gen)
+    kw = {} if series_graph is None else {"series_graph": series_graph}
+    return _REGISTRY[cfg.model](cfg, dim_in, adj, dev, gen, **kw)
 
 
 class OriModel(nn.Module):
@@ -247,11 +257,13 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
 
 class GraphPredictor(nn.Module):
     """A predictor network bound to its constant graph arguments (the
-    support, STGCN's Chebyshev stack, MSDR's static supports and
-    learned-adjacency pattern, GWN's supports or MTGNN's predefined
-    adjacency). With `takes_generator` the trainer's generator reaches
-    the network (dropout); with `takes_targets` the labels, the step
-    count and the generator do (CCRNN's scheduled sampling)."""
+    support, STGCN's and ASTGCN's Chebyshev stacks, MSDR's static
+    supports and learned-adjacency pattern, GWN's supports, MTGNN's
+    predefined adjacency, STMGCN's support stacks, STSGCN's and STFGNN's
+    synchronous graphs or STGODE's two graphs). With `takes_generator`
+    the trainer's generator reaches the network (dropout); with
+    `takes_targets` the labels, the step count and the generator do
+    (CCRNN's scheduled sampling)."""
 
     def __init__(self, net: nn.Module, *graph, takes_generator=False,
                  takes_targets=False):
@@ -432,3 +444,191 @@ def _build_gwn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
               horizon=cfg.horizon, num_supports=len(supports),
               nodevec_init=nodevec_init, generator=generator).to(device)
     return GraphPredictor(net, supports, takes_generator=True)
+
+
+# --- the graph-convolution predictors of the ninth slice --------------------
+#
+# Each keeps what the JAX package's builder does (`gptst_tpu/models/
+# build.py`), quirks included: STMGCN (without its prefabs), STFGNN and
+# STGODE read `load_raw_series(cfg.dataset)`, the dataset's default
+# series and not `cfg.data_root`'s, and slice it `[:, :num_nodes]`, which
+# keeps fewer columns than `num_nodes` where the series has fewer nodes.
+
+
+def _dense_graph(a: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def stmgcn_support_stacks(cfg: FrameworkConfig, adj: np.ndarray,
+                          cheb_k: int,
+                          series_graph: np.ndarray | None = None
+                          ) -> np.ndarray:
+    """STMGCN's (2, K + 1, N, N) Chebyshev stacks: of `adj` and
+    `series_graph` when it is given; else of the NYC prefab distance and
+    Pearson graphs under `cfg.data_root` when present
+    (`data/STMGCN_demand/{dis,pcc}_{bb,tt}.csv`,
+    `model/STMGCN_demand/args.py:35-53`), else of `adj` and the Pearson
+    graph of the training split."""
+    from gptst_tpu_torch.data.pipeline import load_raw_series, split_by_ratio
+    from gptst_tpu_torch.graph.artifacts import (
+        cheb_poly_stack_rescaled, pearson_graph,
+    )
+    from gptst_tpu_torch.graph.io import load_stmgcn_prefabs
+
+    if series_graph is not None:
+        dis_graph, pcc_graph = adj, series_graph
+    elif (prefab := load_stmgcn_prefabs(cfg.data_root,
+                                        cfg.dataset)) is not None:
+        dis_graph, pcc_graph = prefab
+    else:
+        raw = load_raw_series(cfg.dataset)[:, : cfg.num_nodes]
+        train, _, _ = split_by_ratio(raw, cfg.val_ratio, cfg.test_ratio)
+        dis_graph, pcc_graph = adj, pearson_graph(train)
+    return np.nan_to_num(np.stack([
+        cheb_poly_stack_rescaled(dis_graph, cheb_k),
+        cheb_poly_stack_rescaled(pcc_graph, cheb_k)]))
+
+
+@register_model("STMGCN")
+def _build_stmgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                  device: torch.device, generator: torch.Generator,
+                  series_graph: np.ndarray | None = None):
+    from gptst_tpu_torch.models.predictors.stmgcn import STMGCN, STMGCNConfig
+
+    pcfg = make_predictor_config(STMGCNConfig, cfg, num_nodes=cfg.num_nodes)
+    stacks = _dense_graph(
+        stmgcn_support_stacks(cfg, adj, pcfg.cheb_k, series_graph), device)
+    net = STMGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                 seq_len=cfg.lag, generator=generator).to(device)
+    return GraphPredictor(net, stacks)
+
+
+@register_model("ASTGCN")
+def _build_astgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                  device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.graph.artifacts import (
+        cheb_poly_stack, scaled_laplacian,
+    )
+    from gptst_tpu_torch.models.predictors.astgcn import ASTGCN, ASTGCNConfig
+
+    pcfg = make_predictor_config(ASTGCNConfig, cfg, num_nodes=cfg.num_nodes)
+    cheb = _dense_graph(cheb_poly_stack(scaled_laplacian(adj), pcfg.K),
+                        device)
+    net = ASTGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                 horizon=cfg.horizon, lag=cfg.lag,
+                 generator=generator).to(device)
+    return GraphPredictor(net, cheb)
+
+
+@register_model("STSGCN")
+def _build_stsgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                  device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.models.predictors.stsgcn import (
+        STSGCN, STSGCNConfig, construct_sync_adj,
+    )
+
+    pcfg = make_predictor_config(STSGCNConfig, cfg, num_nodes=cfg.num_nodes)
+    sync_adj = _dense_graph(construct_sync_adj(adj, pcfg.steps), device)
+    net = STSGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                 horizon=cfg.horizon, lag=cfg.lag,
+                 generator=generator).to(device)
+    return GraphPredictor(net, sync_adj)
+
+
+def _steps_per_day(dataset: str) -> int:
+    from gptst_tpu_torch.config.datasets import get_dataset_spec
+
+    return (24 * 60) // get_dataset_spec(dataset).interval
+
+
+def stfgnn_fusion_graph(cfg: FrameworkConfig, adj: np.ndarray,
+                        strides: int,
+                        series_graph: np.ndarray | None = None
+                        ) -> np.ndarray:
+    """STFGNN's (strides * N)^2 fusion graph: of `adj` and
+    `series_graph` when it is given; else the prefab under
+    `cfg.data_root` when its shape fits (`data/STFGNN/<ds>/
+    <ds>_adj_mx.npy`, the reference's cache of the FINAL fusion graph,
+    `model/STFGNN/args.py:196-207`), else built from `adj` and the DTW
+    graph of the training days (cached under `./.gptst_cache`)."""
+    from gptst_tpu_torch.data.pipeline import load_raw_series
+    from gptst_tpu_torch.graph.dtw import cached_artifact, stfgnn_dtw_graph
+    from gptst_tpu_torch.graph.io import load_stfgnn_fusion_prefab
+    from gptst_tpu_torch.models.predictors.stfgnn import construct_adj_fusion
+
+    if series_graph is not None:
+        return construct_adj_fusion(adj, series_graph, strides)
+    fusion = load_stfgnn_fusion_prefab(cfg.data_root, cfg.dataset)
+    if fusion is not None and fusion.shape[0] == strides * cfg.num_nodes:
+        return fusion
+    spd = _steps_per_day(cfg.dataset)
+    raw = load_raw_series(cfg.dataset)[:, : cfg.num_nodes, 0]
+    train_days = int((raw.shape[0] // spd) * 0.6)
+    train = raw[: max(train_days, 1) * spd]
+    a_dtw = cached_artifact(
+        "./.gptst_cache", f"stfgnn_dtw_{cfg.dataset}_{cfg.num_nodes}",
+        [raw[:1000]], lambda: stfgnn_dtw_graph(train, steps_per_day=spd))
+    return construct_adj_fusion(adj, a_dtw, strides)
+
+
+@register_model("STFGNN")
+def _build_stfgnn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                  device: torch.device, generator: torch.Generator,
+                  series_graph: np.ndarray | None = None):
+    from gptst_tpu_torch.models.predictors.stfgnn import STFGNN, STFGNNConfig
+
+    pcfg = make_predictor_config(STFGNNConfig, cfg, num_nodes=cfg.num_nodes)
+    fusion = _dense_graph(
+        stfgnn_fusion_graph(cfg, adj, pcfg.strides, series_graph), device)
+    net = STFGNN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                 horizon=cfg.horizon, lag=cfg.lag,
+                 generator=generator).to(device)
+    return GraphPredictor(net, fusion)
+
+
+def stgode_graphs(cfg: FrameworkConfig, adj: np.ndarray,
+                  series_graph: np.ndarray | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """STGODE's normalized (spatial, semantic) graphs: of `adj` and
+    `series_graph` when it is given; else of the prefab distance files
+    under `cfg.data_root` when present (`data/STGODE/<ds>/
+    <ds>_{dtw,spatial}_distance.npy`, `model/STGODE/args.py:57-125`),
+    else of `adj` and the banded-DTW graph of the z-scored series
+    (cached under `./.gptst_cache`)."""
+    from gptst_tpu_torch.data.pipeline import load_raw_series
+    from gptst_tpu_torch.graph.dtw import cached_artifact, stgode_dtw_graph
+    from gptst_tpu_torch.graph.io import load_stgode_prefabs
+    from gptst_tpu_torch.models.predictors.stgode import (
+        stgode_normalized_adj,
+    )
+
+    if series_graph is not None:
+        a_se, a_sp = series_graph, adj
+    elif (prefab := load_stgode_prefabs(cfg.data_root,
+                                        cfg.dataset)) is not None:
+        a_se, a_sp = prefab
+    else:
+        spd = _steps_per_day(cfg.dataset)
+        raw = load_raw_series(cfg.dataset)[:, : cfg.num_nodes, 0]
+        mean, std = raw.mean(), max(raw.std(), 1e-8)
+        a_se = cached_artifact(
+            "./.gptst_cache", f"stgode_dtw_{cfg.dataset}_{cfg.num_nodes}",
+            [raw[:1000]],
+            lambda: stgode_dtw_graph((raw - mean) / std, steps_per_day=spd))
+        a_sp = adj
+    return stgode_normalized_adj(a_sp), stgode_normalized_adj(a_se)
+
+
+@register_model("STGODE")
+def _build_stgode(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                  device: torch.device, generator: torch.Generator,
+                  series_graph: np.ndarray | None = None):
+    from gptst_tpu_torch.models.predictors.stgode import STGODE, STGODEConfig
+
+    pcfg = make_predictor_config(STGODEConfig, cfg, num_nodes=cfg.num_nodes)
+    adj_sp, adj_se = (_dense_graph(a, device)
+                      for a in stgode_graphs(cfg, adj, series_graph))
+    net = STGODE(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                 horizon=cfg.horizon, lag=cfg.lag,
+                 generator=generator).to(device)
+    return GraphPredictor(net, adj_sp, adj_se)

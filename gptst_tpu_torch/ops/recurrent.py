@@ -1,9 +1,11 @@
-"""Recurrent graph cells.
+"""Recurrent cells and flax's initializers.
 
-The JAX package lifts each cell over time with `nn.scan`; here a cell
-is an `nn.Module` stepped by a Python loop over T (in its predictor, or
-`scan_over_time`), and activation rematerialization is
-`torch.utils.checkpoint` around each step (`remat_cell`).
+The JAX package lifts each cell over time with `nn.scan` (or `nn.RNN`);
+here a cell is an `nn.Module` stepped by a Python loop over T (in its
+predictor, `scan_over_time` or `LSTMCell.forward`), and activation
+rematerialization is `torch.utils.checkpoint` around each step
+(`remat_cell`). The GRU cells serve TGCN, `LSTMStack` STMGCN. The
+initializers draw flax's laws with flax's fans (`flax_fans`).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import promoted
@@ -34,17 +37,44 @@ def variance_scaling_(t: torch.Tensor, fan: float,
                                      generator=generator)
 
 
+def flax_fans(shape) -> tuple[float, float]:
+    """flax's (fan_in, fan_out) of a kernel: the last axis is the output,
+    the one before it the input, and every other axis a receptive field
+    that multiplies both (`jax.nn.initializers.variance_scaling`). torch's
+    `_calculate_fan_in_and_fan_out` reads axis 1 as the input and the
+    axes from 2 on as the field, which differs for every kernel of more
+    than two axes here: ASTGCN's `bs` (1, N, N), `Theta` (K, F, O) and
+    `final_w` (T, F, O); the per-window (W, C, F) weights of STSGCN and
+    STFGNN; flax `Conv` kernels (kh, kw, in, out)."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
 def xavier_normal_(t: torch.Tensor,
                    generator: torch.Generator | None = None) -> torch.Tensor:
-    """flax `xavier_normal()` for an (in, out) kernel."""
-    return variance_scaling_(t, (t.shape[0] + t.shape[1]) / 2.0, generator)
+    """flax `xavier_normal()`: truncated normal of variance
+    2 / (fan_in + fan_out), flax's fans (`flax_fans`)."""
+    fan_in, fan_out = flax_fans(t.shape)
+    return variance_scaling_(t, (fan_in + fan_out) / 2.0, generator)
 
 
 def xavier_uniform_(t: torch.Tensor,
                     generator: torch.Generator | None = None) -> torch.Tensor:
-    """flax `xavier_uniform()` for an (in, out) kernel, in place:
-    U(+-sqrt(6 / (in + out)))."""
-    lim = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+    """flax `xavier_uniform()` in place: U(+-sqrt(6 / (fan_in +
+    fan_out))), flax's fans (`flax_fans`)."""
+    fan_in, fan_out = flax_fans(t.shape)
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return t.uniform_(-lim, lim, generator=generator)
+
+
+def fan_in_uniform_(t: torch.Tensor,
+                    generator: torch.Generator | None = None
+                    ) -> torch.Tensor:
+    """flax `variance_scaling(1/3, "fan_in", "uniform")`, torch
+    `nn.Linear`'s default law U(+-1/sqrt(fan_in)), with flax's fans: a
+    (W, C, F) stack of per-window weights has fan_in C * W."""
+    lim = 1.0 / math.sqrt(flax_fans(t.shape)[0])
     with torch.no_grad():
         return t.uniform_(-lim, lim, generator=generator)
 
@@ -187,3 +217,68 @@ def remat_cell(cell, remat: str = "none"):
         return checkpoint(cell, *args, use_reentrant=False, **kw)
 
     return wrapped
+
+
+class LSTMCell(nn.Module):
+    """flax `nn.OptimizedLSTMCell(h)` in torch `nn.LSTM`'s layout for one
+    layer: `weight_ih` (4h, D) and `weight_hh` (4h, h), the gates
+    stacked i, f, g, o, and `bias_hh` (4h,). flax's input kernels have
+    no bias, so there is no `bias_ih`:
+
+        z = x W_ih^T + (h W_hh^T + b_hh) -> i, f, g, o
+        c' = sigmoid(f) c + sigmoid(i) tanh(g);  h' = sigmoid(o) tanh(c')
+
+    Init as flax's: lecun-normal input kernels (fan_in D), an orthogonal
+    (h, h) recurrent kernel per gate, zero biases."""
+
+    def __init__(self, dim_in: int, hidden: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden, dim_in))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+        variance_scaling_(self.weight_ih, dim_in, generator)
+        with torch.no_grad():
+            for g in self.weight_hh.split(hidden):
+                nn.init.orthogonal_(g, generator=generator)
+
+    def step(self, c: torch.Tensor, h: torch.Tensor,
+             xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One step from the input's share `xi` = x W_ih^T."""
+        h_, w, b = promoted(h, self.weight_hh, self.bias_hh)
+        z = F.linear(h_, w, b) + xi
+        i, f, g, o = z.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return c, torch.sigmoid(o) * torch.tanh(c)
+
+    def forward(self, seq: torch.Tensor, remat: str = "none") -> torch.Tensor:
+        """seq (S, T, D) from a zero carry -> every step's h (S, T, h).
+        The input products of all T steps are one matmul; each step runs
+        under `remat_cell(·, remat)`."""
+        x, w = promoted(seq, self.weight_ih)
+        xi = F.linear(x, w)
+        c = h = xi.new_zeros(seq.shape[0], self.hidden)
+        step = remat_cell(self.step, remat)
+        hs = []
+        for t in range(seq.shape[1]):
+            c, h = step(c, h, xi[:, t])
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
+
+class LSTMStack(nn.ModuleList):
+    """`num_layers` `LSTMCell`s, each over the previous one's outputs
+    (the JAX package's `nn.RNN(OptimizedLSTMCell)` loop, STMGCN's
+    `ContextGatedLSTM`): seq (S, T, D) -> the last step's h of the last
+    layer (S, h). Layer l is `{l}` of the list."""
+
+    def __init__(self, dim_in: int, hidden: int, num_layers: int,
+                 generator: torch.Generator | None = None):
+        super().__init__(LSTMCell(dim_in if i == 0 else hidden, hidden,
+                                  generator) for i in range(num_layers))
+
+    def forward(self, seq: torch.Tensor, remat: str = "none") -> torch.Tensor:
+        for cell in self:
+            seq = cell(seq, remat)
+        return seq[:, -1]

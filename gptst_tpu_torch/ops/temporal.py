@@ -81,26 +81,33 @@ class TemporalConv(nn.Module):
 
 class TimeConv(nn.Module):
     """flax `Conv(c_out, kernel_size=(kt, 1), kernel_dilation=(d, 1),
-    padding="VALID")` over the T axis of (B, T, N, C_in): T shrinks by
-    d * (kt - 1). `weight` (C_out, C_in, kt, 1), lecun-normal over
-    fan_in = kt * C_in, and a zero `bias`."""
+    strides=(stride, 1), padding=((p0, p1), (0, 0)))` over the T axis of
+    (B, T, N, C_in) (VALID by default: T shrinks by d * (kt - 1)).
+    `weight` (C_out, C_in, kt, 1), lecun-normal over fan_in = kt * C_in,
+    and a zero `bias`. A 1-wide kernel at `stride` is flax's SAME conv
+    too: SAME pads such a kernel by nothing."""
 
     def __init__(self, c_in: int, c_out: int, kt: int, dilation: int = 1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 padding: tuple[int, int] = (0, 0), stride: int = 1):
         super().__init__()
         self.kt, self.dilation = kt, dilation
+        self.padding, self.stride = padding, stride
         self.weight = nn.Parameter(torch.empty(c_out, c_in, kt, 1))
         self.bias = nn.Parameter(torch.zeros(c_out))
         variance_scaling_(self.weight, kt * c_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, N, C)
-        kt, d = self.kt, self.dilation
-        t_out = x.shape[1] - d * (kt - 1)
-        if t_out < 1:
+        kt, d, s = self.kt, self.dilation, self.stride
+        if any(self.padding):
+            x = F.pad(x, (0, 0, 0, 0, *self.padding))
+        reach = d * (kt - 1) + 1
+        if x.shape[1] < reach:
             raise ValueError(f"time axis {x.shape[1]} shorter than the "
-                             f"kernel's reach {d * (kt - 1) + 1}")
-        cols = torch.cat([x[:, k * d:k * d + t_out] for k in range(kt)],
-                         dim=-1) if kt > 1 else x
+                             f"kernel's reach {reach}")
+        span = (x.shape[1] - reach) // s * s + 1
+        cols = torch.cat([x[:, k * d:k * d + span:s] for k in range(kt)],
+                         dim=-1) if kt > 1 else x[:, :span:s]
         # (C_out, C_in, kt) -> (kt * C_in, C_out), the order of `cols`
         w = self.weight[..., 0].permute(2, 1, 0).reshape(-1,
                                                          self.weight.shape[0])

@@ -26,8 +26,11 @@ unused, as in the JAX package.
 Flow: config -> seed -> dataset -> model -> trainer. The predictors
 are STGCN (the default `-model`), TGCN, MSDR (above 4096 nodes MSDR's
 learned adjacency is sparse: `kernels/sddmm.adaptive_support`), GWN
-(`--aptonly False` adds its static supports), MTGNN and CCRNN; the
-others raise `NotImplementedError` naming the slice they wait for.
+(`--aptonly False` adds its static supports), MTGNN, CCRNN, STMGCN,
+ASTGCN, STSGCN, STFGNN and STGODE (STFGNN's and STGODE's DTW graphs
+are built on the host, `graph/dtw.py`, and cached under
+`./.gptst_cache`); ST_WA and DMVSTNET raise `NotImplementedError`
+naming the slice they wait for.
 Files, under `<log_dir>/<dataset>/`:
   * `-mode pretrain` (GPT-ST; `-model` is not read) writes the best
     GPT-ST parameters with `torch.save(state_dict)` to

@@ -82,6 +82,34 @@ cc = build_model(ccfg, device="cpu")
 x2 = torch.randn(2, 12, 6, 4)
 assert cc(x2, y=x2, step=3, generator=torch.Generator()).pred.shape == (
     2, 12, 6, 2)
+import ctypes
+opened = []
+_cdll = ctypes.CDLL.__init__
+def _record(self, name, *a, **k):
+    opened.append(str(name))
+    return _cdll(self, name, *a, **k)
+ctypes.CDLL.__init__ = _record
+from gptst_tpu_torch.graph.dtw import stfgnn_dtw_graph, stgode_dtw_graph
+from gptst_tpu_torch import native
+series = np.random.default_rng(0).random((3 * 24, 5)).astype(np.float32)
+assert stfgnn_dtw_graph(series, 24).shape == (5, 5)
+assert stgode_dtw_graph(series, 24).shape == (5, 5)
+assert native.load("dtw") is not None
+assert opened and all("gptst_tpu_torch" in p and "/gptst_tpu/" not in p
+                      for p in opened), opened
+import os, tempfile
+os.chdir(tempfile.mkdtemp())    # the DTW graphs' cache
+for name, ds in (("STMGCN", "NYC_BIKE"), ("ASTGCN", "PEMS08"),
+                 ("STSGCN", "PEMS08"), ("STFGNN", "PEMS08"),
+                 ("STGODE", "PEMS08")):
+    mcfg = default_config(ds, mode="ori", model=name, num_nodes=6)
+    xin = torch.randn(2, 12, 6, mcfg.input_base_dim + 2)
+    m = build_model(mcfg, device="cpu")
+    assert m(xin).pred.shape == (2, 12, 6, mcfg.output_dim)
+    if ds == "PEMS08":
+        enh = build_model(cfg.replace(mode="eval", model=name), device="cpu",
+                          pretrain_params=gpt.gptst)
+        assert enh(x6).pred.shape == (2, 12, 6, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN})
 print("LOADED", bad)

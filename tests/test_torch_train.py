@@ -129,7 +129,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             "-log_dir", str(tmp_path)]
     with pytest.raises(NotImplementedError,
                        match="slice of the remaining predictors"):
-        main(["-mode", "ori", "-model", "STMGCN", *base])
+        main(["-mode", "ori", "-model", "ST_WA", *base])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["-mode", "ori", "-model", "TGCN", "-num_nodes", "12",
