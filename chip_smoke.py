@@ -119,7 +119,8 @@ Phases, one JSON line each; any failure exits non-zero:
              MTGNN (PEMS08, 170 nodes) and CCRNN (NYC_BIKE, 250 nodes)
              `-mode ori`, then eval and test of GWN, MTGNN and CCRNN
              from one pretrain checkpoint per dataset, batch 64; each
-             test report equal to its eval run's.
+             test report (GWN's and MTGNN's with dropout: the trainer's
+             test generator) equal to its eval run's; peak memory.
   graph_predictors_cli
              STMGCN (NYC_BIKE, 250 nodes), ASTGCN, STSGCN, STFGNN and
              STGODE (PEMS08, 170 nodes) through `run.main` at published
@@ -136,14 +137,23 @@ Phases, one JSON line each; any failure exits non-zero:
              published widths; STMGCN's Pearson graph and STFGNN's and
              STGODE's DTW graph are a second random sensor graph (seed
              1): ms per step, samples/s, peak device memory.
+  last_predictors_cli
+             ST_WA (PEMS08, 170 nodes) and DMVSTNET (NYC_BIKE, 250
+             nodes) the same way as `graph_predictors_cli`; ST_WA's
+             test-time latents come from the trainer's test generator.
+  last_predictors_model
+             library train steps of the same two at 2,048 nodes: ST_WA
+             at batch 8 (its 16 windows keep a 2.15 GB softmax each),
+             DMVSTNET at batch 16.
   profile    `torch.profiler` over 2 TGCN train steps on each graph (and
              on the CLI graph's halo support),
              2 MSDR train steps on the CLI graph, 2 GPT-ST pretrain
              steps of `gptst_model`'s shape, 2 eval-mode TGCN steps
              on the CLI graph (with the encoder's no-grad forward
-             profiled alone as its share) and 2 GWN steps of `gwn_cli`'s
-             shape: device time by kernel group, the busy share and the
-             10 costliest kernels.
+             profiled alone as its share), 2 GWN steps of `gwn_cli`'s
+             shape and 1 ST_WA step of `last_predictors_model`'s shape:
+             device time by kernel group, the busy share and the 10
+             costliest kernels.
   reference  a small ragged graph (1000 nodes) with and without RCM
              (DIA and block-CSR): the TGCN, MSDR (learned sparse
              adjacency, random nonzero weights) and eval-mode TGCN
@@ -154,7 +164,8 @@ Phases, one JSON line each; any failure exits non-zero:
              GPT-ST's pretrain loss, `encode` and gradients at 64 nodes
              (hidden 16, mask_ratio 1.0), STGCN at 170 nodes, GWN on
              a directed 1,000-node graph with and without RCM, and
-             MTGNN, CCRNN, STMGCN, ASTGCN, STSGCN, STFGNN and STGODE
+             MTGNN, CCRNN, STMGCN, ASTGCN, STSGCN, STFGNN, STGODE,
+             ST_WA (both branches, its draws passed in) and DMVSTNET
              at 64 nodes, card against CPU.
 
 Before the last line: one JSON object with every kernel's launches on
@@ -183,7 +194,8 @@ PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
           "gptst_model", "gptst_cli", "eval_cli", "eval_model", "stgcn_cli",
           "gwn_cli", "gwn_model", "predictors_cli", "graph_predictors_cli",
-          "graph_predictors_model", "profile", "reference")
+          "graph_predictors_model", "last_predictors_cli",
+          "last_predictors_model", "profile", "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
 # dense TF32 on the tensor cores, and HBM3 bandwidth
@@ -1745,6 +1757,7 @@ KERNEL_GROUPS = (
     ("indexSelect", "index_select (COO tail gather, RCM permutation)"),
     ("gemm", "dense matmul"), ("xmma", "dense matmul"),
     ("cutlass", "dense matmul"), ("softmax", "softmax"),
+    ("SoftMax", "softmax"),
     ("elementwise", "elementwise"), ("reduce", "reduction"),
 )
 
@@ -1778,9 +1791,14 @@ def phase_profile(rec: dict) -> None:
     """Device time by kernel group and device busy share of 2 profiled
     train steps (after 1 warm-up step): TGCN on each graph, MSDR on the
     CLI graph, TGCN on the CLI graph's halo support on 4 ranks, GPT-ST
-    pretrain at `gptst_model`'s shape (adaptive mask and KL). The
-    traces (tens of MB each) are read and deleted."""
+    pretrain at `gptst_model`'s shape (adaptive mask and KL), eval TGCN
+    and GWN on the CLI graph; and 1 ST_WA step at
+    `last_predictors_model`'s shape. The traces (tens of MB each) are
+    read and deleted."""
     import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import predictor_forward
 
     runs = [(f"tgcn_{name}", "TGCN", tgcn_net, (sup,), BATCH)
             for name, sup in rec["_supports"].items()]
@@ -1824,6 +1842,18 @@ def phase_profile(rec: dict) -> None:
             "GWN", bind("GWN", gwn_net(), (rec["_gwn"]["cli_graph"],)),
             GWN_BATCH, 1, 2, trace=path)
         profile_line("gwn_cli_graph", ms, path)
+    torch.cuda.empty_cache()
+    # ST_WA at last_predictors_model's shape: one step after one warm
+    cfg = default_config("PEMS08", mode="ori", model="ST_WA",
+                         num_nodes=GRAPH_MODEL_NODES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        _, ms, _, _ = train_steps(
+            "ST_WA", predictor_forward(cfg, graph_predictor(
+                "ST_WA", "PEMS08", GRAPH_MODEL_NODES, "cuda")),
+            LAST_MODEL_BATCH["ST_WA"], 1, 1, trace=path,
+            nodes=GRAPH_MODEL_NODES, loss_func=cfg.loss_func)
+        profile_line("stwa_2048", ms, path, steps=1)
     torch.cuda.empty_cache()
 
 
@@ -1941,6 +1971,7 @@ def phase_reference(rec: dict) -> None:
     reference_gwn(b)
     reference_dense_predictors(b)
     reference_graph_predictors(b)
+    reference_last_predictors(b)
 
 
 def reference_sharded(b: int) -> None:
@@ -2425,14 +2456,16 @@ def gwn_grads(net, sups, x) -> dict:
 
 
 def assert_grads_close(got: dict, want: dict, what: str,
-                       want64: dict | None = None) -> dict:
+                       want64: dict | None = None,
+                       extra: dict | None = None) -> dict:
     """rtol 1e-4 and an atol of 1e-5 of each tensor's largest entry; a
     GWN gconv bias (0 in exact arithmetic: a BatchStatsNorm follows it)
     an atol of 1e-5 of the model's largest gradient. With `want64` (the
     same run in float64), each atol also gets twice `want`'s own largest
     distance from it: a gradient that is a difference of nearly equal
     sums (GWN's nodevecs, through a softmax over 1,000 columns) is
-    that far off in f32 on either device. Returns the errors."""
+    that far off in f32 on either device. `extra[k]`, where given, is
+    added to tensor k's atol. Returns the errors."""
     import torch
 
     scale = max(float(w.abs().max()) for k, w in want.items() if k != "pred")
@@ -2441,6 +2474,8 @@ def assert_grads_close(got: dict, want: dict, what: str,
         atol = 1e-5 * (scale if "gconv_b" in k else float(w.abs().max()))
         if want64 is not None:
             atol += 2 * float((w.double() - want64[k]).abs().max())
+        if extra is not None:
+            atol += extra[k]
         errs[k] = float((got[k] - w).abs().max())
         torch.testing.assert_close(got[k], w, rtol=1e-4, atol=atol,
                                    msg=lambda m: f"{what} {k}: {m}")
@@ -2518,61 +2553,96 @@ def phase_gwn_model(rec: dict) -> None:
               "model's largest gradient)"})
 
 
+def cli_cycles(tmp: str, ori, evaluated) -> dict:
+    """`run.main` at published widths, batch 64, 2 epochs over 1,000
+    time steps: `-mode ori` of each (model, dataset) of `ori`, then per
+    dataset of `evaluated` one `-mode pretrain` and, from its
+    checkpoint, `-mode eval` and `-mode test` of each of its models.
+    PEMS08 reads a 170-node PEMS08.npz written under `tmp`, NYC_BIKE
+    its own 250-node series. Returns, by run (`<mode>_<model>`,
+    `pretrain_<dataset>`), the metrics file, the seconds, the peak
+    device memory and what was allocated before the run."""
+    import torch
+
+    data = {"PEMS08": ["-data_root", write_pems08(
+        tmp, GPTST_CLI_NODES, PRED_CLI_STEPS)],
+        "NYC_BIKE": ["-num_steps", str(PRED_CLI_STEPS)]}
+    runs: dict = {"out": {}, "seconds": {}, "peak": {}, "held": {}}
+
+    def run(dataset, mode, model=None):
+        key = f"{mode}_{model or dataset}"
+        path = os.path.join(tmp, f"{key}.json")
+        argv = ["-dataset", dataset, "-mode", mode, *data[dataset],
+                "-batch_size", str(GPTST_CLI_BATCH), "-epochs", "2",
+                "-change_epoch", "1", "-lr_decay", "False",
+                "-log_dir", os.path.join(
+                    tmp, "save_ori" if mode == "ori" else "save"),
+                "-log_step", "1000", "-metrics_out", path]
+        torch.cuda.reset_peak_memory_stats()
+        runs["held"][key] = torch.cuda.memory_allocated()
+        runs["seconds"][key] = run_main(
+            argv + (["-model", model] if model else []))
+        runs["peak"][key] = torch.cuda.max_memory_allocated()
+        with open(path) as f:
+            runs["out"][key] = json.load(f)
+
+    for model, dataset in ori:
+        run(dataset, "ori", model)
+    for dataset in dict.fromkeys(ds for _, ds in evaluated):
+        run(dataset, "pretrain")
+        for model, ds in evaluated:
+            if ds == dataset:
+                run(dataset, "eval", model)
+                run(dataset, "test", model)
+    return runs
+
+
+def cli_summary(runs: dict, models) -> dict:
+    """A CLI phase's line from `cli_cycles`' runs. Every training run's
+    losses are finite, and each model's test report equals its eval
+    run's (rtol 1e-5: the same weights, windows and test generator,
+    dense products only); epoch ms per step, the peak device memory
+    and the peak over what was held before each run."""
+    import numpy as np
+
+    out, peak = runs["out"], runs["peak"]
+    rel = {m: same_report(out[f"test_{m}"], out[f"eval_{m}"], rtol=1e-5)
+           for m in models}
+    trained = [k for k in out if not k.startswith("test")]
+    for k in trained:
+        assert np.isfinite(out[k]["history"]).all(), k
+    return dict(
+        nodes={"PEMS08": GPTST_CLI_NODES, "NYC_BIKE": 250},
+        batch=GPTST_CLI_BATCH, epochs=2, time_steps=PRED_CLI_STEPS,
+        seconds=runs["seconds"],
+        ms_per_step_by_epoch={k: [t / out[k]["steps_per_epoch"] * 1e3
+                                  for t in out[k]["epoch_seconds"]]
+                              for k in trained},
+        max_memory_allocated=peak,
+        peak_over_held={k: peak[k] - runs["held"][k] for k in peak},
+        train_loss_by_epoch={k: out[k]["history"] for k in trained},
+        test_report_max_rel_diff=rel,
+        average={k: out[k]["average"] for k in out})
+
+
 def phase_predictors_cli(rec: dict) -> None:
     """MTGNN (PEMS08, 170 nodes) and CCRNN (NYC_BIKE, 250 nodes)
     through `run.main -mode ori`, batch 64, 2 epochs; then, from one
     `-mode pretrain` checkpoint per dataset, `-mode eval` and `-mode
-    test` of GWN, MTGNN (PEMS08) and CCRNN (NYC_BIKE), each test report
-    equal to its eval run's (rtol 1e-5: dense products only). Losses
-    finite; no kernel of `csrc/` launches (GWN's default is the adaptive
+    test` of GWN, MTGNN (PEMS08) and CCRNN (NYC_BIKE) (`cli_cycles`).
+    GWN's and MTGNN's test reports run dropout (the trainer's test
+    generator), as the JAX package's do; each equals its eval run's.
+    No kernel of `csrc/` launches (GWN's default is the adaptive
     adjacency alone)."""
-    import numpy as np
-
     from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
 
-    out, secs = {}, {}
+    evaluated = (("GWN", "PEMS08"), ("MTGNN", "PEMS08"),
+                 ("CCRNN", "NYC_BIKE"))
+    reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        data = {"PEMS08": ["-data_root", write_pems08(
-            tmp, GPTST_CLI_NODES, PRED_CLI_STEPS)],
-            "NYC_BIKE": ["-num_steps", str(PRED_CLI_STEPS)]}
-
-        def run(dataset, mode, model=None):
-            key = f"{mode}_{model or 'GPTST'}"
-            path = os.path.join(tmp, f"{key}.json")
-            argv = ["-dataset", dataset, "-mode", mode, *data[dataset],
-                    "-batch_size", str(GPTST_CLI_BATCH), "-epochs", "2",
-                    "-change_epoch", "1", "-lr_decay", "False",
-                    "-log_dir", os.path.join(tmp, "save"),
-                    "-log_step", "1000", "-metrics_out", path]
-            secs[key] = run_main(argv + (["-model", model] if model else []))
-            with open(path) as f:
-                out[key] = json.load(f)
-
-        reset_launch_counts()
-        run("PEMS08", "ori", "MTGNN")
-        run("NYC_BIKE", "ori", "CCRNN")
-        for dataset, models in (("PEMS08", ("GWN", "MTGNN")),
-                                ("NYC_BIKE", ("CCRNN",))):
-            run(dataset, "pretrain")
-            for model in models:
-                run(dataset, "eval", model)
-                run(dataset, "test", model)
-    rel = {m: same_report(out[f"test_{m}"], out[f"eval_{m}"], rtol=1e-5)
-           for m in ("GWN", "MTGNN", "CCRNN")}
-    trained = [k for k in out if not k.startswith("test")]
-    for k in trained:
-        assert np.isfinite(out[k]["history"]).all(), k
+        runs = cli_cycles(tmp, evaluated[1:], evaluated)
     assert not any(LAUNCHES.values()), LAUNCHES
-    emit("predictors_cli", nodes={"PEMS08": GPTST_CLI_NODES,
-                                  "NYC_BIKE": 250},
-         batch=GPTST_CLI_BATCH, epochs=2, time_steps=PRED_CLI_STEPS,
-         seconds=secs,
-         ms_per_step_by_epoch={k: [t / out[k]["steps_per_epoch"] * 1e3
-                                   for t in out[k]["epoch_seconds"]]
-                               for k in trained},
-         train_loss_by_epoch={k: out[k]["history"] for k in trained},
-         test_report_max_rel_diff=rel,
-         average={k: out[k]["average"] for k in out})
+    emit("predictors_cli", **cli_summary(runs, [m for m, _ in evaluated]))
 
 
 def reference_gwn(b: int) -> None:
@@ -2644,8 +2714,6 @@ def reference_dense_predictors(b: int) -> None:
     their init: its top-k is a threshold, and where tanh saturates an
     entry that rounds to 1.0 on one side and 1 - 2^-24 on the other
     falls on the other side of a tie (as in the CPU tests)."""
-    import copy
-
     import numpy as np
     import torch
 
@@ -2662,16 +2730,7 @@ def reference_dense_predictors(b: int) -> None:
                 net.gc.emb2.mul_(0.1)
         x = torch.from_numpy(np.random.default_rng(10).standard_normal(
             (b, 12, n, cfg.input_base_dim), np.float32))
-        out = {}
-        for key, dev, dt in (("cpu", "cpu", torch.float32),
-                             ("cuda", "cuda", torch.float32),
-                             ("f64", "cpu", torch.float64)):
-            m = copy.deepcopy(net).to(dev, dt)
-            pred = m(x.to(dev, dt))
-            pred.square().mean().backward()
-            out[key] = {"pred": pred.detach().cpu(), **{
-                k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
-                for k, p in m.named_parameters()}}
+        out = device_grads(net, (), x)
         errs = assert_grads_close(out["cuda"], out["cpu"], model, out["f64"])
         emit("reference", model=model, nodes=n, batch=b,
              pred_max_abs_err=errs.pop("pred"),
@@ -2707,17 +2766,14 @@ def count_native_dtw():
 
 
 def phase_graph_predictors_cli(rec: dict) -> None:
-    """The slice's five predictors through `run.main` at published
-    widths, batch 64, 2 epochs, f32 with TF32 off: STMGCN on NYC_BIKE
-    (250 nodes), the other four on PEMS08 (170 nodes, from a PEMS08.npz
-    the phase writes). `-mode ori` of each, then one `-mode pretrain`
-    per dataset and `-mode eval` and `-mode test` of each from it; each
-    test report equal to its eval run's (rtol 1e-5: dense products
-    only). The run works in a fresh directory, so STFGNN's and STGODE's
-    DTW graphs are built there, by the port's native library (the DTW
-    graphs read the dataset's default series, as the JAX package's
-    builders do). Losses finite; no kernel of `csrc/` launches."""
-    import numpy as np
+    """The five predictors of the ninth slice through `run.main` at
+    published widths, f32 with TF32 off (`cli_cycles`): STMGCN on
+    NYC_BIKE (250 nodes), the other four on PEMS08 (170 nodes); each
+    test report equal to its eval run's. The run works in a fresh
+    directory, so STFGNN's and STGODE's DTW graphs are built there, by
+    the port's native library (the DTW graphs read the dataset's
+    default series, as the JAX package's builders do). Losses finite;
+    no kernel of `csrc/` launches."""
     import torch
 
     from gptst_tpu_torch import native
@@ -2726,7 +2782,6 @@ def phase_graph_predictors_cli(rec: dict) -> None:
     assert native.load("dtw") is not None, "g++ could not build libdtw.so"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-    out, secs, peak, held = {}, {}, {}, {}
     cwd = os.getcwd()
     dtw_calls, undo = count_native_dtw()
     try:
@@ -2736,36 +2791,8 @@ def phase_graph_predictors_cli(rec: dict) -> None:
             work = os.path.join(tmp, "run", "work")
             os.makedirs(work)
             os.chdir(work)
-            data = {"PEMS08": ["-data_root", write_pems08(
-                tmp, GPTST_CLI_NODES, PRED_CLI_STEPS)],
-                "NYC_BIKE": ["-num_steps", str(PRED_CLI_STEPS)]}
-
-            def run(dataset, mode, model=None):
-                key = f"{mode}_{model or dataset}"
-                path = os.path.join(tmp, f"{key}.json")
-                argv = ["-dataset", dataset, "-mode", mode, *data[dataset],
-                        "-batch_size", str(GPTST_CLI_BATCH), "-epochs", "2",
-                        "-change_epoch", "1", "-lr_decay", "False",
-                        "-log_dir", os.path.join(
-                            tmp, "save_ori" if mode == "ori" else "save"),
-                        "-log_step", "1000", "-metrics_out", path]
-                torch.cuda.reset_peak_memory_stats()
-                held[key] = torch.cuda.memory_allocated()
-                secs[key] = run_main(
-                    argv + (["-model", model] if model else []))
-                peak[key] = torch.cuda.max_memory_allocated()
-                with open(path) as f:
-                    out[key] = json.load(f)
-
             reset_launch_counts()
-            for model, dataset in GRAPH_MODELS:
-                run(dataset, "ori", model)
-            for dataset in ("NYC_BIKE", "PEMS08"):
-                run(dataset, "pretrain")
-                for model, ds in GRAPH_MODELS:
-                    if ds == dataset:
-                        run(dataset, "eval", model)
-                        run(dataset, "test", model)
+            runs = cli_cycles(tmp, GRAPH_MODELS, GRAPH_MODELS)
             cached = sorted(os.listdir(os.path.join(work, ".gptst_cache")))
     finally:
         os.chdir(cwd)
@@ -2773,25 +2800,10 @@ def phase_graph_predictors_cli(rec: dict) -> None:
     # STFGNN's and STGODE's graphs, each built once and then read back
     assert len(dtw_calls) == 2 and len(cached) == 2, (dtw_calls, cached)
     assert all(c.startswith("torch_") for c in cached), cached
-    models = [m for m, _ in GRAPH_MODELS]
-    rel = {m: same_report(out[f"test_{m}"], out[f"eval_{m}"], rtol=1e-5)
-           for m in models}
-    trained = [k for k in out if not k.startswith("test")]
-    for k in trained:
-        assert np.isfinite(out[k]["history"]).all(), k
     assert not any(LAUNCHES.values()), LAUNCHES
-    emit("graph_predictors_cli",
-         nodes={"PEMS08": GPTST_CLI_NODES, "NYC_BIKE": 250},
-         batch=GPTST_CLI_BATCH, epochs=2, time_steps=PRED_CLI_STEPS,
-         native_dtw_pairs=dtw_calls, dtw_cache=cached, seconds=secs,
-         ms_per_step_by_epoch={k: [t / out[k]["steps_per_epoch"] * 1e3
-                                   for t in out[k]["epoch_seconds"]]
-                               for k in trained},
-         max_memory_allocated=peak,
-         peak_over_held={k: peak[k] - held[k] for k in peak},
-         train_loss_by_epoch={k: out[k]["history"] for k in trained},
-         test_report_max_rel_diff=rel,
-         average={k: out[k]["average"] for k in out})
+    emit("graph_predictors_cli", native_dtw_pairs=dtw_calls,
+         dtw_cache=cached,
+         **cli_summary(runs, [m for m, _ in GRAPH_MODELS]))
 
 
 def graph_predictor(model: str, dataset: str, n: int, device, seed: int = 0):
@@ -2813,19 +2825,20 @@ def graph_predictor(model: str, dataset: str, n: int, device, seed: int = 0):
                            device=device, seed=seed, series_graph=series)
 
 
-def phase_graph_predictors_model(rec: dict) -> None:
-    """Library train steps (1 warm, 3 timed) of the five at 2,048 nodes,
-    batch 16, published widths, each config's loss: STSGCN's and
-    STFGNN's synchronous graphs are 6,144 and 8,192 rows, dense. ms per
-    step, samples/s and peak device memory (also over what was allocated
-    before the model was built); no kernel of `csrc/`."""
+def library_steps(phase: str, models, batch: dict,
+                  n: int = GRAPH_MODEL_NODES) -> None:
+    """Library train steps (1 warm, 3 timed) of each (model, dataset) of
+    `models` at `n` nodes (`graph_predictor`), batch `batch[model]`,
+    published widths, each config's loss: ms per step, samples/s and
+    peak device memory (also over what was allocated before the model
+    was built); no kernel of `csrc/`."""
     import torch
 
     from gptst_tpu_torch.config.config import default_config
     from gptst_tpu_torch.models.build import predictor_forward
 
-    n, b = GRAPH_MODEL_NODES, GRAPH_MODEL_BATCH
-    for model, dataset in GRAPH_MODELS:
+    for model, dataset in models:
+        b = batch[model]
         cfg = default_config(dataset, mode="ori", model=model, num_nodes=n)
         # the peak over what earlier phases still hold is the model's
         # footprint: weights, graphs, optimizer state and activations
@@ -2839,8 +2852,8 @@ def phase_graph_predictors_model(rec: dict) -> None:
             dataset=dataset, loss_func=cfg.loss_func)
         assert not any(launches.values()), launches
         peak = torch.cuda.max_memory_allocated()
-        emit("graph_predictors_model", model=model, dataset=dataset,
-             graph="random_sensor_graph(2048, 6, seed 0; series graph "
+        emit(phase, model=model, dataset=dataset,
+             graph=f"random_sensor_graph({n}, 6, seed 0; series graph "
                    "seed 1)", nodes=n, batch=b, steps=4,
              loss_func=cfg.loss_func, build_s=build_s, ms_per_step=ms,
              samples_per_s=b / ms * 1e3, losses=losses,
@@ -2849,6 +2862,45 @@ def phase_graph_predictors_model(rec: dict) -> None:
              parameters=sum(p.numel() for p in pred.parameters()))
         del pred
         torch.cuda.empty_cache()
+
+
+def phase_graph_predictors_model(rec: dict) -> None:
+    """Library steps of the five at 2,048 nodes, batch 16
+    (`library_steps`): STSGCN's and STFGNN's synchronous graphs are
+    6,144 and 8,192 rows, dense."""
+    library_steps("graph_predictors_model", GRAPH_MODELS,
+                  dict.fromkeys((m for m, _ in GRAPH_MODELS),
+                                GRAPH_MODEL_BATCH))
+
+
+def grads_on(base, graph: tuple, x, dev: str, dtype, **lists) -> dict:
+    """The prediction and every parameter gradient of mean(pred^2) of a
+    copy of `base` on `dev` in `dtype`, run on `x`, the `graph` tensors
+    and the tensor lists of `lists` (keyword arguments of the forward),
+    all moved there. A parameter that reaches no output has a zero
+    gradient."""
+    import copy
+
+    import torch
+
+    net = copy.deepcopy(base).to(dev, dtype)
+    pred = net(x.to(dev, dtype), *(g.to(dev, dtype) for g in graph), **{
+        k: [t.to(dev, dtype) for t in v] for k, v in lists.items()})
+    pred.square().mean().backward()
+    return {"pred": pred.detach().cpu(), **{
+        k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+        for k, p in net.named_parameters()}}
+
+
+def device_grads(base, graph: tuple, x, **lists) -> dict:
+    """`grads_on` on the CPU (f32), on the card (f32) and on the CPU in
+    float64, keyed "cpu", "cuda" and "f64"."""
+    import torch
+
+    return {key: grads_on(base, graph, x, dev, dt, **lists)
+            for key, dev, dt in (("cpu", "cpu", torch.float32),
+                                 ("cuda", "cuda", torch.float32),
+                                 ("f64", "cpu", torch.float64))}
 
 
 def reference_graph_predictors(b: int) -> None:
@@ -2861,8 +2913,6 @@ def reference_graph_predictors(b: int) -> None:
     discarded TCN convs) has a zero gradient on every side. TF32 is off
     (`set_precision`): with it on, the card's products would be ~1e-3
     from the CPU's."""
-    import copy
-
     import numpy as np
     import torch
 
@@ -2874,17 +2924,7 @@ def reference_graph_predictors(b: int) -> None:
         din = default_config(dataset).input_base_dim
         x = torch.from_numpy(np.random.default_rng(11).standard_normal(
             (b, 12, n, din), np.float32))
-        out = {}
-        for key, dev, dt in (("cpu", "cpu", torch.float32),
-                             ("cuda", "cuda", torch.float32),
-                             ("f64", "cpu", torch.float64)):
-            net = copy.deepcopy(base.net).to(dev, dt)
-            graph = tuple(g.to(dev, dt) for g in base.graph)
-            pred = net(x.to(dev, dt), *graph)
-            pred.square().mean().backward()
-            out[key] = {"pred": pred.detach().cpu(), **{
-                k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
-                for k, p in net.named_parameters()}}
+        out = device_grads(base.net, base.graph, x)
         errs = assert_grads_close(out["cuda"], out["cpu"], model, out["f64"])
         emit("reference", model=model, nodes=n, batch=b,
              pred_max_abs_err=errs.pop("pred"),
@@ -2893,6 +2933,132 @@ def reference_graph_predictors(b: int) -> None:
                          "cudnn": torch.backends.cudnn.allow_tf32},
              tol={"rtol": 1e-4, "atol": "1e-5 * max|want| + 2 * max|want "
                   "- want_float64|"})
+
+
+# --- ST_WA and DMVSTNET, the last two predictors ---------------------------
+
+LAST_MODELS = (("ST_WA", "PEMS08"), ("DMVSTNET", "NYC_BIKE"))
+# ST_WA's 16 windows each keep a (B, 8 heads, 2 proxies, N, N) softmax
+# for the backward: 2.15 GB a window at 2,048 nodes and batch 8, ~34 GB
+# a step (~69 GB at batch 16)
+LAST_MODEL_BATCH = {"ST_WA": 8, "DMVSTNET": GRAPH_MODEL_BATCH}
+
+
+def phase_last_predictors_cli(rec: dict) -> None:
+    """ST_WA on PEMS08 (170 nodes) and DMVSTNET on NYC_BIKE (250, its
+    home dataset, dim_out 2) through `run.main` at published widths, f32
+    with TF32 off (`cli_cycles`): `-mode ori`, then one pretrain -> eval
+    -> test per dataset; each test report (ST_WA's latents drawn from
+    the trainer's test generator) equal to its eval run's. No kernel of
+    `csrc/` launches."""
+    import torch
+
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = cli_cycles(tmp, LAST_MODELS, LAST_MODELS)
+    assert not any(LAUNCHES.values()), LAUNCHES
+    emit("last_predictors_cli",
+         **cli_summary(runs, [m for m, _ in LAST_MODELS]))
+
+
+def phase_last_predictors_model(rec: dict) -> None:
+    """Library steps of ST_WA (batch 8) and DMVSTNET (batch 16) at 2,048
+    nodes (`library_steps`)."""
+    library_steps("last_predictors_model", LAST_MODELS, LAST_MODEL_BATCH)
+
+
+def relu_net_reference(model: str, base, graph: tuple, x, **lists) -> dict:
+    """Card against CPU for a network whose gradients pass many ReLUs
+    (ST_WA, DMVSTNET), from the same weights and inputs: the prediction
+    and every gradient of mean(pred^2) (`grads_on`).
+
+    In float64: rtol 1e-9 and an atol of 1e-9 of each tensor's largest
+    entry. In f32 (TF32 off): the other predictors' tolerance, rtol 1e-4
+    and an atol of 1e-5 of each tensor's largest entry plus twice the
+    CPU's distance from its float64 run (`assert_grads_close`), plus
+    twice the CPU's largest move over 4 f32 runs on x moved by one ulp:
+    rounding decides
+    on which side of a ReLU's kink a pre-activation near 0 falls, and a
+    gradient jumps there (on the CPU a one-ulp move of x moved ST_WA's
+    `mu_est.0.weight` gradient by 2e-4 of its largest entry in half the
+    runs). Both added terms are the CPU's alone. In either precision a
+    tensor whose largest entry is at most that rtol times the model's
+    largest gradient (ST_WA's key biases: a softmax is blind to a shift
+    of its logits, so their gradient is 0 in exact arithmetic) is held
+    at that rtol times the latter. Returns the fields of the line."""
+    import torch
+
+    def vanishing(want: dict, rel: float) -> dict:
+        scale = max(float(w.abs().max()) for k, w in want.items()
+                    if k != "pred")
+        return {k: rel * scale if float(w.abs().max()) <= rel * scale
+                else 0.0 for k, w in want.items()}
+
+    cpu64 = grads_on(base, graph, x, "cpu", torch.float64, **lists)
+    card64 = grads_on(base, graph, x, "cuda", torch.float64, **lists)
+    floor64 = vanishing(cpu64, 1e-9)
+    errs64 = {}
+    for k, w in cpu64.items():
+        errs64[k] = float((card64[k] - w).abs().max())
+        torch.testing.assert_close(
+            card64[k], w, rtol=1e-9,
+            atol=1e-9 * float(w.abs().max()) + floor64[k],
+            msg=lambda m: f"{model} float64 {k}: {m}")
+    cpu = grads_on(base, graph, x, "cpu", torch.float32, **lists)
+    card = grads_on(base, graph, x, "cuda", torch.float32, **lists)
+    ulp = torch.Generator().manual_seed(14)
+    spread = dict.fromkeys(cpu, 0.0)
+    for _ in range(4):
+        moved = x * (1 + 2.0 ** -23 * torch.randn(
+            x.shape, generator=ulp).sign())
+        for k, v in grads_on(base, graph, moved, "cpu", torch.float32,
+                             **lists).items():
+            spread[k] = max(spread[k], float((v - cpu[k]).abs().max()))
+    floor = vanishing(cpu, 1e-5)
+    errs = assert_grads_close(card, cpu, model, cpu64, extra={
+        k: 2 * spread[k] + floor[k] for k in cpu})
+    return dict(pred_max_abs_err=errs.pop("pred"),
+                grad_max_abs_err=max(errs.values()), parameters=len(errs),
+                float64_max_abs_err=max(errs64.values()),
+                ulp_spread_max=max(spread.values()),
+                widened_by_spread=sorted(
+                    k for k in cpu if 2 * spread[k] > 1e-5 * float(
+                        cpu[k].abs().max())),
+                tol={"float64": {"rtol": 1e-9, "atol": "1e-9 * max|want|"},
+                     "f32": {"rtol": 1e-4, "atol": "1e-5 * max|want| + 2 * "
+                             "max|want - want_float64| + 2 * one-ulp "
+                             "spread of x on the CPU"},
+                     "vanishing": "max|want| <= rtol * model's largest "
+                                  "gradient: + rtol * that"})
+
+
+def reference_last_predictors(b: int) -> None:
+    """ST_WA in both branches (PEMS08's widths; the dynamic one with its
+    four draws made once on the CPU and passed to every run) and
+    DMVSTNET (NYC_BIKE's widths, `graph_predictor`'s raw adjacency) at
+    64 nodes, card against CPU (`relu_net_reference`)."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.models.predictors.stwa import STWA, STWAConfig
+
+    n = 64
+    rng = np.random.default_rng(12)
+    for dynamic in (True, False):
+        net = STWA(STWAConfig(num_nodes=n, dynamic=dynamic), 1, 1, 12, 12,
+                   generator=torch.Generator().manual_seed(0))
+        x = torch.from_numpy(rng.standard_normal((b, 12, n, 1), np.float32))
+        lists = ({"draws": net.draw(x, torch.Generator().manual_seed(13))}
+                 if dynamic else {})
+        emit("reference", model="ST_WA", dynamic=dynamic, nodes=n, batch=b,
+             **relu_net_reference("ST_WA", net, (), x, **lists))
+    base = graph_predictor("DMVSTNET", "NYC_BIKE", n, "cpu")
+    x = torch.from_numpy(rng.standard_normal((b, 12, n, 2), np.float32))
+    emit("reference", model="DMVSTNET", nodes=n, batch=b,
+         **relu_net_reference("DMVSTNET", base.net, base.graph, x))
 
 
 def main() -> int:

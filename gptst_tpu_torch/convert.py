@@ -1,7 +1,7 @@
 """Carry weights between the JAX package's flax trees and the port's
 `state_dict`s, for TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN, STMGCN,
-ASTGCN, STSGCN, STFGNN, STGODE and the eval-mode (enhanced) model (told
-apart by the tree's keys).
+ASTGCN, STSGCN, STFGNN, STGODE, ST_WA, DMVSTNET and the eval-mode
+(enhanced) model (told apart by the tree's keys).
 
 TGCN's flax tree (numpy arrays):
   {'params': {'ScanGraphGRUCell_0': {'weights_0': (D+U, 2U), 'bias_0',
@@ -40,20 +40,22 @@ The eval-mode (enhanced) tree `{"head": {"params": {"Dense_0",
 predictor's tree>}` maps to `EnhancedModel`'s keys: `head.proj`,
 `head.fusion.dense.{0,1,2}` and `predictor.net.<the predictor's keys>`.
 
-GWN's, MTGNN's, CCRNN's, STMGCN's, ASTGCN's, STSGCN's, STFGNN's and
-STGODE's trees are renamed by the path rules of `_RULES` (the modules'
-docstrings list their keys): flax scopes such as
+GWN's, MTGNN's, CCRNN's, STMGCN's, ASTGCN's, STSGCN's, STFGNN's,
+STGODE's, ST_WA's and DMVSTNET's trees are renamed by the path rules of
+`_RULES` (the modules' docstrings list their keys): flax scopes such as
 `DilatedCausal_j/Conv_0` <-> `dilated.j`, `Dense_k` <-> `dense.k`,
-`Scan_EncoderStep_0` <-> `encoder`. A Dense `kernel` (in, out) becomes
+`Scan_EncoderStep_0` <-> `encoder`, ST_WA's `layer{l}/tpg{i}/wgen_{k}`
+<-> `layers.{l}.tpg.{i}.wgen.{k}`. A Dense `kernel` (in, out) becomes
 an `nn.Linear` `weight` (out, in); a Conv `kernel` (kt, 1, in, out) a
 `TimeConv` `weight` (out, in, kt, 1); raw parameters (`gconv_w_*`,
 `mixprop*`, `nodevec*`, `w1`, ...) and norm parameters keep their names
 and layouts. STMGCN's `OptimizedLSTMCell_{l}` (`ii`..`io` kernels
 (D, h), `hi`..`ho` kernels (h, h) and biases) becomes one `LSTMCell`
 (`weight_ih` (4h, D), `weight_hh` (4h, h), `bias_hh` (4h,), gates i,
-f, g, o), and back. ASTGCN's `LayerNorm_0` `scale` is the port's norm
-`weight`. STGODE's TCN convs that the forward discards are carried both
-ways like the others.
+f, g, o), and back; so does DMVSTNET's `OptimizedLSTMCell_0`
+(`lstm`). ASTGCN's `LayerNorm_0` `scale` is the port's norm `weight`.
+STGODE's TCN convs that the forward discards are carried both ways like
+the others.
 
 Recurrent weights keep flax's (in, out) layout (the cells compute
 `x @ W`); Dense kernels are transposed into `nn.Linear.weight`. Keys of
@@ -225,10 +227,10 @@ def _head_to_state_dict(p: dict) -> dict:
     return sd
 
 
-# (flax leaf path, port key) templates of GWN, MTGNN and CCRNN, tried in
-# order. `{leaf}` is a Dense or Conv leaf (`kernel` <-> `weight`, with
-# the layout change), `{p}` a leaf kept as it is; `{i}`, `{j}` are
-# indices and `{a}`, `{b}` names.
+# (flax leaf path, port key) templates of each model, tried in order.
+# `{leaf}` is a Dense or Conv leaf (`kernel` <-> `weight`, with the
+# layout change), `{p}` a leaf kept as it is; `{i}`, `{j}`, `{k}` are
+# indices, `{a}`, `{b}` names and `{g}` a name of letters alone.
 _RULES = {
     "GWN": (("DilatedCausal_{i}/Conv_0/{leaf}", "dilated.{i}.{leaf}"),
             ("Dense_{i}/{leaf}", "dense.{i}.{leaf}"),
@@ -279,9 +281,26 @@ _RULES = {
                ("{a}/ODEG_0/{p}", "blocks.{a}.odeg.{p}"),
                ("{a}/NodeBatchNorm_0/{p}", "blocks.{a}.norm.{p}"),
                ("Dense_{i}/{leaf}", "dense.{i}.{leaf}")),
+    "ST_WA": (("layer{i}/{g}{j}/wgen_{k}/{leaf}",
+               "layers.{i}.{g}.{j}.wgen.{k}.{leaf}"),
+              ("layer{i}/{g}{j}/bgen_{k}/{leaf}",
+               "layers.{i}.{g}.{j}.bgen.{k}.{leaf}"),
+              ("layer{i}/aggregator_{j}/{leaf}",
+               "layers.{i}.aggregator.{j}.{leaf}"),
+              ("layer{i}/{g}{j}/{p}", "layers.{i}.{g}.{j}.{p}"),
+              ("layer{i}/{a}/{b}/{leaf}", "layers.{i}.{a}.{b}.{leaf}"),
+              ("layer{i}/{p}", "layers.{i}.{p}"),
+              ("{a}_est_{i}/{leaf}", "{a}_est.{i}.{leaf}"),
+              ("skip{i}/{leaf}", "skip.{i}.{leaf}"),
+              ("{a}/{leaf}", "{a}.{leaf}")),
+    "DMVSTNET": (("OptimizedLSTMCell_0/{p}", "lstm.{p}"),
+                 ("{a}/{leaf}", "{a}.{leaf}"),
+                 ("{p}", "{p}")),
 }
-# a key of each model's tree, flax side and port side
-_RULE_KEYS = {"GWN": ("DilatedCausal_0", "dilated.0.weight"),
+# a key of each model's tree, flax side and port side, tried in order
+# (ST_WA's flax tree also holds MTGNN's `skip0`)
+_RULE_KEYS = {"ST_WA": ("start_fc", "start_fc.weight"),
+              "GWN": ("DilatedCausal_0", "dilated.0.weight"),
               "MTGNN": ("skip0", "skip0.weight"),
               "CCRNN": ("Scan_EncoderStep_0",
                         "encoder.cell0.ru.attlinear.weight"),
@@ -289,7 +308,10 @@ _RULE_KEYS = {"GWN": ("DilatedCausal_0", "dilated.0.weight"),
               "ASTGCN": ("ASTGCNBlock_0", "block.0.Theta"),
               "STSGCN": ("SyncLayer_0", "sync_layers.0.w0"),
               "STFGNN": ("FusionLayer_0", "fusion_layers.0.w0"),
-              "STGODE": ("sp_0_0", "blocks.sp_0_0.odeg.w")}
+              "STGODE": ("sp_0_0", "blocks.sp_0_0.odeg.w"),
+              "DMVSTNET": ("lin_in_spa", "lin_in_spa.weight")}
+# the models whose flax LSTM cells map through `_lstm_to_port`
+_LSTM_MODELS = ("STMGCN", "DMVSTNET")
 _GATES = ("i", "f", "g", "o")
 
 
@@ -323,7 +345,8 @@ def _map_lstm_cells(p: dict, fn) -> dict:
 
 
 def _template_re(tpl: str, sep: str) -> re.Pattern:
-    groups = {"i": r"\d+", "j": r"\d+", "a": r"[A-Za-z0-9_]+",
+    groups = {"i": r"\d+", "j": r"\d+", "k": r"\d+", "g": r"[A-Za-z]+",
+              "a": r"[A-Za-z0-9_]+",
               "b": r"[A-Za-z0-9_]+", "p": r"[A-Za-z0-9_]+",
               "leaf": r"[A-Za-z0-9_]+"}
     pat = re.escape(tpl.replace("/", sep))
@@ -395,7 +418,7 @@ def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
                                      prefix + "predictor.net.")}
     p = params.get("params", params)
     model = next((m for m, (k, _) in _RULE_KEYS.items() if k in p), None)
-    if model == "STMGCN":
+    if model in _LSTM_MODELS:
         p = _map_lstm_cells(p, _lstm_to_port)
     if model is not None:
         sd = _rules_to_state_dict(p, model)
@@ -416,8 +439,9 @@ def flax_to_state_dict(params: dict, prefix: str = "") -> dict:
 def state_dict_to_flax(sd: dict, prefix: str = "",
                        chunked: bool = False) -> dict:
     """The flax tree of a TGCN, MSDR, STGCN, GPT-ST, GWN, MTGNN, CCRNN,
-    STMGCN, ASTGCN, STSGCN, STFGNN, STGODE or `EnhancedModel` state
-    dict; `chunked` nests MSDR's cells as the chunked-remat layout does."""
+    STMGCN, ASTGCN, STSGCN, STFGNN, STGODE, ST_WA, DMVSTNET or
+    `EnhancedModel` state dict; `chunked` nests MSDR's cells as the
+    chunked-remat layout does."""
     if f"{prefix}head.proj.weight" in sd:
         return {"head": state_dict_to_flax(sd, prefix + "head."),
                 "predictor": state_dict_to_flax(
@@ -427,7 +451,7 @@ def state_dict_to_flax(sd: dict, prefix: str = "",
     for model, (_, key) in _RULE_KEYS.items():
         if key in sd:
             tree = _rules_to_flax(sd, model)
-            if model == "STMGCN":
+            if model in _LSTM_MODELS:
                 tree = {"params": _map_lstm_cells(tree["params"],
                                                   _lstm_to_flax)}
             return tree

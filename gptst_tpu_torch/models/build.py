@@ -9,9 +9,9 @@ with `seed` and then moved to `device`.
 
 Ported: the four modes (`pretrain`: GPT-ST; `eval`: the frozen GPT-ST
 encoder, the Fusion head and a predictor; `ori` and `test`: the bare
-predictor) with STGCN, TGCN, MSDR, GWN, MTGNN, CCRNN, STMGCN, ASTGCN,
-STSGCN, STFGNN and STGODE. ST_WA and DMVSTNET raise
-`NotImplementedError` naming the slice they wait for.
+predictor) with all 13 predictors of the JAX package: STGCN, TGCN,
+MSDR, GWN, MTGNN, CCRNN, STMGCN, ASTGCN, STSGCN, STFGNN, STGODE, ST_WA
+and DMVSTNET.
 """
 
 from __future__ import annotations
@@ -54,18 +54,9 @@ _PREDICTOR_CONFIGS = {"STGCN": ("stgcn", "STGCNConfig"),
                       "ASTGCN": ("astgcn", "ASTGCNConfig"),
                       "STSGCN": ("stsgcn", "STSGCNConfig"),
                       "STFGNN": ("stfgnn", "STFGNNConfig"),
-                      "STGODE": ("stgode", "STGODEConfig")}
-
-# predictors of the JAX package not ported yet, and the slice each one
-# waits for
-_LATER = {m: "the slice of the remaining predictors"
-          for m in ("ST_WA", "DMVSTNET")}
-
-
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to gptst_tpu_torch yet; it comes with "
-        f"{slice_name}")
+                      "STGODE": ("stgode", "STGODEConfig"),
+                      "ST_WA": ("stwa", "STWAConfig"),
+                      "DMVSTNET": ("dmvstnet", "DMVSTNetConfig")}
 
 
 def predictor_config_class(model: str):
@@ -130,8 +121,6 @@ def build_predictor(cfg: FrameworkConfig, dim_in: int | None = None,
     only, is the (N, N) graph to use in place of the one their builders
     derive from the dataset (the Pearson or DTW graph of its series);
     no prefab or series is read then."""
-    if cfg.model in _LATER:
-        raise _not_ported(f"predictor {cfg.model!r}", _LATER[cfg.model])
     if cfg.model not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.model!r}; available: {available_models()}")
@@ -260,8 +249,9 @@ class GraphPredictor(nn.Module):
     support, STGCN's and ASTGCN's Chebyshev stacks, MSDR's static
     supports and learned-adjacency pattern, GWN's supports, MTGNN's
     predefined adjacency, STMGCN's support stacks, STSGCN's and STFGNN's
-    synchronous graphs or STGODE's two graphs). With `takes_generator`
-    the trainer's generator reaches the network (dropout); with
+    synchronous graphs, STGODE's two graphs or DMVSTNET's adjacency).
+    With `takes_generator` the trainer's generator reaches the network
+    (dropout, ST_WA's latent draws); with
     `takes_targets` the labels, the step count and the generator do
     (CCRNN's scheduled sampling)."""
 
@@ -632,3 +622,33 @@ def _build_stgode(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
                  horizon=cfg.horizon, lag=cfg.lag,
                  generator=generator).to(device)
     return GraphPredictor(net, adj_sp, adj_se)
+
+
+# --- the last two predictors ------------------------------------------------
+
+
+@register_model("ST_WA")
+def _build_stwa(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.models.predictors.stwa import STWA, STWAConfig
+
+    pcfg = make_predictor_config(STWAConfig, cfg, num_nodes=cfg.num_nodes)
+    net = STWA(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+               horizon=cfg.horizon, lag=cfg.lag,
+               generator=generator).to(device)
+    return GraphPredictor(net, takes_generator=True)
+
+
+@register_model("DMVSTNET")
+def _build_dmvstnet(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
+                    device: torch.device, generator: torch.Generator):
+    from gptst_tpu_torch.models.predictors.dmvstnet import (
+        DMVSTNet, DMVSTNetConfig,
+    )
+
+    pcfg = make_predictor_config(DMVSTNetConfig, cfg,
+                                 num_nodes=cfg.num_nodes)
+    net = DMVSTNet(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
+                   generator=generator).to(device)
+    # the raw adjacency, not row-normalized, as the JAX builder passes it
+    return GraphPredictor(net, _dense_graph(adj, device))

@@ -88,7 +88,9 @@ class GWN(nn.Module):
     passed to `forward`. `nodevec_init`: optional (E1, E2) numpy arrays
     for the adaptive adjacency's embeddings (the SVD-seeded
     `randomadj=False` branch); else N(0, 1) from `generator`. Dropout
-    runs in training mode when `forward` gets a generator."""
+    runs whenever `forward` gets a generator (the trainer's, in training
+    and at test), in either module mode, as the JAX builder's dropout
+    runs whenever it gets a key."""
 
     def __init__(self, cfg: GWNConfig, dim_in: int, dim_out: int,
                  horizon: int, num_supports: int = 0,
@@ -142,7 +144,6 @@ class GWN(nn.Module):
         sup = [s.T for s in supports]
         if self.adaptive:
             sup.append(adaptive_adj(self.nodevec1, self.nodevec2).T)
-        rate = c.dropout if self.training else 0.0
         x = linear(self.start_conv, x)
         skip = None
         i = 0
@@ -159,7 +160,7 @@ class GWN(nn.Module):
                     x = diffusion_conv(
                         x, sup, getattr(self, f"gconv_w_{b}_{layer}"),
                         getattr(self, f"gconv_b_{b}_{layer}"), order=2)
-                    x = dropout(x, rate, generator)
+                    x = dropout(x, c.dropout, generator)
                 else:
                     x = linear(self.dense[d + 1], x)
                 x = x + residual[:, -x.shape[1]:]

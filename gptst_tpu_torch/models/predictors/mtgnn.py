@@ -113,7 +113,9 @@ class GraphConstructor(nn.Module):
 class MTGNN(nn.Module):
     """x: (B, T, N, dim_in) -> (B, horizon, N, dim_out); `forward` takes
     the predefined adjacency used when `build_adj` is off. Dropout runs
-    in training mode when `forward` gets a generator."""
+    whenever `forward` gets a generator (the trainer's, in training and
+    at test), as the JAX builder's dropout runs whenever it gets a
+    key."""
 
     def __init__(self, cfg: MTGNNConfig, dim_in: int, dim_out: int,
                  horizon: int, lag: int,
@@ -166,10 +168,9 @@ class MTGNN(nn.Module):
         adp = None
         if c.gcn_true:
             adp = self.gc() if c.build_adj else predefined_adj
-        rate = c.dropout if self.training else 0.0
 
         def drop(h):
-            return dropout(h, rate, generator)
+            return dropout(h, c.dropout, generator)
 
         h = linear(self.start_conv, x)
         # skip0: a conv over the whole (padded) time axis -> time 1

@@ -105,7 +105,7 @@ class STConvBlock(nn.Module):
     def forward(self, x, cheb, generator: torch.Generator | None = None):
         x = self.tconv1(self.sconv(self.tconv0(x), cheb))
         x = self.norm(x)
-        if self.drop_prob > 0 and self.training and generator is not None:
+        if self.drop_prob > 0 and generator is not None:
             keep = torch.rand(x.shape, generator=generator, device=x.device)
             x = torch.where(keep >= self.drop_prob,
                             x / (1.0 - self.drop_prob), 0.0)
@@ -131,8 +131,9 @@ class OutputLayer(nn.Module):
 
 class STGCN(nn.Module):
     """x: (B, T, N, dim_in) -> (B, T, N, dim_out), with the (K, N, N)
-    Chebyshev stack passed in. Dropout (`drop_prob` > 0) runs in
-    training mode when a `generator` is given (the trainer's)."""
+    Chebyshev stack passed in. Dropout (`drop_prob` > 0) runs whenever
+    a `generator` is given (the trainer's, in training and at test), as
+    the JAX builder's runs whenever it gets a key."""
 
     def __init__(self, cfg: STGCNConfig, dim_in: int, dim_out: int,
                  generator: torch.Generator | None = None):

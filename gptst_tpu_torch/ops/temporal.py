@@ -138,3 +138,23 @@ class DilatedInception(nn.Module):
         outs = [conv(x) for conv in self.conv]
         t_min = min(o.shape[1] for o in outs)
         return torch.cat([o[:, -t_min:] for o in outs], dim=-1)
+
+
+class GatedDilatedConv(nn.Module):
+    """WaveNet's gated dilated temporal conv (the JAX package's
+    `ops/temporal.GatedDilatedConv`, `model/GWN/GWN.py:242-265`):
+    tanh(filter(x)) * sigmoid(gate(x)), two VALID (kt, 1) convs at one
+    dilation. Parameters: `conv.0` (the filter, flax's `Conv_0`) and
+    `conv.1` (the gate, `Conv_1`). No predictor of either package uses
+    it: GWN gates its own convs."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int = 2,
+                 dilation: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv = nn.ModuleList(
+            TimeConv(c_in, c_out, kernel, dilation, generator)
+            for _ in range(2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, N, C)
+        return torch.tanh(self.conv[0](x)) * torch.sigmoid(self.conv[1](x))

@@ -9,6 +9,8 @@ Usage:
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model GWN
   python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model MTGNN
   python -m gptst_tpu_torch.run -dataset NYC_BIKE -mode ori -model CCRNN
+  python -m gptst_tpu_torch.run -dataset PEMS08 -mode ori -model ST_WA
+  python -m gptst_tpu_torch.run -dataset NYC_BIKE -mode ori -model DMVSTNET
   python -m gptst_tpu_torch.run ... -device cpu      # no card needed
 
 Single-hyphen flags override the framework config (any FrameworkConfig
@@ -27,10 +29,11 @@ Flow: config -> seed -> dataset -> model -> trainer. The predictors
 are STGCN (the default `-model`), TGCN, MSDR (above 4096 nodes MSDR's
 learned adjacency is sparse: `kernels/sddmm.adaptive_support`), GWN
 (`--aptonly False` adds its static supports), MTGNN, CCRNN, STMGCN,
-ASTGCN, STSGCN, STFGNN and STGODE (STFGNN's and STGODE's DTW graphs
-are built on the host, `graph/dtw.py`, and cached under
-`./.gptst_cache`); ST_WA and DMVSTNET raise `NotImplementedError`
-naming the slice they wait for.
+ASTGCN, STSGCN, STFGNN, STGODE (STFGNN's and STGODE's DTW graphs are
+built on the host, `graph/dtw.py`, and cached under `./.gptst_cache`),
+ST_WA and DMVSTNET. The test report hands the model a generator seeded
+with `seed + 777` in every mode, as the JAX trainer hands it a key: GWN's
+and MTGNN's dropout and ST_WA's latent draws run at test.
 Files, under `<log_dir>/<dataset>/`:
   * `-mode pretrain` (GPT-ST; `-model` is not read) writes the best
     GPT-ST parameters with `torch.save(state_dict)` to

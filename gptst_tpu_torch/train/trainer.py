@@ -22,7 +22,12 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     (the adaptive branch) from a generator seeded with `seed + 777`,
     predictions and labels multiplied by it;
   - ori and eval: each epoch's generator (seeded the same way) reaches
-    the predictor for its dropout, and CCRNN's teacher-forcing coins;
+    the predictor for its dropout, ST_WA's latent draws and CCRNN's
+    teacher-forcing coins; validation passes none; the test report
+    passes one generator seeded with `seed + 777` in every mode (the
+    JAX trainer splits a key of that seed once per batch and hands it
+    to the forward in every mode), so GWN's and MTGNN's dropout and
+    ST_WA's draws run at test, as in the JAX package;
   - the step count a predictor reads (CCRNN's scheduled sampling):
     batch by batch the count the JAX trainer's default dispatch passes
     (`jax_step_counts`), not the number of steps taken.
@@ -348,12 +353,13 @@ class Trainer:
     @torch.no_grad()
     def test(self, split: str = "test") -> dict:
         """Full-split prediction and per-horizon metrics
-        (`BasicTrainer.py:210-248`). In pretrain the label is the input
-        and both sides are multiplied by the mask of epoch
+        (`BasicTrainer.py:210-248`), the forward given a generator
+        seeded with `seed + 777` in every mode. In pretrain the label is
+        the input and both sides are multiplied by the mask of epoch
         `cfg.epochs`."""
         self.model.eval()
         od = self.cfg.output_dim
-        gen = self._generator(self.seed + 777) if self.pretrain else None
+        gen = self._generator(self.seed + 777)
         preds, trues = [], []
         for xb, yb in self.dataset.batches(split, self.cfg.batch_size):
             x = self._put(xb)
@@ -363,7 +369,8 @@ class Trainer:
                 pred = out.pred.float() * mask
                 label = (x[..., :od] * mask).cpu().numpy()
             else:
-                pred, label = self.model(x).pred.float(), yb[..., :od]
+                pred = self.model(x, generator=gen).pred.float()
+                label = yb[..., :od]
             preds.append(pred.cpu().numpy())
             trues.append(label)
         s = self.dataset.scaler_data

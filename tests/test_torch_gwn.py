@@ -27,7 +27,9 @@ carried over by `convert.py`; dropout 0 for value parity.
   * a 2-epoch `-mode eval -model GWN` trajectory against `gptst_tpu`'s
     Trainer: losses and report rtol 1e-3 (CORR atol 1e-3), and against
     the port's own float64 run rtol 1e-4 (see the test's docstring);
-  * the init laws and dropout by their moments.
+  * the init laws and dropout by their moments;
+  * `ops/temporal.GatedDilatedConv` (WaveNet's gate, which no predictor
+    uses) at dilation 1 and 2: values and every gradient rtol 1e-5.
 """
 
 import copy
@@ -46,15 +48,19 @@ from gptst_tpu.kernels import spmm as jspmm
 from gptst_tpu.models import build as jbuild
 from gptst_tpu.models.predictors import gwn as jgwn
 from gptst_tpu.ops import graph_conv as jgc
+from gptst_tpu.ops.temporal import GatedDilatedConv as JGated
 from gptst_tpu.parallel.mesh import make_mesh as jmake_mesh
 from gptst_tpu.train.trainer import Trainer as JTrainer
 from gptst_tpu_torch.config.config import default_config
-from gptst_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
+from gptst_tpu_torch.convert import (
+    _kernel_to_port, flax_to_state_dict, state_dict_to_flax,
+)
 from gptst_tpu_torch.data.pipeline import build_dataset
 from gptst_tpu_torch.models import build as tbuild
 from gptst_tpu_torch.models.predictors.gwn import GWN, GWNConfig
 from gptst_tpu_torch.ops import graph_conv as tgc
 from gptst_tpu_torch.ops.norm import BatchStatsNorm, dropout
+from gptst_tpu_torch.ops.temporal import GatedDilatedConv
 from gptst_tpu_torch.parallel.mesh import make_mesh
 from gptst_tpu_torch.train.trainer import Trainer, make_optimizer
 
@@ -373,6 +379,44 @@ def test_init_laws_by_their_moments():
         assert abs(mean) < 0.03 and abs(std - 1.0) < 0.03
     assert all(bool((m.scale == 1).all() and (m.bias == 0).all())
                for m in net.norm)
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_gated_dilated_conv_matches_jax(dilation):
+    """tanh(filter) * sigmoid(gate) of two VALID (2, 1) convs: T = 12
+    shrinks by the dilation."""
+    rng = np.random.default_rng(dilation)
+    x = rng.standard_normal((3, 12, 5, 6)).astype(np.float32)
+    g = rng.standard_normal((3, 12 - dilation, 5, 8)).astype(np.float32)
+    jm = JGated(8, kernel=2, dilation=dilation)
+    p = _noisy(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+
+    @jax.jit
+    def jvals(pp, a, gg):
+        out, vjp = jax.vjp(jm.apply, pp, a)
+        return out, *vjp(gg)
+
+    jout, jgp, jgx = jvals(p, jnp.asarray(x), jnp.asarray(g))
+    m = GatedDilatedConv(6, 8, kernel=2, dilation=dilation)
+    m.load_state_dict({
+        f"conv.{j}.{k}": torch.tensor(
+            _kernel_to_port(v) if k == "weight" else v)
+        for j in range(2) for k, v in (
+            ("weight", p["params"][f"Conv_{j}"]["kernel"]),
+            ("bias", p["params"][f"Conv_{j}"]["bias"]))})
+    xt = torch.tensor(x, requires_grad=True)
+    out = m(xt)
+    out.backward(torch.tensor(g))
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out.detach().numpy(), jout, **tol)
+    np.testing.assert_allclose(xt.grad.numpy(), jgx, **tol)
+    for j in range(2):
+        conv, want = m.conv[j], jgp["params"][f"Conv_{j}"]
+        np.testing.assert_allclose(conv.weight.grad.numpy(),
+                                   _kernel_to_port(np.asarray(
+                                       want["kernel"])), **tol)
+        np.testing.assert_allclose(conv.bias.grad.numpy(), want["bias"],
+                                   **tol)
 
 
 def test_batch_stats_norm_and_dropout():

@@ -101,7 +101,8 @@ import os, tempfile
 os.chdir(tempfile.mkdtemp())    # the DTW graphs' cache
 for name, ds in (("STMGCN", "NYC_BIKE"), ("ASTGCN", "PEMS08"),
                  ("STSGCN", "PEMS08"), ("STFGNN", "PEMS08"),
-                 ("STGODE", "PEMS08")):
+                 ("STGODE", "PEMS08"), ("ST_WA", "PEMS08"),
+                 ("DMVSTNET", "NYC_BIKE")):
     mcfg = default_config(ds, mode="ori", model=name, num_nodes=6)
     xin = torch.randn(2, 12, 6, mcfg.input_base_dim + 2)
     m = build_model(mcfg, device="cpu")

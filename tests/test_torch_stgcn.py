@@ -201,9 +201,15 @@ def test_dropout_draws_from_the_generator():
     x, cheb = torch.randn(2, 12, N, 1), torch.tensor(_cheb())
     run = [net(x, cheb, torch.Generator().manual_seed(s)) for s in (1, 1, 2)]
     assert torch.equal(run[0], run[1]) and not torch.equal(run[0], run[2])
+    # as in the JAX package, a generator and not the module's mode runs
+    # dropout (the trainer's test report passes one)
     net.eval()
     assert torch.equal(net(x, cheb, torch.Generator().manual_seed(1)),
-                       net(x, cheb))
+                       run[0])
+    plain = net(x, cheb)
+    net.train()
+    assert torch.equal(net(x, cheb), plain)
+    assert not torch.equal(plain, run[0])
 
 
 CFG = dict(mode="ori", model="STGCN", num_nodes=N, batch_size=16, epochs=2,

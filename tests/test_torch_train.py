@@ -123,13 +123,13 @@ def test_cli_runs_on_cpu_and_writes_metrics(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """Every predictor is ported; a mesh with a data axis above 1 (batch
+    parallelism) is not, and the CLI's default device needs a card."""
+    from gptst_tpu_torch.parallel.mesh import make_mesh
     from gptst_tpu_torch.run import main
 
-    base = ["-num_nodes", "12", "-num_steps", "200", "-device", "cpu",
-            "-log_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError,
-                       match="slice of the remaining predictors"):
-        main(["-mode", "ori", "-model", "ST_WA", *base])
+    with pytest.raises(NotImplementedError, match="the data-parallel slice"):
+        make_mesh(devices=["cpu"] * 4, graph_axis_size=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["-mode", "ori", "-model", "TGCN", "-num_nodes", "12",

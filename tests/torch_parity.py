@@ -1,6 +1,6 @@
-"""Helpers of the port's parity tests for STMGCN, ASTGCN, STSGCN, STFGNN
-and STGODE: noisy JAX weights, the gradient tree of a torch network in
-flax's layout, and the model check (the loss at rtol 1e-5; the
+"""Helpers of the port's parity tests for STMGCN, ASTGCN, STSGCN, STFGNN,
+STGODE, ST_WA and DMVSTNET: noisy JAX weights, the gradient tree of a
+torch network in flax's layout, and the model check (the loss at rtol 1e-5; the
 prediction and every gradient at rtol 1e-4 with an atol of 1e-5 of each
 tensor's largest entry; where the f32 sums drift, both packages also in
 float64)."""
@@ -72,12 +72,13 @@ def jax_value_and_grad(jm, params, x, graph, y, jit=True,
     return float(jl), np.asarray(jpred), grads
 
 
-def torch_value_and_grad(net, x, graph, y, dtype=torch.float32):
+def torch_value_and_grad(net, x, graph, y, dtype=torch.float32, kw=None):
     """The port's loss, prediction, gradients by leaf path and the
-    paths whose gradient is None."""
+    paths whose gradient is None; `kw` are more keyword arguments of
+    the forward."""
     net = net.to(dtype)
     pred = net(torch.tensor(x, dtype=dtype),
-               *(torch.tensor(g, dtype=dtype) for g in graph))
+               *(torch.tensor(g, dtype=dtype) for g in graph), **(kw or {}))
     loss = (pred - torch.tensor(y, dtype=dtype)).abs().mean()
     loss.backward()
     return (loss.item(), pred.detach().numpy(), *grad_tree(net))
@@ -108,7 +109,7 @@ def _assert_close(got, want, loss_rtol, rtol, rel, extra=None):
 
 
 def assert_model_matches(jm, net, params, x, graph, y, jit=True,
-                         against64=False):
+                         against64=False, torch_kw=None):
     """`net` with `params` carried over by `convert.py` against the JAX
     module `jm` in f32: the loss rtol 1e-5, the prediction and every
     gradient rtol 1e-4 with an atol of 1e-5 of each tensor's largest
@@ -119,7 +120,15 @@ def assert_model_matches(jm, net, params, x, graph, y, jit=True,
     packages also run in float64, and the port's float64 run is held to
     JAX's at rtol 1e-9 with an atol of 1e-9 of each tensor's largest
     entry; each f32 atol then adds twice JAX's own f32 distance from its
-    float64 run, a term of the reference alone."""
+    float64 run, a term of the reference alone.
+
+    `torch_kw(dtype)`, where given, returns more keyword arguments of the
+    port's forward for a run in numpy `dtype` (ST_WA's draws, which JAX
+    makes in the run's own precision)."""
+
+    def kw(dtype):
+        return None if torch_kw is None else torch_kw(dtype)
+
     f32 = jax_value_and_grad(jm, params, x, graph, y, jit)
     net.load_state_dict(flax_to_state_dict(params))
     extra = None
@@ -130,12 +139,13 @@ def assert_model_matches(jm, net, params, x, graph, y, jit=True,
             j64 = jax_value_and_grad(jm, params, x, graph, y, jit,
                                      np.float64)
         t64 = torch_value_and_grad(copy.deepcopy(net), x, graph, y,
-                                   torch.float64)
+                                   torch.float64, kw(np.float64))
         _assert_close(t64[:3], j64, loss_rtol=1e-9, rtol=1e-9, rel=1e-9)
         extra = {key: 2 * np.abs(w - j64[2][key]).max()
                  for key, w in f32[2].items()}
         extra[None] = 2 * np.abs(f32[1] - j64[1]).max()
-    *got, none = torch_value_and_grad(net, x, graph, y)
+    *got, none = torch_value_and_grad(net, x, graph, y,
+                                      kw=kw(np.float32))
     assert not [jax.tree_util.keystr(k) for k in none if f32[2][k].any()]
     _assert_close(got, f32, loss_rtol=1e-5, rtol=1e-4, rel=1e-5,
                   extra=extra)
