@@ -1,0 +1,51 @@
+"""Run some phases of `chip_smoke.py` alone, on the card.
+
+    python3 chip_phases.py build bsr dia dia_model data_parallel
+    python3 chip_phases.py build cards      # with 2+ cards
+
+Each name is a phase of `chip_smoke.PHASES`, run in the order given,
+or `cards`: the several-card part of `data_parallel` (one data row per
+card and the CLI's mesh). The state that earlier phases leave for later
+ones is made up front: the CLI graph's adjacency and empty
+`bsr_spmm`/`dia_spmm` records. `data_parallel` also needs `dia_model`
+before it (the road graph's support and losses). Prints the phases'
+lines, the kernel records and the card's name and power limit.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import chip_smoke as c
+from gptst_tpu_torch.config.config import default_config
+from gptst_tpu_torch.graph.artifacts import random_sensor_graph
+from gptst_tpu_torch.run import set_precision
+
+
+def main(names: list[str]) -> int:
+    set_precision(default_config("PEMS08"))
+    rec = {"_supports": {}, "bsr_spmm": {"launches_by_path": {}},
+           "dia_spmm": {"launches_by_path": {}},
+           "_cli_base": random_sensor_graph(c.N_BIG, avg_degree=6, seed=0)}
+    for name in names:
+        run = (c.data_parallel_cards if name == "cards"
+               else getattr(c, f"phase_{name}"))
+        t0 = time.perf_counter()
+        run(rec)
+        c.emit(name, done=True, seconds=time.perf_counter() - t0)
+    print(json.dumps({k: rec[k] for k in ("bsr_spmm", "dia_spmm")}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip() or "nvidia-smi: " + smi.stderr.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    unknown = [n for n in sys.argv[1:] if n not in c.PHASES + ("cards",)]
+    if unknown or len(sys.argv) < 2:
+        print(f"usage: chip_phases.py PHASE... (of {c.PHASES} and cards); "
+              f"unknown: {unknown}", file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(sys.argv[1:]))

@@ -74,6 +74,20 @@ Phases, one JSON line each; any failure exits non-zero:
              mesh=...)`, the road graph through `partition_graph_coo`
              (both the boundary halo exchange); the road graph's losses
              against `dia_model`'s.
+  data_parallel
+             batch-parallel training over a (data, graph) mesh of
+             repeated `cuda:0` ranks (`parallel/spmd.py`, one thread per
+             data row): TGCN on the CLI graph through `build_model(cfg,
+             mesh=(2 x 1))` against the one-device steps (losses and
+             every parameter), `bsr_spmm` launched in both rows'
+             forwards, no block run densely, and `bsr_spmm` timed at a
+             row's widths (F = 800, 8); TGCN on the road graph at (2 x 1)
+             (`dia_spmm` in both rows) and at (2 x 2) (a 2-rank halo per
+             row), each against `dia_model`'s losses; GPT-ST pretrain at
+             16,384 nodes (epochs 1 and 2) and MTGNN at 2,048 (dropout)
+             against the one-device loss and gradients; a ragged batch
+             of 15 on row 0. With 2 or more cards, TGCN with one data
+             row per card, and `run.main` building the CLI's mesh.
   gptst_model
              GPT-ST `-mode pretrain` train steps through the library at
              16,384 nodes, PEMS08's published widths, batch 8, f32: one
@@ -192,10 +206,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
-          "gptst_model", "gptst_cli", "eval_cli", "eval_model", "stgcn_cli",
-          "gwn_cli", "gwn_model", "predictors_cli", "graph_predictors_cli",
-          "graph_predictors_model", "last_predictors_cli",
-          "last_predictors_model", "profile", "reference")
+          "data_parallel", "gptst_model", "gptst_cli", "eval_cli",
+          "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
+          "predictors_cli", "graph_predictors_cli", "graph_predictors_model",
+          "last_predictors_cli", "last_predictors_model", "profile",
+          "reference")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
 # dense TF32 on the tensor cores, and HBM3 bandwidth
@@ -208,6 +223,8 @@ N_BIG = 16384
 BATCH, UNITS = 16, 100
 F_WIDE = BATCH * UNITS          # the h aggregations of a TGCN step
 F_NARROW = BATCH * 1            # the x aggregation (input_base_dim 1)
+# a data row's share of those at batch 16 on two rows (data_parallel)
+F_ROW_WIDE, F_ROW_NARROW = F_WIDE // 2, F_NARROW // 2
 # eval mode: TGCN's x is the 64-wide fused embedding (hidden_dim 64)
 HIDDEN = 64
 F_EVAL = BATCH * HIDDEN
@@ -404,7 +421,7 @@ def kernel_cases(name, kernel, plain, structs, n, seed):
     main_err = None
     reset_launch_counts()
     for sname, st, vals_attr in structs:
-        for f in (F_NARROW, F_EVAL, F_WIDE):
+        for f in (F_ROW_NARROW, F_NARROW, F_EVAL, F_ROW_WIDE, F_WIDE):
             x32 = torch.randn(n, f, device="cuda", generator=gen)
             cases = [("f32", st, x32, "f32"),
                      ("bf16_x", st, x32.bfloat16(), "bf16"),
@@ -1233,13 +1250,16 @@ def run_steps(step, warm: int, steps: int, trace: str | None = None):
 
 def train_steps(model: str, forward, batch: int, warm: int,
                 steps: int, trace: str | None = None, nodes: int = N_BIG,
-                dataset: str = "PEMS08", loss_func: str = "mask_mae"):
+                dataset: str = "PEMS08", loss_func: str = "mask_mae",
+                mesh=None):
     """Train steps of a `model` module in the ori-mode contract, through
     the port's library, on random (batch, 12, nodes, base + 2) data of
-    `dataset` from seed 0 under `loss_func`. Returns the losses, ms per
-    timed step, the kernel launches of all steps and their dense-block
-    counts, and (with `trace`) writes the timed steps' profiler
-    trace."""
+    `dataset` from seed 0 under `loss_func`; with `mesh`, data-parallel
+    over its data rows (`parallel/spmd.DataParallel`, the trainer's
+    step under a mesh). Returns the losses, ms per timed step, the
+    kernel launches of all steps and their dense-block counts (the
+    rows' forward launches are in `parallel.rows.ROW_LAUNCHES`), and
+    (with `trace`) writes the timed steps' profiler trace."""
     import numpy as np
     import torch
 
@@ -1247,20 +1267,26 @@ def train_steps(model: str, forward, batch: int, warm: int,
     from gptst_tpu_torch.kernels.spmm import (
         LAUNCHES, dense_block_counts, reset_launch_counts,
     )
+    from gptst_tpu_torch.parallel.rows import ROW_LAUNCHES
     from gptst_tpu_torch.train.loss import build_loss
-    from gptst_tpu_torch.train.step import make_loss_terms, train_step
+    from gptst_tpu_torch.train.step import (
+        make_loss_terms, model_forwards, train_step,
+    )
     from gptst_tpu_torch.train.trainer import make_optimizer
 
     cfg = default_config(dataset, mode="ori", model=model,
                          num_nodes=nodes, batch_size=batch, lr_decay=False)
     opt = make_optimizer(cfg, forward.parameters(), steps_per_epoch=10)
     loss_terms = make_loss_terms(
-        forward, build_loss(loss_func, 200.0, 100.0, 0.0, False), cfg)
+        forward, build_loss(loss_func, 200.0, 100.0, 0.0, False), cfg,
+        forward=None if mesh is None else model_forwards(forward, cfg,
+                                                         mesh)[1])
     rng = np.random.default_rng(0)
     shape = (batch, cfg.lag, nodes, cfg.input_base_dim + 2)
     x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     y = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
     reset_launch_counts()
+    ROW_LAUNCHES.clear()
     losses, ms = run_steps(lambda i: train_step(loss_terms, opt, x, y)[0],
                            warm, steps, trace)
     return losses, ms, dict(LAUNCHES), dense_block_counts()
@@ -1376,6 +1402,311 @@ def phase_sharded_model(rec: dict) -> None:
              max_memory_allocated=torch.cuda.max_memory_allocated())
         del model, sup
     torch.cuda.empty_cache()
+
+
+def grads_of(model, loss_terms, x, y, **kw) -> tuple[float, dict]:
+    """One loss and backward of `loss_terms` on `model`'s parameters
+    (zeros where none reaches the loss); the gradients are cleared."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    total, _ = loss_terms(x, y, **kw)
+    total.backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
+             for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(total.detach()), grads
+
+
+def dp_pair(model, loss_fn, cfg, mesh, x, y, seed: int = 0, **kw) -> dict:
+    """The loss and every gradient of `model` on (x, y) one-device and
+    data-parallel over `mesh`, each with a generator seeded `seed` on
+    the card; checks the losses at rtol 1e-5 and the gradients at rtol
+    1e-4 with an atol of 1e-5 of each tensor's largest entry. Returns
+    the losses, the errors and ms of each side (host clock, synchronized,
+    the second of two calls)."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.train.step import make_loss_terms, model_forwards
+
+    out = {}
+    for side, forward in (("one_device", None),
+                          ("data_parallel",
+                           model_forwards(model, cfg, mesh)[1])):
+        terms = make_loss_terms(model, loss_fn, cfg, forward=forward)
+        for _ in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = grads_of(model, terms, x, y, generator=gen, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        out[side] = (loss, grads, dt * 1e3)
+    (l1, g1, ms1), (l2, g2, ms2) = out["one_device"], out["data_parallel"]
+    np.testing.assert_allclose(l2, l1, rtol=1e-5)
+    errs = assert_grads_close({k: v.cpu() for k, v in g2.items()},
+                              {k: v.cpu() for k, v in g1.items()},
+                              "data_parallel")
+    return dict(loss=l1, dp_loss=l2, max_grad_err=max(errs.values()),
+                ms_one_device=ms1, ms_data_parallel=ms2)
+
+
+def row_widths(kernel, plain, st) -> dict:
+    """The kernel at a data row's widths at batch 16 on two rows
+    (`F_ROW_WIDE` for h, `F_ROW_NARROW` for x) against its plain version
+    on the same x (f32 tolerance), with both times."""
+    import torch
+
+    out = {}
+    for f in (F_ROW_WIDE, F_ROW_NARROW):
+        x = torch.randn(st.n, f, device="cuda")
+        out[f"F{f}"] = dict(
+            max_abs_err=compare(kernel(st, x), plain(st, x), "f32"),
+            ms=time_ms(lambda: kernel(st, x)),
+            plain_ms=time_ms(lambda: plain(st, x)))
+    return out
+
+
+def row_launches() -> dict:
+    """`parallel.rows.ROW_LAUNCHES` as {"row r": {kernel: n}}."""
+    from gptst_tpu_torch.parallel.rows import ROW_LAUNCHES
+
+    return {f"row {r}": dict(v) for r, v in sorted(ROW_LAUNCHES.items())}
+
+
+def phase_data_parallel(rec: dict) -> None:
+    """Batch-parallel training over a (data, graph) mesh of repeated
+    `cuda:0` ranks (`parallel/spmd.py`; one thread per data row, the
+    rows serialize on the card): (a) TGCN on the CLI graph through
+    `build_model(cfg, mesh=(2 x 1))`, 1 warm and 3 timed steps against
+    the one-device steps from the same weights (losses rtol 1e-4, every
+    parameter after the steps rtol 1e-4 with an atol of 1e-5 of its
+    largest entry: `index_add_` sums with atomics), `bsr_spmm` on both
+    rows and no block run densely; (b) TGCN on the road graph at
+    (2 x 1) on its DIA support (`dia_spmm` on both rows) and at (2 x 2)
+    through a 2-rank halo partition per row, each against `dia_model`'s
+    losses (rtol 2e-5); (c) GPT-ST pretrain at 16,384 nodes, batch 8,
+    epochs 1 (random mask) and 2 (adaptive mask, KL term), and (d)
+    MTGNN at 2,048 nodes, batch 16 with dropout: loss and every
+    gradient against the one-device step with the same generator; (e)
+    a ragged batch of 15 runs on row 0 and equals the one-device step.
+    With 2 or more cards, (a) again with one data row per card and
+    `run.main` building the CLI's mesh."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.graph import partition as P
+    from gptst_tpu_torch.kernels import spmm as K
+    from gptst_tpu_torch.models.build import build_model, predictor_forward
+    from gptst_tpu_torch.ops.graph_conv import (
+        SparseSupport, make_sharded_support,
+    )
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+    from gptst_tpu_torch.parallel.rows import ROW_LAUNCHES
+    from gptst_tpu_torch.train.loss import build_loss
+
+    mesh = make_mesh(devices=["cuda:0"] * 2, graph_axis_size=1)
+    cfg = default_config("PEMS08", mode="ori", model="TGCN", num_nodes=N_BIG,
+                         batch_size=BATCH, lr_decay=False)
+
+    # (a) the CLI graph through build_model under the mesh
+    t0 = time.perf_counter()
+    dp_model = build_model(cfg, adj=rec["_cli_base"], device="cuda",
+                           mesh=mesh)
+    build_s = time.perf_counter() - t0
+    (sup,) = dp_model.predictor.graph
+    assert isinstance(sup, SparseSupport) and sup.dia is None, sup
+    net0 = copy.deepcopy(dp_model.predictor.net)
+    one = bind("TGCN", copy.deepcopy(net0), (sup,))
+    warm, steps = 1, 3
+    torch.cuda.reset_peak_memory_stats()
+    one_losses, one_ms, _, _ = train_steps("TGCN", one, BATCH, warm, steps)
+    one_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, dense = train_steps("TGCN", dp_model, BATCH, warm,
+                                              steps, mesh=mesh)
+    peak = torch.cuda.max_memory_allocated()
+    rows = row_launches()
+    for r in ("row 0", "row 1"):
+        assert rows.get(r, {}).get("bsr_spmm", 0) > 0, rows
+    assert launches["dia_spmm"] == 0 and not any(dense.values()), dense
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-4)
+    errs = assert_grads_close(
+        {k: p.detach().cpu() for k, p in dp_model.named_parameters()},
+        {k: p.detach().cpu() for k, p in one.named_parameters()},
+        "data_parallel params")
+    rec["bsr_spmm"]["launches_by_path"]["data_parallel"] = {
+        r: v["bsr_spmm"] for r, v in rows.items()}
+    rec["bsr_spmm"]["launches_by_path"]["data_parallel"]["total"] = \
+        launches["bsr_spmm"]
+    widths = row_widths(K.bsr_spmm, K.bsr_spmm_plain, sup.bcsr)
+    emit("data_parallel", case="a", model="TGCN",
+         graph=f"random_sensor_graph({N_BIG}) CLI graph", mesh=mesh.shape,
+         ranks=["cuda:0"] * 2, nodes=N_BIG, batch=BATCH, rnn_units=UNITS,
+         build_s=build_s, steps=warm + steps, ms_per_step=ms,
+         samples_per_s=BATCH / ms * 1e3, losses=losses,
+         max_memory_allocated=peak, one_device_ms_per_step=one_ms,
+         one_device_samples_per_s=BATCH / one_ms * 1e3,
+         one_device_losses=one_losses, one_device_max_memory=one_peak,
+         max_param_err=max(errs.values()), launches=launches,
+         row_launches=rows, dense_blocks=dense, bsr_row_widths=widths)
+
+    # (e) a ragged batch of 15: the whole batch on row 0
+    ragged = bind("TGCN", copy.deepcopy(net0), (sup,))
+    rng = np.random.default_rng(1)
+    xr = torch.from_numpy(rng.standard_normal(
+        (15, 12, N_BIG, 3), np.float32)).cuda()
+    K.reset_launch_counts()
+    ROW_LAUNCHES.clear()
+    line = dp_pair(ragged, build_loss("mask_mae", 200.0, 100.0, 0.0, False),
+                   cfg, mesh, xr, xr)
+    assert not ROW_LAUNCHES and K.LAUNCHES["bsr_spmm"] > 0, ROW_LAUNCHES
+    emit("data_parallel", case="e", model="TGCN", batch=15, mesh=mesh.shape,
+         runs_on="row 0", **line)
+    del dp_model, one, ragged
+    torch.cuda.empty_cache()
+
+    # (b) the road graph: DIA under (2 x 1), halo under (2 x 2)
+    road = rec["_supports"]["road_graph"]
+    warm, steps = 1, 2
+    losses, ms, launches, dense = train_steps(
+        "TGCN", bind("TGCN", tgcn_net(), (road,)), BATCH, warm, steps,
+        mesh=mesh)
+    rows = row_launches()
+    for r in ("row 0", "row 1"):
+        assert rows.get(r, {}).get("dia_spmm", 0) > 0, rows
+    assert launches["bsr_spmm"] == 0 and not any(dense.values()), dense
+    np.testing.assert_allclose(losses, rec["_road_losses"][:len(losses)],
+                               rtol=2e-5)
+    rec["dia_spmm"]["launches_by_path"]["data_parallel"] = {
+        **{r: v["dia_spmm"] for r, v in rows.items()},
+        "total": launches["dia_spmm"]}
+    emit("data_parallel", case="b", model="TGCN",
+         graph="road_graph_edges(16384, 16, 48)", mesh=mesh.shape,
+         nodes=N_BIG, batch=BATCH, steps=warm + steps, ms_per_step=ms,
+         samples_per_s=BATCH / ms * 1e3, losses=losses, launches=launches,
+         row_launches=rows, dense_blocks=dense,
+         dia_row_widths=row_widths(K.dia_spmm, K.dia_spmm_plain, road.dia))
+    mesh22 = make_mesh(devices=["cuda:0"] * 4, graph_axis_size=2)
+    rows_, cols_ = road_graph_edges(N_BIG, 16, 48)
+    r = np.concatenate([rows_, np.arange(N_BIG)])
+    c = np.concatenate([cols_, np.arange(N_BIG)])
+    deg = np.bincount(r, minlength=N_BIG).astype(np.float64)
+    vals = (1.0 / np.sqrt(deg[r] * deg[c])).astype(np.float32)
+    t0 = time.perf_counter()
+    halo = make_sharded_support(
+        None, mesh22, part=P.partition_graph_coo(r, c, vals, N_BIG, 2))
+    build_s = time.perf_counter() - t0
+    assert halo.kind == "halo" and halo.row_fns == (halo.fn,), halo
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, _ = train_steps(
+        "TGCN", bind("TGCN", tgcn_net(), (halo,)), BATCH, warm, steps,
+        mesh=mesh22)
+    assert not any(launches.values()), launches    # torch.matmul only
+    np.testing.assert_allclose(losses, rec["_road_losses"][:len(losses)],
+                               rtol=2e-5)
+    emit("data_parallel", case="b", model="TGCN",
+         graph="road_graph_edges(16384, 16, 48)", mesh=mesh22.shape,
+         ranks=["cuda:0"] * 4, kind=halo.kind, n_pad=halo.n_pad,
+         build_s=build_s, nodes=N_BIG, batch=BATCH, steps=warm + steps,
+         ms_per_step=ms, samples_per_s=BATCH / ms * 1e3, losses=losses,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del halo
+    torch.cuda.empty_cache()
+
+    # (c) GPT-ST pretrain at 16,384 nodes, both branches of the mask
+    gcfg = gptst_cfg(batch_size=GPTST_BATCH)
+    model = gptst_net(gcfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (GPTST_BATCH, gcfg.lag, N_BIG, 3), np.float32)).cuda()
+    loss_fn = build_loss("mask_mae", 200.0, 100.0, 0.0, True)
+    for epoch in (1, 2):
+        torch.cuda.reset_peak_memory_stats()
+        line = dp_pair(model, loss_fn, gcfg, mesh, x, x, epoch=epoch)
+        emit("data_parallel", case="c", model="GPT-ST", mode="pretrain",
+             nodes=N_BIG, batch=GPTST_BATCH, epoch=epoch,
+             change_epoch=gcfg.change_epoch, mesh=mesh.shape,
+             max_memory_allocated=torch.cuda.max_memory_allocated(), **line)
+    del model, x
+    torch.cuda.empty_cache()
+
+    # (d) MTGNN at 2,048 nodes: dropout from the generator
+    n = GRAPH_MODEL_NODES
+    mcfg = default_config("PEMS08", mode="ori", model="MTGNN", num_nodes=n)
+    model = predictor_forward(mcfg, graph_predictor("MTGNN", "PEMS08", n,
+                                                    "cuda"))
+    rng = np.random.default_rng(0)
+    xm, ym = (torch.from_numpy(rng.standard_normal(
+        (16, 12, n, 3), np.float32)).cuda() for _ in range(2))
+    line = dp_pair(model, build_loss(mcfg.loss_func, 200.0, 100.0, 0.0,
+                                     False), mcfg, mesh, xm, ym)
+    emit("data_parallel", case="d", model="MTGNN", nodes=n, batch=16,
+         mesh=mesh.shape, **line)
+    del model
+    torch.cuda.empty_cache()
+    data_parallel_cards(rec)
+
+
+def data_parallel_cards(rec: dict) -> None:
+    """With 2 or more cards: case (a) with one data row per card (the
+    model copied to the second card with its support), against the one
+    card's steps; then `run.main -mode ori -model TGCN` on every card,
+    which must build and log the (data, graph) mesh. On one card it
+    prints that it did not run."""
+    import copy
+    import logging
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.models.build import build_predictor
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("data_parallel", case="cards", ran=False, cards=count)
+        return
+    mesh = make_mesh(devices=["cuda:0", "cuda:1"], graph_axis_size=1)
+    cfg = default_config("PEMS08", mode="ori", model="TGCN", num_nodes=N_BIG)
+    # TGCN at its published widths on the CLI graph's support, random
+    # weights from seed 0
+    pred = build_predictor(cfg, adj=rec["_cli_base"], device="cuda", seed=0)
+    nets = [bind("TGCN", copy.deepcopy(pred.net), pred.graph)
+            for _ in range(2)]
+    one_losses, one_ms, _, _ = train_steps("TGCN", nets[0], BATCH, 1, 3)
+    losses, ms, launches, _ = train_steps("TGCN", nets[1], BATCH, 1, 3,
+                                          mesh=mesh)
+    rows = row_launches()
+    assert all(rows.get(f"row {r}", {}).get("bsr_spmm", 0) > 0
+               for r in (0, 1)), rows
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-4)
+    seen = []
+
+    class Seen(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    handler = Seen()
+    logging.getLogger("run").addHandler(handler)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            run_main(["-dataset", "PEMS08", "-mode", "ori", "-model", "TGCN",
+                      "-num_nodes", "170", "-batch_size", "64", "-epochs",
+                      "1", "-num_steps", "600", "-log_dir",
+                      os.path.join(tmp, "save"), "-log_step", "1000"])
+    finally:
+        logging.getLogger("run").removeHandler(handler)
+    logged = [m for m in seen if m.startswith("device mesh:")]
+    assert logged, seen
+    emit("data_parallel", case="cards", ran=True, cards=count,
+         mesh=mesh.shape, ranks=["cuda:0", "cuda:1"], ms_per_step=ms,
+         one_card_ms_per_step=one_ms, losses=losses,
+         one_card_losses=one_losses, row_launches=rows, cli_log=logged[0])
 
 
 def gptst_cfg(**kw):

@@ -51,7 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gptst_tpu_torch.kernels.spmm import LAUNCHES, _raise_on
+from gptst_tpu_torch.kernels.spmm import _raise_on, count_launch
 from gptst_tpu_torch.parallel.halo import partition_adjacency
 from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS, Mesh
 
@@ -121,7 +121,7 @@ def ring_step(lib, a_rot: torch.Tensor, s: int, buf: torch.Tensor,
         int(out is not None and out.dtype == torch.bfloat16),
         stream.cuda_stream)
     _raise_on(err, "ring_spmm")
-    LAUNCHES["ring_spmm"] += 1
+    count_launch("ring_spmm")
 
 
 class _RingState:
@@ -222,8 +222,10 @@ def _ring_cuda(a_rot: list[torch.Tensor], xs: list[torch.Tensor],
     return outs
 
 
-def make_fused_ring_spmm(mesh: Mesh, adj: np.ndarray, feat: int):
-    """Build the fused ring `A @ x` over the mesh's 'graph' axis.
+def make_fused_ring_spmm(mesh: Mesh, adj: np.ndarray, feat: int,
+                         row: int = 0):
+    """Build the fused ring `A @ x` over the 'graph' axis of data row
+    `row` of the mesh.
 
     Returns (fn, n_pad): fn takes a list of P row shards, shard p
     (n_pad / P, feat) f32 or bf16 on rank p's device, and returns the P
@@ -231,7 +233,7 @@ def make_fused_ring_spmm(mesh: Mesh, adj: np.ndarray, feat: int):
     ranks run the kernel; CPU ranks the plain version. Forward only.
     """
     parts = mesh.shape[GRAPH_AXIS]
-    devs = mesh.graph_devices
+    devs = mesh.graph_devices(row)
     blocks = _rotate_blocks(partition_adjacency(adj, parts))
     n_loc = blocks.shape[1]
     on_cuda = devs[0].type == "cuda"

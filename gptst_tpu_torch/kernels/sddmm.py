@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from gptst_tpu_torch.kernels.spmm import (
-    _TILES, LAUNCHES, BlockCSR, EntryLists, _check_same_device, _dtype_code,
-    _raise_on, _row_tiles, entry_lists,
+    _TILES, BlockCSR, EntryLists, _check_same_device, _dtype_code,
+    _raise_on, _row_tiles, count_launch, entry_lists,
 )
 from gptst_tpu_torch.ops.graph_conv import SparseSupport
 
@@ -160,7 +160,7 @@ def sddmm_blocks(pattern: SDDMMPattern, e1: torch.Tensor,
                         e2.data_ptr(), mask.data_ptr(), out.data_ptr(), n,
                         e1.shape[1], nnzb, tb, c1, c2, stream)
     _raise_on(err, "sddmm")
-    LAUNCHES["sddmm"] += 1
+    count_launch("sddmm")
     return out
 
 

@@ -36,7 +36,9 @@ asked for.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -46,6 +48,10 @@ from gptst_tpu_torch.utils.device import resolve_device
 # launches of each CUDA kernel since the last `reset_launch_counts()`
 LAUNCHES = {"bsr_spmm": 0, "dia_spmm": 0, "sddmm": 0, "spmm_dvals": 0,
             "ring_spmm": 0}
+# guards `LAUNCHES`, the tallies and `DENSE_BLOCKS` (threads launch
+# concurrently: the data rows of `parallel/spmd.py`)
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
 # per (kernel, device): an int32 tensor on the device that the block
 # kernels add one to for each (CUDA block, stored block) pair that ran
 # densely; read by `dense_block_counts()` only, never on the main path
@@ -63,6 +69,28 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
     for t in DENSE_BLOCKS.values():
         t.zero_()
+
+
+@contextlib.contextmanager
+def tally_launches(counts: dict[str, int]):
+    """Within the block, the calling thread's launches are also added
+    to `counts`, by kernel."""
+    saved = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = saved
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel `name`, to `LAUNCHES` and to the
+    calling thread's tally."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        counts = getattr(_TALLY, "counts", None)
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
 
 
 def dense_block_counts() -> dict[str, int]:
@@ -371,11 +399,12 @@ def bsr_spmm_entries_plain(bcsr: BlockCSR, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_counter(name: str, device: torch.device) -> torch.Tensor:
-    t = DENSE_BLOCKS.get((name, device))
-    if t is None:
-        t = DENSE_BLOCKS[(name, device)] = torch.zeros(
-            1, dtype=torch.int32, device=device)
-    return t
+    with _COUNT_LOCK:
+        t = DENSE_BLOCKS.get((name, device))
+        if t is None:
+            t = DENSE_BLOCKS[(name, device)] = torch.zeros(
+                1, dtype=torch.int32, device=device)
+        return t
 
 
 def _block_kernel(name: str, a: BlockCSR, x: torch.Tensor) -> torch.Tensor:
@@ -421,7 +450,7 @@ def _block_kernel(name: str, a: BlockCSR, x: torch.Tensor) -> torch.Tensor:
             bad.data_ptr(), count.data_ptr(), x.data_ptr(), out.data_ptr(),
             a.n, x.shape[1], a.row_tiles, nb, tb, vcode, xcode, stream)
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out
 
 
@@ -519,7 +548,7 @@ def spmm_dvals(bcsr: BlockCSR, g: torch.Tensor,
             out.data_ptr(), bcsr.n, gf.shape[1], bcsr.row_tiles,
             vals.shape[0], bcsr.tile, gcode, xcode, stream)
     _raise_on(err, "spmm_dvals")
-    LAUNCHES["spmm_dvals"] += 1
+    count_launch("spmm_dvals")
     return out
 
 

@@ -29,6 +29,7 @@ from gptst_tpu_torch.models.api import ModelOutput
 from gptst_tpu_torch.ops.graph_conv import (
     SparseSupport, make_support, use_sharding_mesh,
 )
+from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
 from gptst_tpu_torch.utils.device import resolve_device
 
 
@@ -227,21 +228,63 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
     `pretrain_params` is the pretrained GPT-ST or its state dict, and
     is required); ori and test -> the bare predictor.
 
-    With `mesh` (`parallel/mesh.make_mesh`, graph axis above 1), the
-    predictor's graph supports are built node-sharded on the mesh's
-    devices (`ops/graph_conv.make_sharded_support`); parameters and
-    activations stay on `device`."""
+    With `mesh` (`parallel/mesh.make_mesh`), `device` is its root: the
+    model is data-parallel over the mesh's data rows in the trainer
+    (`parallel/spmd.py`), and with a graph axis above 1 the predictor's
+    graph supports are built node-sharded on every data row's graph
+    ranks (`ops/graph_conv.make_sharded_support`). Node tables and
+    dense graph operands stay whole on each row's first device; under a
+    graph axis above 1 one WARNING says so."""
     if cfg.mode == "pretrain":
-        return build_pretrain(cfg, scaler_zeros, device, seed)
-    with use_sharding_mesh(mesh):
-        if cfg.mode == "eval":
-            if pretrain_params is None:
-                raise ValueError("eval mode requires pretrain_params (the "
-                                 "pretrained GPT-ST or its state dict)")
-            return build_enhanced(cfg, scaler_zeros, pretrain_params, adj,
-                                  device, seed)
-        return predictor_forward(
-            cfg, build_predictor(cfg, adj=adj, device=device, seed=seed))
+        model = build_pretrain(cfg, scaler_zeros, device, seed)
+    else:
+        with use_sharding_mesh(mesh):
+            if cfg.mode == "eval":
+                if pretrain_params is None:
+                    raise ValueError("eval mode requires pretrain_params "
+                                     "(the pretrained GPT-ST or its state "
+                                     "dict)")
+                model = build_enhanced(cfg, scaler_zeros, pretrain_params,
+                                       adj, device, seed)
+            else:
+                model = predictor_forward(cfg, build_predictor(
+                    cfg, adj=adj, device=device, seed=seed))
+    if mesh is not None and mesh.shape[GRAPH_AXIS] > 1:
+        warn_whole_node_tables(cfg, model, mesh)
+    return model
+
+
+def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
+                           mesh) -> None:
+    """One WARNING when a model under a graph axis above 1 keeps node
+    tables (parameters whose first axis is `num_nodes`, which the JAX
+    package shards over 'graph'), a GPT-ST, or a dense graph operand
+    whole on each data row's first device."""
+    from gptst_tpu_torch.ops.graph_conv import ShardedSupport
+    from gptst_tpu_torch.utils.logger import get_logger
+
+    tables = [k for k, p in model.named_parameters()
+              if p.dim() and p.shape[0] == cfg.num_nodes]
+
+    def flat(graph):
+        for g in graph:
+            if isinstance(g, (tuple, list)):
+                yield from flat(g)
+            elif g is not None:
+                yield g
+
+    dense = [g for m in model.modules() if isinstance(m, GraphPredictor)
+             for g in flat(m.graph) if not isinstance(g, ShardedSupport)]
+    gptst = cfg.mode in ("pretrain", "eval")
+    if tables or dense or gptst:
+        name = "GPT-ST" if cfg.mode == "pretrain" else cfg.model
+        get_logger("build", debug=cfg.debug).warning(
+            "%s under a graph axis of %d: %d node tables%s%s stay whole on "
+            "each data row's first device (the same math; their layout "
+            "over 'graph' is ROADMAP.md Queue 1, GPT-ST's and the dense "
+            "predictors' node tables)", name, mesh.shape[GRAPH_AXIS],
+            len(tables), ", the GPT-ST" if gptst else "",
+            f", {len(dense)} graph operands" if dense else "")
 
 
 class GraphPredictor(nn.Module):

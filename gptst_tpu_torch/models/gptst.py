@@ -10,7 +10,10 @@ Differences of form from the JAX package, not of math:
   * the random -> adaptive switch of the curriculum is a Python `if` on
     the integer epoch (a `lax.cond` there), and every random draw takes
     an explicit `torch.Generator`;
-  * routing is a Python loop on detached tensors (`ops/capsule.py`).
+  * routing is a Python loop on detached tensors (`ops/capsule.py`);
+  * in a data-parallel step the mask is drawn once from the global
+    batch's guide and each data row takes its rows of it
+    (`parallel/rows.on_global_batch`).
 
 Initialization is the reference's effective one (pretrain configs set
 `xavier=True`, so every >1-D parameter is xavier-uniform and every 1-D
@@ -50,6 +53,7 @@ from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.ops.capsule import dynamic_routing, squash
 from gptst_tpu_torch.ops.param_pool import node_param_linear, time_param_linear
 from gptst_tpu_torch.ops.recurrent import remat_cell
+from gptst_tpu_torch.parallel.rows import on_global_batch
 
 
 def xavier_limit(shape: tuple[int, ...]) -> float:
@@ -389,8 +393,10 @@ class GPTST(nn.Module):
         c = self.cfg
         b = c.input_base_dim
         guide = self.policy(source)
-        mask = generate_mask(c, generator, guide.detach(), epoch,
-                             (source.shape[0], c.horizon, c.num_nodes, b))
+        # in a data-parallel step: once, from the global batch's guide
+        mask = on_global_batch(lambda g: generate_mask(
+            c, generator, g, epoch, (g.shape[0], c.horizon, c.num_nodes, b)),
+            guide.detach())
         # built in f32 for exact budget arithmetic, then cast so that a
         # bf16 forward stays bf16
         mask = mask.to(source.dtype)

@@ -42,6 +42,7 @@ from gptst_tpu_torch.ops.recurrent import (
     remat_cell, resolve_remat, xavier_normal_,
 )
 from gptst_tpu_torch.ops.temporal import dense
+from gptst_tpu_torch.parallel.rows import shared_draw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,9 +222,11 @@ class CCRNN(nn.Module):
         # scheduled sampling (`CCRNN.py:125-126, 194-195`)
         use_tf = None
         if y is not None and generator is not None and step is not None:
-            use_tf = teacher_forcing_coins(self.horizon, step,
-                                           c.cl_decay_steps,
-                                           generator).to(x.device)
+            # one draw for the whole batch: in a data-parallel step
+            # every data row reads the same coins
+            use_tf = shared_draw(lambda: teacher_forcing_coins(
+                self.horizon, step, c.cl_decay_steps,
+                generator)).to(x.device)
         inp = x.new_zeros(B, N, self.dim_out)
         preds = []
         for t in range(self.horizon):

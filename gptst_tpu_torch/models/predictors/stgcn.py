@@ -38,6 +38,7 @@ from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import linear, promoted
 from gptst_tpu_torch.ops.graph_conv import cheb_conv
+from gptst_tpu_torch.ops.norm import dropout
 from gptst_tpu_torch.ops.temporal import TemporalConv, align_channels, dense
 
 
@@ -105,11 +106,7 @@ class STConvBlock(nn.Module):
     def forward(self, x, cheb, generator: torch.Generator | None = None):
         x = self.tconv1(self.sconv(self.tconv0(x), cheb))
         x = self.norm(x)
-        if self.drop_prob > 0 and generator is not None:
-            keep = torch.rand(x.shape, generator=generator, device=x.device)
-            x = torch.where(keep >= self.drop_prob,
-                            x / (1.0 - self.drop_prob), 0.0)
-        return x
+        return dropout(x, self.drop_prob, generator)
 
 
 class OutputLayer(nn.Module):

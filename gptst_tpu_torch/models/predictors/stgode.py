@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import linear, promoted
+from gptst_tpu_torch.ops.norm import batch_moments
 from gptst_tpu_torch.ops.recurrent import xavier_uniform_
 from gptst_tpu_torch.ops.temporal import TimeConv
 
@@ -129,7 +130,8 @@ class ODEG(nn.Module):
 class NodeBatchNorm(nn.Module):
     """torch `BatchNorm2d` over the NODE axis with batch statistics
     (`STGODE.py:114` runs on (B, N, T, F), N the channels): the
-    population variance, epsilon 1e-5."""
+    population variance, epsilon 1e-5; the global batch's in a
+    data-parallel step (`ops/norm.batch_moments`)."""
 
     def __init__(self, num_nodes: int, eps: float = 1e-5):
         super().__init__()
@@ -139,8 +141,7 @@ class NodeBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, N, C)
         x, scale, bias = promoted(x, self.scale, self.bias)
-        mean = x.mean(dim=(0, 1, 3), keepdim=True)
-        var = x.var(dim=(0, 1, 3), keepdim=True, correction=0)
+        mean, var = batch_moments(x, (0, 1, 3))
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * scale[:, None] + bias[:, None]
 

@@ -56,6 +56,7 @@ from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import linear
 from gptst_tpu_torch.ops.recurrent import fan_in_uniform_
+from gptst_tpu_torch.parallel.rows import batch_draw, shared_draw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,14 +269,23 @@ class STWA(nn.Module):
     def draw(self, x: torch.Tensor,
              generator: torch.Generator | None) -> list[torch.Tensor]:
         """The forward's four N(0, 1) draws, in the JAX module's order:
-        the data latent's eps (B, N, M), then each layer's (N, M)."""
+        the data latent's eps (B, N, M), then each layer's (N, M)
+        (`parallel/rows.py` in a data-parallel step)."""
         c = self.cfg
         if generator is None:
-            generator = torch.Generator(device=x.device).manual_seed(0)
-        shapes = [(x.shape[0], c.num_nodes, c.memory_size)] + [
-            (c.num_nodes, c.memory_size)] * len(self.layers)
-        return [torch.randn(s, generator=generator, device=x.device,
-                            dtype=x.dtype) for s in shapes]
+            generator = shared_draw(
+                lambda: torch.Generator(device=x.device).manual_seed(0))
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator,
+                               device=generator.device, dtype=x.dtype)
+
+        # in a data-parallel step the data latent is the global batch's,
+        # sliced, and every data row reads the same layer latents
+        layer = (c.num_nodes, c.memory_size)
+        return [batch_draw(normal, (x.shape[0], *layer), x.device)] + [
+            shared_draw(lambda: normal(layer), x.device)
+            for _ in self.layers]
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None,

@@ -32,7 +32,8 @@ from gptst_tpu_torch.kernels.spmm import (
     dia_pair_from_coo, spmm, split_coo_hybrid,
 )
 from gptst_tpu_torch.ops.dtypes import promoted
-from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
+from gptst_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS
+from gptst_tpu_torch.parallel.rows import current_row
 from gptst_tpu_torch.utils.device import resolve_device
 
 # The mesh that `make_support` shards over when it is given none: set
@@ -102,26 +103,42 @@ def _count_blocks(rows: np.ndarray, cols: np.ndarray, tile: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ShardedSupport:
     """Node-sharded aggregation over a mesh's 'graph' axis: `fn` is the
-    sharded A @ x (the boundary halo exchange, or the ring for
-    halo-heavy graphs, `parallel/halo.py`), chosen from the partition's
-    traffic (`graph/partition.partition_stats`). `graph_matmul` pads
-    x's node axis to `n_pad` and slices back."""
+    sharded A @ x on data row 0's graph ranks (the boundary halo
+    exchange, or the ring for halo-heavy graphs, `parallel/halo.py`),
+    chosen from the partition's traffic
+    (`graph/partition.partition_stats`); `row_fns` the same product on
+    the graph ranks of data rows 1, 2, ... (the same function where a
+    row's ranks are row 0's devices). `graph_matmul` pads x's node axis
+    to `n_pad`, runs the product of the data row it is called from
+    (`parallel/rows.current_row`) and slices back."""
 
     fn: object                # callable (..., n_pad, C) -> (..., n_pad, C)
     n: int
     n_pad: int
     kind: str                 # 'halo' | 'ring'
+    row_fns: tuple = ()
 
     @property
     def shape(self) -> tuple[int, int]:
         return (self.n, self.n)
+
+    def fn_of_row(self, row: int | None):
+        """The product on data row `row`'s graph ranks (row 0 for
+        None)."""
+        if not row:
+            return self.fn
+        if row > len(self.row_fns):
+            raise ValueError(f"data row {row}: the support was built for "
+                             f"{1 + len(self.row_fns)} data rows")
+        return self.row_fns[row - 1]
 
 
 def make_sharded_support(adj: np.ndarray | None, mesh,
                          part=None) -> ShardedSupport:
     """Partition `adj` over the mesh's 'graph' axis and pick the path
     that moves fewer feature rows per call: the boundary halo exchange,
-    or the ring. Pass a prebuilt `GraphPartition` (e.g. from
+    or the ring, built on the graph ranks of every data row (once per
+    distinct set of ranks). Pass a prebuilt `GraphPartition` (e.g. from
     `partition_graph_coo` for graphs too big to densify) to skip the
     dense partitioning; the ring needs the dense `adj`."""
     from gptst_tpu_torch.graph.partition import (
@@ -135,13 +152,20 @@ def make_sharded_support(adj: np.ndarray | None, mesh,
         # (node-indexed parameters, metrics and labels use it)
         part = partition_graph(adj, parts, reorder=False)
     stats = partition_stats(part)
-    if adj is None or stats["halo_rows_moved"] <= stats["ring_rows_moved"]:
-        fn, n_pad = make_halo_spmm(mesh, part)
-        kind = "halo"
-    else:
-        fn, n_pad = make_ring_spmm(mesh, adj)
-        kind = "ring"
-    return ShardedSupport(fn=fn, n=part.n, n_pad=n_pad, kind=kind)
+    kind = ("halo" if adj is None
+            or stats["halo_rows_moved"] <= stats["ring_rows_moved"]
+            else "ring")
+    built: dict[tuple, object] = {}
+    fns = []
+    for row in range(mesh.shape[DATA_AXIS]):
+        ranks = tuple(mesh.graph_devices(row))
+        if ranks not in built:
+            built[ranks], n_pad = (make_halo_spmm(mesh, part, row)
+                                   if kind == "halo"
+                                   else make_ring_spmm(mesh, adj, row))
+        fns.append(built[ranks])
+    return ShardedSupport(fn=fns[0], n=part.n, n_pad=n_pad, kind=kind,
+                          row_fns=tuple(fns[1:]))
 
 
 def make_support(adj: np.ndarray, *, dense_threshold: int = DENSE_THRESHOLD,
@@ -224,7 +248,7 @@ def graph_matmul(support, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[-2]
         if n != support.n_pad:
             x = torch.nn.functional.pad(x, (0, 0, 0, support.n_pad - n))
-        out = support.fn(x)
+        out = support.fn_of_row(current_row())(x)
         return out[..., :n, :] if n != support.n_pad else out
     if isinstance(support, SparseSupport):
         if support.perm is not None:

@@ -5,13 +5,35 @@
 learnable affine), applied the same way in evaluation. There are no
 running averages, so every forward is a function of the parameters and
 the batch alone (GWN, `GWN.py:197`). It is not `nn.BatchNorm2d`, whose
-eval mode reads running statistics.
+eval mode reads running statistics. In a data-parallel step the
+statistics are the global batch's, summed over the data rows
+(`parallel/rows.py`), and dropout's draw is the global batch's, sliced.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+from gptst_tpu_torch.parallel.rows import (
+    batch_count, batch_draw, batch_sum, current_row,
+)
+
+
+def batch_moments(x: torch.Tensor, dims: tuple[int, ...]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and biased variance of x over `dims`, the batch axis 0
+    among them (keepdim); in a data row of a data-parallel step, over
+    the entries of every row (`parallel/rows.py`)."""
+    if current_row() is None:
+        return (x.mean(dim=dims, keepdim=True),
+                x.var(dim=dims, keepdim=True, correction=0))
+    n = batch_count(math.prod(x.shape[d] for d in dims))
+    mean = batch_sum(x.sum(dim=dims, keepdim=True)) / n
+    var = batch_sum(((x - mean) ** 2).sum(dim=dims, keepdim=True)) / n
+    return mean, var
 
 
 class BatchStatsNorm(nn.Module):
@@ -26,9 +48,7 @@ class BatchStatsNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        axes = tuple(range(x.dim() - 1))
-        mean = x.mean(dim=axes, keepdim=True)
-        var = x.var(dim=axes, keepdim=True, correction=0)
+        mean, var = batch_moments(x, tuple(range(x.dim() - 1)))
         return (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
             + self.bias
 
@@ -41,5 +61,7 @@ def dropout(x: torch.Tensor, rate: float,
     is with `deterministic=True`."""
     if rate <= 0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = batch_draw(lambda shape: torch.rand(
+        shape, generator=generator, device=generator.device),
+        x.shape, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)

@@ -56,21 +56,22 @@ def partition_adjacency(adj: np.ndarray, parts: int) -> np.ndarray:
     return a.reshape(parts, n_loc, parts, n_loc)
 
 
-def make_ring_spmm(mesh: Mesh, adj: np.ndarray):
-    """Sharded `A @ x` as a ring over the mesh's 'graph' axis.
+def make_ring_spmm(mesh: Mesh, adj: np.ndarray, row: int = 0):
+    """Sharded `A @ x` as a ring over the 'graph' axis of data row
+    `row` of the mesh.
 
     Returns (fn, n_pad): fn takes x (..., n_pad, C) and returns
     A_pad @ x_pad with the same shape and dtype, accumulated in f32.
     """
     parts = mesh.shape[GRAPH_AXIS]
-    devs = mesh.graph_devices
+    devs = mesh.graph_devices(row)
     blocks = partition_adjacency(adj, parts)
     n_pad = blocks.shape[1] * parts
     a = [torch.as_tensor(blocks[p]).to(devs[p]) for p in range(parts)]
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         xf, info = _fold_nodes_first(x)
-        bufs = shard_rows(xf, mesh)
+        bufs = shard_rows(xf, mesh, row)
         accs = [None] * parts
         for i in range(parts):
             for p in range(parts):
@@ -86,16 +87,16 @@ def make_ring_spmm(mesh: Mesh, adj: np.ndarray):
     return fn, n_pad
 
 
-def make_halo_spmm(mesh: Mesh, part: GraphPartition):
+def make_halo_spmm(mesh: Mesh, part: GraphPartition, row: int = 0):
     """Sharded `A @ x` over the boundary-exchange layout of a
-    `GraphPartition`.
+    `GraphPartition`, on the 'graph' axis of data row `row` of the mesh.
 
     Returns (fn, n_pad). x: (..., n_pad, C) in the partition's permuted
     node order (`part.pad_features` at ingestion, or a partition built
     with `reorder=False`).
     """
     parts = part.parts
-    devs = mesh.graph_devices
+    devs = mesh.graph_devices(row)
     if len(devs) != parts:
         raise ValueError(f"partition of {parts} shards on a graph axis of "
                          f"{len(devs)}")
@@ -111,7 +112,7 @@ def make_halo_spmm(mesh: Mesh, part: GraphPartition):
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         xf, info = _fold_nodes_first(x)
-        shards = shard_rows(xf, mesh)
+        shards = shard_rows(xf, mesh, row)
         f = xf.shape[1]
         send = [shards[o].index_select(0, send_idx[o]).view(parts, smax, f)
                 for o in range(parts)]

@@ -1,4 +1,4 @@
-"""Device mesh for node-sharded graph aggregation.
+"""Device mesh and the sharding layout.
 
 The JAX package is single-controller: one process drives every device
 of a `jax.sharding.Mesh` with axes ('data', 'graph'). The port keeps
@@ -7,10 +7,24 @@ by one process; a device may appear more than once, so P ranks on one
 card stand in for P cards (as the JAX tests' forced host devices stand
 in for chips), and `["cpu"] * P` runs the same code on the CPU.
 
-This slice takes the graph axis only: a data axis above 1 (batch
-parallelism, `parallel/spmd.py` in the JAX package) raises.
+Row r of the mesh is a data row: its graph axis, `mesh.graph_devices(r)`,
+holds the node shards of row r's batch slice. A data-parallel step
+(`parallel/spmd.py`) runs the forward of each row's batch slice on the
+row's devices; the parameters live once, on `mesh.root`
+(`devices[0, 0]`), and every gradient ends there.
+
+The layout rules are the JAX package's (`gptst_tpu/parallel/mesh.py`),
+with partition specs written as tuples of axis names:
+  * `batch_pspec`: (B, T, N, D) batches over ('data', None, 'graph',
+    None); `shard_batch` splits an axis only when the mesh axis divides
+    it, so a ragged tail batch runs whole on data row 0 (JAX replicates
+    it over 'data': the same math, no batch parallelism);
+  * `param_pspec`: a leaf whose first axis is `num_nodes` (a node table)
+    over 'graph', everything else replicated. In this port every
+    parameter stays whole on `mesh.root` (`shard_params`); only graph
+    aggregation is node-sharded (`ops/graph_conv.ShardedSupport`).
 `shard_rows` / `gather_rows` stand in for placing a tensor with
-`NamedSharding(mesh, P('graph', None))` and reading it back.
+`NamedSharding(mesh, P('graph', None))` on one row and reading it back.
 """
 
 from __future__ import annotations
@@ -51,12 +65,21 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
-    def graph_devices(self) -> list[torch.device]:
-        """The devices of the graph axis, rank by rank."""
-        return list(self.devices[0])
+    def root(self) -> torch.device:
+        """Where the parameters, the optimizer and the loss live."""
+        return self.devices[0, 0]
+
+    def graph_devices(self, row: int) -> list[torch.device]:
+        """The graph axis of data row `row`, rank by rank."""
+        return list(self.devices[row])
+
+    @property
+    def row_devices(self) -> list[torch.device]:
+        """The first device of every data row (where its forward runs)."""
+        return list(self.devices[:, 0])
 
 
-def _normalize(device) -> torch.device:
+def normalize_device(device) -> torch.device:
     """cuda -> cuda:0, cpu:0 -> cpu, so that ranks compare equal to
     the devices of the tensors placed on them."""
     dev = torch.device(device)
@@ -70,17 +93,17 @@ def _normalize(device) -> torch.device:
 def make_mesh(n_devices: Optional[int] = None,
               graph_axis_size: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
-    """A mesh over `devices` (default: every visible CUDA device); a
-    device may repeat. Raises on a mix of CPU and CUDA devices, on a
-    CUDA index past `torch.cuda.device_count()`, and on a data axis
-    above 1."""
+    """A (data, graph) mesh over `devices` (default: every visible CUDA
+    device), shaped by `choose_mesh_shape`; a device may repeat. Raises
+    on a mix of CPU and CUDA devices and on a CUDA index past
+    `torch.cuda.device_count()`."""
     if devices is None:
         count = torch.cuda.device_count()
         if count == 0:
             raise RuntimeError("make_mesh: no CUDA device is visible; pass "
                                "devices=['cpu'] * P to run on the CPU")
         devices = [torch.device("cuda", i) for i in range(count)]
-    devices = [_normalize(d) for d in devices]
+    devices = [normalize_device(d) for d in devices]
     if n_devices is None:
         n_devices = len(devices)
     if not 0 < n_devices <= len(devices):
@@ -97,21 +120,76 @@ def make_mesh(n_devices: Optional[int] = None,
             raise ValueError(f"{d} is not a visible CUDA device "
                              f"({count} visible)")
     d, g = choose_mesh_shape(n_devices, graph_axis_size)
-    if d > 1:
-        raise NotImplementedError(
-            f"a data axis of {d} (batch parallelism) is not ported to "
-            "gptst_tpu_torch yet; it comes with the data-parallel slice. "
-            "Pass graph_axis_size equal to the device count")
     grid = np.empty((d, g), dtype=object)
     for i, dev in enumerate(devices):
         grid[i // g, i % g] = dev
     return Mesh(grid)
 
 
-def shard_rows(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+def batch_pspec() -> tuple:
+    """(B, T, N, D) activations: batch over 'data', nodes over
+    'graph'."""
+    return (DATA_AXIS, None, GRAPH_AXIS, None)
+
+
+def batch_spec(shape: Sequence[int], mesh: Mesh) -> tuple:
+    """The spec `shard_batch` gives a (B, T, N, D) leaf (the JAX
+    package's `batch_sharding` with its divisibility rule): an axis is
+    split only when the mesh axis divides it."""
+    d_ax = DATA_AXIS if shape[0] % mesh.shape[DATA_AXIS] == 0 else None
+    g_ax = GRAPH_AXIS if shape[2] % mesh.shape[GRAPH_AXIS] == 0 else None
+    return (d_ax, None, g_ax, None)
+
+
+def param_pspec(leaf, num_nodes: int) -> tuple:
+    """Node-indexed tables shard their node dimension over 'graph';
+    everything else is replicated."""
+    shape = tuple(getattr(leaf, "shape", ()))
+    if len(shape) >= 1 and shape[0] == num_nodes:
+        return (GRAPH_AXIS,) + (None,) * (len(shape) - 1)
+    return ()
+
+
+def shard_params(model: torch.nn.Module, mesh: Mesh,
+                 num_nodes: int) -> dict[str, tuple]:
+    """The layout of `model`'s parameters on the mesh, by name. Every
+    parameter lives whole on `mesh.root` (the node tables' layout over
+    'graph' is not ported): raises when one lies elsewhere, since the
+    model's graph operands were built beside its parameters."""
+    layout = {}
+    for name, p in model.named_parameters():
+        if p.device != mesh.root:
+            raise ValueError(f"parameter {name} is on {p.device}; build the "
+                             f"model on the mesh's root {mesh.root}")
+        layout[name] = param_pspec(p, num_nodes)
+    return layout
+
+
+def shard_batch(batch, mesh: Mesh):
+    """Split (B, T, N, D) batch leaves (a tensor, or a tuple of them)
+    over the mesh's data rows: row r's slice on its first device, when
+    the data axis divides B; else the whole leaf on data row 0 (one
+    shard). The node axis stays whole: a row's sharded graph support
+    splits it over the row's graph ranks. Returns, per leaf, the list
+    of row shards."""
+
+    def put(a: torch.Tensor) -> list[torch.Tensor]:
+        devs = mesh.row_devices
+        if batch_spec(a.shape, mesh)[0] is None:
+            return [a.to(devs[0])]
+        return [s.to(d) for s, d in zip(a.chunk(len(devs)), devs)]
+
+    if isinstance(batch, torch.Tensor):
+        return put(batch)
+    return type(batch)(put(a) for a in batch)
+
+
+def shard_rows(x: torch.Tensor, mesh: Mesh,
+               row: int = 0) -> list[torch.Tensor]:
     """Split axis -2 of x into P equal row shards, shard p on rank p's
-    device (a view where x already lies there). Differentiable."""
-    devs = mesh.graph_devices
+    device of data row `row` (a view where x already lies there).
+    Differentiable."""
+    devs = mesh.graph_devices(row)
     n = x.shape[-2]
     if n % len(devs):
         raise ValueError(f"{n} rows do not split over {len(devs)} ranks")

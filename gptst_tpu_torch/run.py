@@ -19,7 +19,11 @@ field); the predictor's config fields are `--flags`. Extras:
 at real `.npz` files (and at a `PEMS08/PEMS08.npz` of any node count,
 the way to train above the dataset's own node count), `-device` picks
 the device (default `cuda`; raises when no card is present),
-`-metrics_out` writes the final report as JSON, `-resume True`
+`-metrics_out` writes the final report as JSON, `-use_mesh` (default
+True) trains data-parallel over a (data, graph) mesh of every visible
+card when there are several (`-graph_axis_size` its graph axis, 0 for
+the default split, as in the JAX CLI; one card or `-device cpu` builds
+none), `-resume True`
 restarts from `<log_dir>/<dataset>/full_ckpt.pt` (written every
 `-ckpt_every_epochs` epochs), `-profile_dir` writes a `torch.profiler`
 Chrome trace of the training there, and `-device_seed` is parsed and
@@ -194,6 +198,18 @@ def set_precision(cfg) -> str:
     return prec
 
 
+def mesh_devices(device) -> list:
+    """The devices a CLI mesh may span: every visible CUDA device for a
+    run on the card, only `device` itself otherwise (a CPU run builds no
+    mesh, as the JAX CLI builds none for one device)."""
+    import torch
+
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ns = parse_args(argv)
     cfg = make_config(ns)
@@ -213,6 +229,19 @@ def main(argv: Optional[list[str]] = None) -> int:
     logger.info("dataset=%s mode=%s model=%s device=%s precision=%s",
                 cfg.dataset, cfg.mode, cfg.model, device, prec)
 
+    # several cards: a (data, graph) mesh over all of them, the batch
+    # over 'data' and the node axis of the graph supports over 'graph'
+    # (`parallel/spmd.py`); the parameters live on its root
+    mesh = None
+    devices = mesh_devices(device)
+    if cfg.use_mesh and len(devices) > 1:
+        from gptst_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=devices,
+                         graph_axis_size=cfg.graph_axis_size or None)
+        device = mesh.root
+        logger.info("device mesh: %s", dict(mesh.shape))
+
     init_determinism(cfg.seed, cfg.seed_mode)
     ds = build_dataset(cfg, data_root=cfg.data_root, num_steps=ns.num_steps,
                        seed=cfg.seed)
@@ -229,12 +258,12 @@ def main(argv: Optional[list[str]] = None) -> int:
         pretrain = load_pretrain_params(cfg, ds.scaler_zeros, device)
     model = build_model(build_cfg, device=device, seed=cfg.seed,
                         scaler_zeros=ds.scaler_zeros,
-                        pretrain_params=pretrain)
+                        pretrain_params=pretrain, mesh=mesh)
     count_parameters(model, logger)
 
     os.makedirs(log_dir, exist_ok=True)
     tr = Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
-                 log_dir=log_dir, device=device)
+                 log_dir=log_dir, device=device, mesh=mesh)
     if cfg.mode == "test":
         tr.load_checkpoint(best_path)
         report = tr.test()

@@ -19,35 +19,68 @@ from torch import nn
 from torch.func import functional_call
 
 from gptst_tpu_torch.config.config import FrameworkConfig
+from gptst_tpu_torch.parallel.mesh import Mesh, shard_params
+from gptst_tpu_torch.parallel.spmd import DataParallel
 from gptst_tpu_torch.train.loss import kl_div_sum
 
 
-def _cast_bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16) if t.is_floating_point() else t
+def _cast_bf16(t):
+    if isinstance(t, torch.Tensor) and t.is_floating_point():
+        return t.to(torch.bfloat16)
+    return t
+
+
+def model_forwards(model: nn.Module, cfg: FrameworkConfig,
+                   mesh: Mesh | None = None) -> tuple[Callable, Callable]:
+    """(eval_forward, train_forward) of `model`, each `forward(x, **kw)
+    -> ModelOutput`. The eval forward is f32; the train step's runs,
+    with `cfg.compute_dtype == "bfloat16"`, on a bf16 cast of the
+    trainable parameters, of x and of a tensor `y`. With a `mesh` both
+    run over its data rows (`parallel/spmd.DataParallel`), the
+    parameters placed on its root (`shard_params`)."""
+    if mesh is None:
+        run = model
+
+        def call(params, x, kw):
+            return functional_call(model, params, (x,), kw)
+    else:
+        shard_params(model, mesh, cfg.num_nodes)
+        run = DataParallel(model, mesh)
+
+        def call(params, x, kw):
+            return run(x, params=params, **kw)
+    if cfg.compute_dtype != "bfloat16":
+        return run, run
+
+    def forward(x, **kw):
+        params = {k: _cast_bf16(p) for k, p in model.named_parameters()}
+        return call(params, _cast_bf16(x),
+                    {k: _cast_bf16(v) for k, v in kw.items()})
+
+    return run, forward
 
 
 def make_loss_terms(model: nn.Module, loss_fn: Callable,
-                    cfg: FrameworkConfig) -> Callable:
+                    cfg: FrameworkConfig,
+                    forward: Callable | None = None) -> Callable:
     """Returns loss_terms(x, y, step=None, epoch=None, generator=None)
     -> (total, flow), running `model` (a `ModelOutput` module,
-    `models/build.build_model`). `generator` draws pretrain's mask (and
+    `models/build.build_model`) through `forward` (default the
+    one-device train forward of `model_forwards`; the data-parallel
+    step passes its own). `generator` draws pretrain's mask (and
     a predictor's dropout in the other modes); `epoch` is pretrain's.
     In eval mode the cast reaches only the trainable parameters: the
     frozen encoder, outside them, stays f32."""
     pretrain = cfg.mode == "pretrain"
-    bf16 = cfg.compute_dtype == "bfloat16"
+    if forward is None:
+        forward = model_forwards(model, cfg)[1]
 
     def loss_terms(x, y, step=None, epoch=None, generator=None):
         label = x if pretrain else y
         kw = {"y": y, "step": step, "generator": generator}
         if pretrain:
             kw["epoch"] = epoch
-        if bf16:
-            params = {k: _cast_bf16(p) for k, p in model.named_parameters()}
-            out = functional_call(model, params, (_cast_bf16(x),),
-                                  {**kw, "y": _cast_bf16(y)})
-        else:
-            out = model(x, **kw)
+        out = forward(x, **kw)
         pred = out.pred.float()
         mask = None if out.mask is None else out.mask.float()
         flow = loss_fn(pred, label[..., : cfg.output_dim], mask)

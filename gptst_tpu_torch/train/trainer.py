@@ -32,6 +32,16 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     batch by batch the count the JAX trainer's default dispatch passes
     (`jax_step_counts`), not the number of steps taken.
 
+With a `mesh` (`parallel/mesh.make_mesh`) the trainer is data-parallel,
+as the JAX trainer is under GSPMD: the parameters and the optimizer
+stay whole on `mesh.root` (`shard_params`), and every train, val and
+test batch is split over the data rows (`shard_batch`; a ragged tail
+runs whole on row 0) by `parallel/spmd.DataParallel`, whose step is the
+one-device step's math. The test report gathers the predictions in
+batch order. The generators, the batch order and the step counts do not
+change, and checkpoints hold the root's parameters, so they load into a
+one-device trainer and back.
+
 Best parameters are saved with `torch.save` to `<log_dir>/best_model.pt`
 when `log_dir` is set. Every `ckpt_every_epochs` epochs the full state
 (the model's `state_dict`, `ClippedAdam`'s state and step count, the
@@ -46,7 +56,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -55,8 +65,11 @@ from torch import nn
 from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.data.pipeline import STDataset
 from gptst_tpu_torch.eval.metrics import all_metrics
+from gptst_tpu_torch.parallel.mesh import normalize_device
 from gptst_tpu_torch.train.loss import build_loss
-from gptst_tpu_torch.train.step import make_loss_terms, train_step
+from gptst_tpu_torch.train.step import (
+    make_loss_terms, model_forwards, train_step,
+)
 from gptst_tpu_torch.utils.device import resolve_device
 from gptst_tpu_torch.utils.logger import get_logger
 from gptst_tpu_torch.utils.observability import StepTimer
@@ -200,10 +213,21 @@ class Trainer:
     seed: int = 0
     log_dir: Optional[str] = None
     device: str | torch.device = "cuda"
+    # a (data, graph) mesh: data-parallel train, val and test steps
+    # with the parameters on the mesh's root, which must be `device`
+    mesh: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.logger = get_logger("trainer", debug=self.cfg.debug)
+        if self.mesh is not None:
+            if normalize_device(self.device) != self.mesh.root:
+                raise ValueError(f"Trainer on {self.device} with a mesh "
+                                 f"rooted at {self.mesh.root}")
+            self.device = self.mesh.root
+        # the forward of evaluation (f32) and of the train step
+        self._eval_forward, forward = model_forwards(self.model, self.cfg,
+                                                     self.mesh)
         self.pretrain = self.cfg.mode == "pretrain"
         self.steps_per_epoch = self.dataset.num_batches(
             "train", self.cfg.batch_size)
@@ -214,7 +238,7 @@ class Trainer:
             self.cfg.loss_func, self._stat(s.mean), self._stat(s.std),
             self.cfg.mape_thresh, self.pretrain)
         self._loss_terms = make_loss_terms(self.model, self.loss_fn,
-                                           self.cfg)
+                                           self.cfg, forward)
         self.batch_seen = 0
         self._step_kw: dict = {}
 
@@ -269,7 +293,7 @@ class Trainer:
         self.model.eval()
         total, nb = 0.0, 0
         for xb, yb in self.dataset.batches(split, self.cfg.batch_size):
-            pred = self.model(self._put(xb)).pred.float()
+            pred = self._eval_forward(self._put(xb)).pred.float()
             loss = float(self.loss_fn(
                 pred, self._put(yb)[..., : self.cfg.output_dim], None))
             if not np.isnan(loss):
@@ -364,12 +388,13 @@ class Trainer:
         for xb, yb in self.dataset.batches(split, self.cfg.batch_size):
             x = self._put(xb)
             if self.pretrain:
-                out = self.model(x, generator=gen, epoch=self.cfg.epochs)
+                out = self._eval_forward(x, generator=gen,
+                                         epoch=self.cfg.epochs)
                 mask = out.mask.float()
                 pred = out.pred.float() * mask
                 label = (x[..., :od] * mask).cpu().numpy()
             else:
-                pred = self.model(x, generator=gen).pred.float()
+                pred = self._eval_forward(x, generator=gen).pred.float()
                 label = yb[..., :od]
             preds.append(pred.cpu().numpy())
             trues.append(label)

@@ -23,6 +23,11 @@ from gptst_tpu.graph import io as jio
 from gptst_tpu_torch import native as tnative
 from gptst_tpu_torch.graph import dtw as tdtw
 from gptst_tpu_torch.graph import io as tio
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SPD, DAYS, N = 24, 3, 6
 

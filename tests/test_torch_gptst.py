@@ -51,6 +51,11 @@ from gptst_tpu_torch.ops import param_pool as tpool
 from gptst_tpu_torch.train.loss import build_loss, kl_div_sum
 from gptst_tpu_torch.train.step import make_loss_terms, train_step
 from gptst_tpu_torch.train.trainer import make_optimizer
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, B, T = 12, 2, 12
 SMALL = dict(num_nodes=N, hidden_dim=16, embed_dim=8, embed_dim_spa=4,

@@ -18,6 +18,11 @@ from gptst_tpu.kernels import spmm as jspmm
 from gptst_tpu.ops import graph_conv as jgc
 from gptst_tpu_torch.ops import graph_conv as tgc
 from test_partition import scrambled_band_graph
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(autouse=True)

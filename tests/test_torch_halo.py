@@ -43,6 +43,11 @@ from gptst_tpu_torch.parallel.mesh import (
     gather_rows, make_mesh, shard_rows,
 )
 from gptst_tpu_torch.train.trainer import ClippedAdam
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 
@@ -559,15 +564,17 @@ def test_msdr_under_a_mesh_matches_jax():
 def test_mesh_errors():
     with pytest.raises(ValueError, match="CPU devices or CUDA"):
         make_mesh(devices=["cpu", "cuda:0"], graph_axis_size=2)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        make_mesh(devices=["cpu"] * 4, graph_axis_size=2)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        make_mesh(devices=["cpu"] * 4)      # the default (2, 2) split
+    # a data axis above 1 is ported: the JAX package's shapes
+    assert make_mesh(devices=["cpu"] * 4,
+                     graph_axis_size=2).shape == {"data": 2, "graph": 2}
+    mesh = make_mesh(devices=["cpu"] * 4)      # the default (2, 2) split
+    assert mesh.shape == {"data": 2, "graph": 2}
+    assert mesh.graph_devices(1) == [torch.device("cpu")] * 2
     with pytest.raises(ValueError, match="not a visible CUDA device"):
         make_mesh(devices=[f"cuda:{torch.cuda.device_count()}"])
     mesh = make_mesh(devices=["cpu"] * 3, graph_axis_size=3)
     assert mesh.shape == {"data": 1, "graph": 3}
-    assert mesh.graph_devices == [torch.device("cpu")] * 3
+    assert mesh.graph_devices(0) == [torch.device("cpu")] * 3
     x = torch.arange(12.0).reshape(6, 2)
     torch.testing.assert_close(gather_rows(shard_rows(x, mesh), x.device), x)
     with pytest.raises(ValueError):

@@ -23,6 +23,11 @@ from gptst_tpu_torch.data.pipeline import build_dataset
 from gptst_tpu_torch.eval.metrics import all_metrics
 from gptst_tpu_torch.graph import artifacts
 from gptst_tpu_torch.graph.partition import rcm_order, rcm_order_coo
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("dataset,mode,model", [

@@ -52,6 +52,11 @@ from gptst_tpu_torch.models.predictors.msdr import (
 )
 from gptst_tpu_torch.ops.graph_conv import make_support
 from gptst_tpu_torch.train.trainer import Trainer
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, B, T = 48, 2, 4
 CFG = dict(num_nodes=N, rnn_units=8, num_rnn_layers=2, pre_k=3,

@@ -22,6 +22,11 @@ from gptst_tpu.ops.graph_conv import graph_matmul as jgraph_matmul
 from gptst_tpu_torch.kernels import sddmm as tsddmm
 from gptst_tpu_torch.kernels import spmm as tspmm
 from gptst_tpu_torch.ops.graph_conv import graph_matmul
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(autouse=True)

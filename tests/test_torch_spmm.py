@@ -31,6 +31,11 @@ import torch
 from gptst_tpu.kernels import spmm as jspmm
 from gptst_tpu_torch.kernels import sddmm as tsddmm
 from gptst_tpu_torch.kernels import spmm as tspmm
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}

@@ -21,6 +21,11 @@ them.
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MASK = -8192                    # 0xffffe000: the bits a TF32 value keeps
 TOP = 0x7F7FF000                # |v| from here on rounds up to Inf

@@ -25,6 +25,11 @@ from gptst_tpu.ops.graph_conv import make_support as jmake_support
 from gptst_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from gptst_tpu_torch.models.predictors.tgcn import TGCN, TGCNConfig
 from gptst_tpu_torch.ops.graph_conv import make_support
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, B, U = 48, 3, 8
 

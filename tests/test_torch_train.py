@@ -31,6 +31,11 @@ from gptst_tpu_torch.data.pipeline import build_dataset
 from gptst_tpu_torch.models import build as tbuild
 from gptst_tpu_torch.ops.graph_conv import make_support
 from gptst_tpu_torch.train.trainer import Trainer
+from torch_parity import one_torch_thread
+
+# many tiny torch ops: one intra-op thread (the workers share the cores)
+_ = one_torch_thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CFG = dict(mode="ori", model="TGCN", num_nodes=20, batch_size=16, epochs=2,
            lr_decay=True, lr_decay_step=(1,), early_stop=False, debug=False,
@@ -123,13 +128,13 @@ def test_cli_runs_on_cpu_and_writes_metrics(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Every predictor is ported; a mesh with a data axis above 1 (batch
-    parallelism) is not, and the CLI's default device needs a card."""
+    """Every predictor and a mesh with a data axis above 1 (batch
+    parallelism) are ported; the CLI's default device needs a card."""
     from gptst_tpu_torch.parallel.mesh import make_mesh
     from gptst_tpu_torch.run import main
 
-    with pytest.raises(NotImplementedError, match="the data-parallel slice"):
-        make_mesh(devices=["cpu"] * 4, graph_axis_size=2)
+    assert make_mesh(devices=["cpu"] * 4,
+                     graph_axis_size=2).shape == {"data": 2, "graph": 2}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["-mode", "ori", "-model", "TGCN", "-num_nodes", "12",
