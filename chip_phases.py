@@ -1,15 +1,18 @@
 """Run some phases of `chip_smoke.py` alone, on the card.
 
     python3 chip_phases.py build bsr dia dia_model data_parallel
+    python3 chip_phases.py build ring gptst_graph
     python3 chip_phases.py build cards      # with 2+ cards
 
 Each name is a phase of `chip_smoke.PHASES`, run in the order given,
-or `cards`: the several-card part of `data_parallel` (one data row per
-card and the CLI's mesh). The state that earlier phases leave for later
-ones is made up front: the CLI graph's adjacency and empty
-`bsr_spmm`/`dia_spmm` records. `data_parallel` also needs `dia_model`
-before it (the road graph's support and losses). Prints the phases'
-lines, the kernel records and the card's name and power limit.
+or `cards`: the several-card parts of `data_parallel` (one data row per
+card and the CLI graph's mesh) and of `gptst_graph` (GPT-ST's two graph
+ranks on two cards). The state that earlier phases leave for later
+ones is made up front: the CLI graph's adjacency, its sym-normalized
+form and `bsr_spmm` support, and empty `bsr_spmm`/`dia_spmm` records.
+`data_parallel` also needs `dia_model` before it (the road graph's
+support and losses). Prints the phases' lines, the kernel records and
+the card's name and power limit.
 """
 
 import json
@@ -19,7 +22,8 @@ import time
 
 import chip_smoke as c
 from gptst_tpu_torch.config.config import default_config
-from gptst_tpu_torch.graph.artifacts import random_sensor_graph
+from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
+from gptst_tpu_torch.ops.graph_conv import make_support
 from gptst_tpu_torch.run import set_precision
 
 
@@ -28,11 +32,15 @@ def main(names: list[str]) -> int:
     rec = {"_supports": {}, "bsr_spmm": {"launches_by_path": {}},
            "dia_spmm": {"launches_by_path": {}},
            "_cli_base": random_sensor_graph(c.N_BIG, avg_degree=6, seed=0)}
+    rec["_cli_sym"] = sym_adj(rec["_cli_base"])
+    rec["_supports"]["cli_graph"] = make_support(rec["_cli_sym"],
+                                                 device="cuda")
     for name in names:
-        run = (c.data_parallel_cards if name == "cards"
-               else getattr(c, f"phase_{name}"))
+        runs = ((c.data_parallel_cards, c.gptst_graph_cards)
+                if name == "cards" else (getattr(c, f"phase_{name}"),))
         t0 = time.perf_counter()
-        run(rec)
+        for run in runs:
+            run(rec)
         c.emit(name, done=True, seconds=time.perf_counter() - t0)
     print(json.dumps({k: rec[k] for k in ("bsr_spmm", "dia_spmm")}))
     smi = subprocess.run(

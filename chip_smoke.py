@@ -88,6 +88,21 @@ Phases, one JSON line each; any failure exits non-zero:
              against the one-device loss and gradients; a ragged batch
              of 15 on row 0. With 2 or more cards, TGCN with one data
              row per card, and `run.main` building the CLI's mesh.
+  gptst_graph
+             GPT-ST over the 'graph' axis, f32, 16,384 nodes, batch 8,
+             published widths: (a) pretrain loss and every gradient on a
+             (1, 2) mesh of `[cuda:0, cuda:0]` (nodes split over the two
+             ranks) against the one-device step at epochs (1, 2, 2),
+             both mask branches; (b) the same on (2, 2); ms per step and
+             peak memory of both sides; (c) eval-mode TGCN under (1, 2)
+             (encoder node-sharded, TGCN through a 2-rank halo of the
+             CLI graph) against the one-device eval step (`bsr_spmm`);
+             (d) `dryrun.dryrun_multichip(4)` on 4 ranks of cuda:0: the
+             sharded GPT-ST and TGCN steps and the fused ring
+             (`ring_spmm`, launched) against `adj @ x`. With 2 or more
+             cards, (a) over cuda:0 and cuda:1; with 4, (b) over the
+             four beside GPT-ST whole on each data row's first card,
+             and one profiled step of each.
   gptst_model
              GPT-ST `-mode pretrain` train steps through the library at
              16,384 nodes, PEMS08's published widths, batch 8, f32: one
@@ -206,7 +221,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
-          "data_parallel", "gptst_model", "gptst_cli", "eval_cli",
+          "data_parallel", "gptst_graph", "gptst_model", "gptst_cli", "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
           "predictors_cli", "graph_predictors_cli", "graph_predictors_model",
           "last_predictors_cli", "last_predictors_model", "profile",
@@ -1404,52 +1419,86 @@ def phase_sharded_model(rec: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def grads_of(model, loss_terms, x, y, **kw) -> tuple[float, dict]:
-    """One loss and backward of `loss_terms` on `model`'s parameters
-    (zeros where none reaches the loss); the gradients are cleared."""
+def grads_of(model, loss_terms, x, y, **kw) -> tuple[float, float, dict]:
+    """One loss and backward of `loss_terms` on `model`'s parameters:
+    the total and flow losses and the gradients (zeros where none
+    reaches the loss); the gradients are cleared."""
     import torch
 
     model.zero_grad(set_to_none=True)
-    total, _ = loss_terms(x, y, **kw)
+    total, flow = loss_terms(x, y, **kw)
     total.backward()
     grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
              for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    return float(total.detach()), grads
+    return float(total.detach()), float(flow.detach()), grads
 
 
-def dp_pair(model, loss_fn, cfg, mesh, x, y, seed: int = 0, **kw) -> dict:
-    """The loss and every gradient of `model` on (x, y) one-device and
-    data-parallel over `mesh`, each with a generator seeded `seed` on
-    the card; checks the losses at rtol 1e-5 and the gradients at rtol
+def dp_pair(model, loss_fn, cfg, mesh, x, y, seed: int = 0,
+            epochs: tuple = (None,),
+            sides: tuple = ("one_device", "data_parallel")) -> dict:
+    """The losses and every gradient of `model` on (x, y), one step at
+    each epoch of `epochs` (None: no epoch argument), on each of
+    `sides`: `one_device`, `data_parallel` over `mesh` (a GPT-ST whole
+    on each data row's first device) and `sharded` (GPT-ST node-sharded
+    over the mesh's graph axis, `GPTST.mesh`). Each side runs its steps
+    twice with a generator seeded `seed` on the card, a warm pass and a
+    timed one (host clock, every card of the mesh synchronized), whose
+    peak memory is read on each card. Every side is held to the first:
+    the losses and flow losses at rtol 1e-5, the gradients at rtol
     1e-4 with an atol of 1e-5 of each tensor's largest entry. Returns
-    the losses, the errors and ms of each side (host clock, synchronized,
-    the second of two calls)."""
+    each side's losses, flow losses, ms per step and peaks, and the
+    largest gradient error."""
     import numpy as np
     import torch
 
     from gptst_tpu_torch.train.step import make_loss_terms, model_forwards
 
+    cards = sorted({d.index for d in mesh.devices.flat})
+    gptst = getattr(model, "gptst", None)
+    kept = getattr(gptst, "mesh", None)
     out = {}
-    for side, forward in (("one_device", None),
-                          ("data_parallel",
-                           model_forwards(model, cfg, mesh)[1])):
+    for side in sides:
+        if gptst is not None:
+            gptst.mesh = mesh if side == "sharded" else None
+        forward = (None if side == "one_device"
+                   else model_forwards(model, cfg, mesh)[1])
         terms = make_loss_terms(model, loss_fn, cfg, forward=forward)
-        for _ in range(2):
+        for _ in ("warm", "timed"):
             gen = torch.Generator(device="cuda").manual_seed(seed)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, grads = grads_of(model, terms, x, y, generator=gen, **kw)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        out[side] = (loss, grads, dt * 1e3)
-    (l1, g1, ms1), (l2, g2, ms2) = out["one_device"], out["data_parallel"]
-    np.testing.assert_allclose(l2, l1, rtol=1e-5)
-    errs = assert_grads_close({k: v.cpu() for k, v in g2.items()},
-                              {k: v.cpu() for k, v in g1.items()},
-                              "data_parallel")
-    return dict(loss=l1, dp_loss=l2, max_grad_err=max(errs.values()),
-                ms_one_device=ms1, ms_data_parallel=ms2)
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            steps = []
+            for epoch in epochs:
+                kw = {} if epoch is None else {"epoch": epoch}
+                for c in cards:
+                    torch.cuda.synchronize(c)
+                t0 = time.perf_counter()
+                total, flow, grads = grads_of(model, terms, x, y,
+                                              generator=gen, **kw)
+                for c in cards:
+                    torch.cuda.synchronize(c)
+                ms = (time.perf_counter() - t0) * 1e3
+                steps.append((total, flow,
+                              {k: v.cpu() for k, v in grads.items()}, ms))
+        out[side] = (steps, {f"cuda:{c}": torch.cuda.max_memory_allocated(c)
+                             for c in cards})
+    if gptst is not None:
+        gptst.mesh = kept
+    errs = {}
+    for side in sides[1:]:
+        for (t1, f1, g1, _), (t2, f2, g2, _) in zip(out[sides[0]][0],
+                                                    out[side][0]):
+            np.testing.assert_allclose([t2, f2], [t1, f1], rtol=1e-5)
+            errs.update({k: max(v, errs.get(k, 0.0)) for k, v in
+                         assert_grads_close(g2, g1, side).items()})
+    line = {side: dict(losses=[s[0] for s in steps],
+                       flow_losses=[s[1] for s in steps],
+                       ms=[s[3] for s in steps],
+                       ms_per_step=statistics.mean(s[3] for s in steps),
+                       max_memory_allocated=mem)
+            for side, (steps, mem) in out.items()}
+    return dict(epochs=list(epochs), max_grad_err=max(errs.values()), **line)
 
 
 def row_widths(kernel, plain, st) -> dict:
@@ -1624,13 +1673,10 @@ def phase_data_parallel(rec: dict) -> None:
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (GPTST_BATCH, gcfg.lag, N_BIG, 3), np.float32)).cuda()
     loss_fn = build_loss("mask_mae", 200.0, 100.0, 0.0, True)
-    for epoch in (1, 2):
-        torch.cuda.reset_peak_memory_stats()
-        line = dp_pair(model, loss_fn, gcfg, mesh, x, x, epoch=epoch)
-        emit("data_parallel", case="c", model="GPT-ST", mode="pretrain",
-             nodes=N_BIG, batch=GPTST_BATCH, epoch=epoch,
-             change_epoch=gcfg.change_epoch, mesh=mesh.shape,
-             max_memory_allocated=torch.cuda.max_memory_allocated(), **line)
+    line = dp_pair(model, loss_fn, gcfg, mesh, x, x, epochs=(1, 2))
+    emit("data_parallel", case="c", model="GPT-ST", mode="pretrain",
+         nodes=N_BIG, batch=GPTST_BATCH, change_epoch=gcfg.change_epoch,
+         mesh=mesh.shape, **line)
     del model, x
     torch.cuda.empty_cache()
 
@@ -1707,6 +1753,165 @@ def data_parallel_cards(rec: dict) -> None:
          mesh=mesh.shape, ranks=["cuda:0", "cuda:1"], ms_per_step=ms,
          one_card_ms_per_step=one_ms, losses=losses,
          one_card_losses=one_losses, row_launches=rows, cli_log=logged[0])
+
+
+def phase_gptst_graph(rec: dict) -> None:
+    """GPT-ST over the 'graph' axis (`models/gptst.py`), f32 with TF32
+    off, at 16,384 nodes, batch 8, PEMS08's published widths, seed-0
+    weights: (a) pretrain loss and gradients on a (1, 2) mesh of
+    `[cuda:0, cuda:0]` against the one-device step at epochs (1, 2, 2)
+    (both mask branches, the KL term from epoch 2), ms per step and peak
+    memory of both; (b) the same on (2, 2); (c) eval-mode TGCN train
+    steps under (1, 2), the encoder node-sharded and TGCN through a
+    2-rank halo of the CLI graph, against the one-device eval step on
+    the CLI graph's `bsr_spmm` support (losses rtol 1e-4); (d)
+    `dryrun.dryrun_multichip(4, devices=[cuda:0] * 4)`, whose fused
+    ring launches `ring_spmm` (counted from 0 around the call) and must
+    agree with `adj @ x` within `TOL["f32"]`. With 2 or more cards, (a)
+    again over cuda:0 and cuda:1 (`gptst_graph_cards`)."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.dryrun import dryrun_multichip
+    from gptst_tpu_torch.graph import partition as P
+    from gptst_tpu_torch.kernels import spmm as K
+    from gptst_tpu_torch.ops.graph_conv import make_sharded_support
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+    from gptst_tpu_torch.train.loss import build_loss
+
+    gcfg = gptst_cfg(batch_size=GPTST_BATCH)
+    model = gptst_net(gcfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (GPTST_BATCH, gcfg.lag, N_BIG, 3), np.float32)).cuda()
+    loss_fn = build_loss("mask_mae", 200.0, 100.0, 0.0, True)
+    for case, (d, g) in (("a", (1, 2)), ("b", (2, 2))):
+        mesh = make_mesh(devices=["cuda:0"] * (d * g), graph_axis_size=g)
+        line = dp_pair(model, loss_fn, gcfg, mesh, x, x, epochs=(1, 2, 2),
+                       sides=("one_device", "sharded"))
+        emit("gptst_graph", case=case, model="GPT-ST", mode="pretrain",
+             nodes=N_BIG, batch=GPTST_BATCH, mesh=mesh.shape,
+             ranks=["cuda:0"] * (d * g), **line)
+    del model, x
+    torch.cuda.empty_cache()
+
+    # (c) eval TGCN: the one-device step on the CLI graph's block-CSR
+    # support, and under (1, 2) with the encoder node-sharded and a
+    # 2-rank halo partition of the same matrix
+    mesh = make_mesh(devices=["cuda:0"] * 2, graph_axis_size=2)
+    sym = rec["_cli_sym"]
+    rows, cols = np.nonzero(sym)
+    t0 = time.perf_counter()
+    halo = make_sharded_support(None, mesh, part=P.partition_graph_coo(
+        rows, cols, sym[rows, cols], N_BIG, 2))
+    build_s = time.perf_counter() - t0
+    del rows, cols
+    runs = {}
+    for side, sup, m in (("one_device", rec["_supports"]["cli_graph"], None),
+                         ("sharded", halo, mesh)):
+        net = eval_net(sup).to("cuda")
+        net.encoder.mesh = m
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, launches, _ = train_steps("TGCN", net, BATCH, 1, 2,
+                                              mesh=m)
+        runs[side] = dict(losses=losses, ms_per_step=ms, launches=launches,
+                          max_memory_allocated=
+                          torch.cuda.max_memory_allocated())
+        del net
+        torch.cuda.empty_cache()
+    np.testing.assert_allclose(runs["sharded"]["losses"],
+                               runs["one_device"]["losses"], rtol=1e-4)
+    assert runs["one_device"]["launches"]["bsr_spmm"] > 0, runs
+    assert not any(runs["sharded"]["launches"].values()), runs  # matmuls
+    emit("gptst_graph", case="c", model="eval TGCN", nodes=N_BIG,
+         batch=BATCH, mesh=mesh.shape, ranks=["cuda:0"] * 2,
+         graph=f"random_sensor_graph({N_BIG}) CLI graph", kind=halo.kind,
+         halo_build_s=build_s, **runs)
+    del halo
+    torch.cuda.empty_cache()
+
+    # (d) the dry run on 4 ranks of the card: its ring_spmm launches
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4, devices=["cuda:0"] * 4)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    assert launches["ring_spmm"] > 0, launches
+    err = compare(torch.from_numpy(out["fused_ring"]),
+                  torch.from_numpy(out["adj_x"]), "f32")
+    ring_err = compare(torch.from_numpy(out["ring"]),
+                       torch.from_numpy(out["adj_x"]), "f32")
+    rec.setdefault("ring_spmm", {}).setdefault("launches_by_path", {})[
+        "dryrun_multichip"] = launches["ring_spmm"]
+    emit("gptst_graph", case="d", entry="dryrun.dryrun_multichip(4)",
+         ranks=["cuda:0"] * 4, mesh=out["mesh"], graph_mesh=out["graph_mesh"],
+         nodes=out["num_nodes"], gptst_losses=out["gptst_losses"],
+         tgcn_loss=out["tgcn_loss"], launches=launches,
+         fused_ring_max_abs_err=err, ring_max_abs_err=ring_err,
+         tol=dict(zip(("rtol", "atol"), TOL["f32"])), seconds=seconds)
+    gptst_graph_cards(rec)
+
+
+def gptst_graph_cards(rec: dict) -> None:
+    """With 2 or more cards: (a) with its two ranks on cuda:0 and
+    cuda:1, against the one-device step on cuda:0; each card's peak
+    memory and both step times. With 4, (b) with one rank per card
+    beside the same (2, 2) mesh with GPT-ST whole on each data row's
+    first card (cuda:0 and cuda:2, a model copy on cuda:2: the layout
+    before GPT-ST was node-sharded), and one profiled step of each of
+    the two at epoch 2. On one card it prints that it did not run."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+    from gptst_tpu_torch.train.loss import build_loss
+    from gptst_tpu_torch.train.step import make_loss_terms, model_forwards
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("gptst_graph", case="cards", ran=False, cards=count)
+        return
+    gcfg = gptst_cfg(batch_size=GPTST_BATCH)
+    model = gptst_net(gcfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (GPTST_BATCH, gcfg.lag, N_BIG, 3), np.float32)).cuda()
+    loss_fn = build_loss("mask_mae", 200.0, 100.0, 0.0, True)
+    for n in (2, 4)[:1 + (count >= 4)]:
+        ranks = [f"cuda:{i}" for i in range(n)]
+        mesh = make_mesh(devices=ranks, graph_axis_size=2)
+        sides = ("one_device",) + ("data_parallel",) * (n == 4) + (
+            "sharded",)
+        line = dp_pair(model, loss_fn, gcfg, mesh, x, x, epochs=(1, 2, 2),
+                       sides=sides)
+        emit("gptst_graph", case="cards", ran=True, cards=count,
+             model="GPT-ST", mode="pretrain", nodes=N_BIG,
+             batch=GPTST_BATCH, mesh=mesh.shape, ranks=ranks, **line)
+    if count >= 4:
+        for side in ("data_parallel", "sharded"):
+            model.gptst.mesh = mesh if side == "sharded" else None
+            terms = make_loss_terms(model, loss_fn, gcfg,
+                                    forward=model_forwards(model, gcfg,
+                                                           mesh)[1])
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            grads_of(model, terms, x, x, generator=gen, epoch=2)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for c in range(4):
+                        torch.cuda.synchronize(c)
+                    t0 = time.perf_counter()
+                    grads_of(model, terms, x, x, generator=gen, epoch=2)
+                    for c in range(4):
+                        torch.cuda.synchronize(c)
+                    ms = (time.perf_counter() - t0) * 1e3
+                prof.export_chrome_trace(path)
+                profile_line(f"gptst_graph_cards_{side}", ms, path, steps=1,
+                             mesh=mesh.shape, ranks=ranks, epoch=2)
+        model.gptst.mesh = None
+    del model, x
+    torch.cuda.empty_cache()
 
 
 def gptst_cfg(**kw):
@@ -2095,22 +2300,27 @@ KERNEL_GROUPS = (
 
 def profile_line(run: str, ms: float, path: str, steps: int = 2,
                  **extra) -> None:
-    """Device ms per step by kernel group, the busy share and the 10
-    costliest kernels of a profiler trace of `steps` train steps
-    (`extra` joins the line)."""
+    """Device ms per step by kernel group, the busy share (of all cards
+    together, and of each card) and the 10 costliest kernels of a
+    profiler trace of `steps` train steps (`extra` joins the line)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     kern = [e for e in events if e.get("ph") == "X"
             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     groups: dict = {}
     names: dict = {}
+    cards: dict = {}
     for e in kern:
         g = next((v for k, v in KERNEL_GROUPS if k in e["name"]), "other")
         groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3 / steps
         names[e["name"]] = names.get(e["name"], 0.0) + e["dur"] / 1e3 / steps
+        c = f"cuda:{e.get('args', {}).get('device', e.get('pid'))}"
+        cards[c] = cards.get(c, 0.0) + e["dur"] / 1e3 / steps
     busy = sum(groups.values())
     emit("profile", run=run, ms_per_step_profiled=ms,
          device_ms_per_step=busy, device_busy_share=busy / ms,
+         device_busy_share_by_card={c: v / ms for c, v in sorted(
+             cards.items())},
          kernels_per_step=len(kern) / steps,
          device_ms_by_group=dict(sorted(groups.items(),
                                         key=lambda kv: -kv[1])),

@@ -16,6 +16,7 @@ and DMVSTNET.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable
 
@@ -179,19 +180,22 @@ class PretrainModel(nn.Module):
 
 
 def build_pretrain(cfg: FrameworkConfig, scaler_zeros: float = 0.0,
-                   device="cuda", seed: int | None = None) -> PretrainModel:
+                   device="cuda", seed: int | None = None,
+                   mesh=None) -> PretrainModel:
     """GPT-ST masked-autoencoder pretraining model on `device`, its
-    parameters drawn from `seed` (default `cfg.seed`)."""
+    parameters drawn from `seed` (default `cfg.seed`); with `mesh`,
+    node-sharded over its graph axis (`models/gptst.py`)."""
     from gptst_tpu_torch.models.gptst import GPTST, GPTSTConfig
 
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    net = GPTST(GPTSTConfig.from_framework(cfg, scaler_zeros), gen)
+    net = GPTST(GPTSTConfig.from_framework(cfg, scaler_zeros), gen, mesh)
     return PretrainModel(net).to(resolve_device(device))
 
 
 def build_enhanced(cfg: FrameworkConfig, scaler_zeros: float,
                    encoder_or_state, adj: np.ndarray | None = None,
-                   device="cuda", seed: int | None = None) -> nn.Module:
+                   device="cuda", seed: int | None = None,
+                   mesh=None) -> nn.Module:
     """Eval mode (`model/Model.py:106-117`): the frozen GPT-ST encoder,
     the Fusion head and the predictor at `dim_in = hidden_dim`.
 
@@ -199,7 +203,10 @@ def build_enhanced(cfg: FrameworkConfig, scaler_zeros: float,
     `PretrainModel`) or its `state_dict` (the pretrain checkpoint),
     loaded strictly into `build_pretrain(cfg.replace(mode="pretrain"))`'s
     GPT-ST. The head is drawn from a generator seeded with `seed`
-    (default `cfg.seed`), the predictor from `seed + 1`."""
+    (default `cfg.seed`), the predictor from `seed + 1`. With `mesh` the
+    encoder runs node-sharded over its graph axis: a GPT-ST passed in
+    is left as it is, the model holds a shallow copy of it (the same
+    parameters) whose `mesh` is set."""
     from gptst_tpu_torch.models.enhance import EnhanceHead, EnhancedModel
 
     dev = resolve_device(device)
@@ -207,10 +214,13 @@ def build_enhanced(cfg: FrameworkConfig, scaler_zeros: float,
     encoder = encoder_or_state
     if isinstance(encoder, PretrainModel):
         encoder = encoder.gptst
-    elif not isinstance(encoder, nn.Module):
+    if isinstance(encoder, nn.Module):
+        encoder = copy.copy(encoder)
+    else:
         encoder = build_pretrain(cfg.replace(mode="pretrain"), scaler_zeros,
                                  dev, seed).gptst
         encoder.load_state_dict(encoder_or_state, strict=True)
+    encoder.mesh = mesh
     head = EnhanceHead(cfg.hidden_dim, cfg.input_base_dim,
                        torch.Generator().manual_seed(seed))
     predictor = build_predictor(cfg, dim_in=cfg.hidden_dim, adj=adj,
@@ -232,11 +242,14 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
     model is data-parallel over the mesh's data rows in the trainer
     (`parallel/spmd.py`), and with a graph axis above 1 the predictor's
     graph supports are built node-sharded on every data row's graph
-    ranks (`ops/graph_conv.make_sharded_support`). Node tables and
-    dense graph operands stay whole on each row's first device; under a
-    graph axis above 1 one WARNING says so."""
+    ranks (`ops/graph_conv.make_sharded_support`), and GPT-ST (pretrain,
+    and eval's frozen encoder) runs node-sharded on them when the graph
+    axis divides `num_nodes` (`models/gptst.py`). The predictors' node
+    tables and dense graph operands stay whole on each row's first
+    device, and so does a GPT-ST whose node count the graph axis does
+    not divide: one WARNING says so (`warn_whole_node_tables`)."""
     if cfg.mode == "pretrain":
-        model = build_pretrain(cfg, scaler_zeros, device, seed)
+        model = build_pretrain(cfg, scaler_zeros, device, seed, mesh)
     else:
         with use_sharding_mesh(mesh):
             if cfg.mode == "eval":
@@ -245,7 +258,7 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
                                      "(the pretrained GPT-ST or its state "
                                      "dict)")
                 model = build_enhanced(cfg, scaler_zeros, pretrain_params,
-                                       adj, device, seed)
+                                       adj, device, seed, mesh)
             else:
                 model = predictor_forward(cfg, build_predictor(
                     cfg, adj=adj, device=device, seed=seed))
@@ -259,12 +272,17 @@ def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
     """One WARNING when a model under a graph axis above 1 keeps node
     tables (parameters whose first axis is `num_nodes`, which the JAX
     package shards over 'graph'), a GPT-ST, or a dense graph operand
-    whole on each data row's first device."""
+    whole on each data row's first device. GPT-ST runs node-sharded
+    when the graph axis divides `num_nodes`: then neither it nor its
+    tables count."""
     from gptst_tpu_torch.ops.graph_conv import ShardedSupport
     from gptst_tpu_torch.utils.logger import get_logger
 
+    gptst = (cfg.mode in ("pretrain", "eval")
+             and cfg.num_nodes % mesh.shape[GRAPH_AXIS] != 0)
     tables = [k for k, p in model.named_parameters()
-              if p.dim() and p.shape[0] == cfg.num_nodes]
+              if p.dim() and p.shape[0] == cfg.num_nodes
+              and (gptst or not k.startswith("gptst."))]
 
     def flat(graph):
         for g in graph:
@@ -275,14 +293,14 @@ def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
 
     dense = [g for m in model.modules() if isinstance(m, GraphPredictor)
              for g in flat(m.graph) if not isinstance(g, ShardedSupport)]
-    gptst = cfg.mode in ("pretrain", "eval")
     if tables or dense or gptst:
         name = "GPT-ST" if cfg.mode == "pretrain" else cfg.model
         get_logger("build", debug=cfg.debug).warning(
             "%s under a graph axis of %d: %d node tables%s%s stay whole on "
-            "each data row's first device (the same math; their layout "
-            "over 'graph' is ROADMAP.md Queue 1, GPT-ST's and the dense "
-            "predictors' node tables)", name, mesh.shape[GRAPH_AXIS],
+            "each data row's first device (the same math; the dense "
+            "predictors' node tables over 'graph' are ROADMAP.md Queue 1; "
+            "GPT-ST runs whole only where the graph axis does not divide "
+            "its node count)", name, mesh.shape[GRAPH_AXIS],
             len(tables), ", the GPT-ST" if gptst else "",
             f", {len(dense)} graph operands" if dense else "")
 

@@ -13,6 +13,11 @@ optimizer, the global-norm clip and `state_dict()` see `head.*` and
 encoder runs under `torch.no_grad()` (JAX's `stop_gradient`) and in
 f32 whatever the trainable tree's dtype (the bf16 cast of
 `train/step.py` reaches only the trainable parameters, as in JAX).
+Under a mesh (`models/build.build_enhanced(mesh=...)`) the encoder runs
+node-sharded over the calling data row's graph ranks and gathers its
+(B, T, N, hidden) embedding on the row's first device, where the head
+and the predictor (its aggregation through its own sharded support)
+read it.
 
 State-dict keys of `EnhancedModel` (`best_model.pt` in eval mode):
   head.proj.{weight,bias}            (hidden, base)   flax head Dense_0

@@ -15,6 +15,28 @@ Differences of form from the JAX package, not of math:
     batch's guide and each data row takes its rows of it
     (`parallel/rows.on_global_batch`).
 
+Node-sharded over a mesh's 'graph' axis (`GPTST.mesh`, set by
+`models/build.py`; G ranks when G > 1 divides N, else whole on the
+row's first device, as the JAX package's `batch_spec` replicates such a
+node axis): rank g holds nodes `NodeShards.node_range(g)` of every
+(B, T, N, .) activation and (B, T, HS, N) routing tensor of the trunks,
+the mask policy and the output projection, and reads its rows of the
+node tables (and of `Cap.adj`'s node axis) and every other parameter
+through `.to()` (the gradients meet on the parameters' device). The
+ranks meet only where the one-device math couples nodes, in program
+order:
+  * the time embeddings read node 0's calendar channels: computed once
+    from the row's whole input and copied to each rank;
+  * the mask: drawn once from the guide gathered over the row's ranks
+    (and over the data rows), each rank taking its nodes;
+  * Cap's sums over nodes (the routing's two, `ops/capsule.py`, and the
+    cluster sum s): per-rank partials summed on the row's first device
+    (`NodeShards.node_sum`), the node-free cluster stage run there once
+    and its result copied to each rank;
+  * what the loss reads (flow_out, the mask, the guide, the first
+    routing) is gathered on the row's first device; the decoder
+    output, which no loss reads, is not (`out_time` is None then).
+
 Initialization is the reference's effective one (pretrain configs set
 `xavier=True`, so every >1-D parameter is xavier-uniform and every 1-D
 one uniform[0, 1)), drawn from the `generator` passed to the module.
@@ -53,7 +75,8 @@ from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.ops.capsule import dynamic_routing, squash
 from gptst_tpu_torch.ops.param_pool import node_param_linear, time_param_linear
 from gptst_tpu_torch.ops.recurrent import remat_cell
-from gptst_tpu_torch.parallel.rows import on_global_batch
+from gptst_tpu_torch.parallel.mesh import NodeShards, node_shards
+from gptst_tpu_torch.parallel.rows import current_row, on_global_batch
 
 
 def xavier_limit(shape: tuple[int, ...]) -> float:
@@ -67,6 +90,16 @@ def xavier_limit(shape: tuple[int, ...]) -> float:
 def _xavier(shape: tuple[int, ...], gen: torch.Generator) -> nn.Parameter:
     lim = xavier_limit(shape)
     return nn.Parameter(torch.rand(shape, generator=gen) * (2 * lim) - lim)
+
+
+def _at(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Parameter t on x's rank (t itself when it lies there)."""
+    return t.to(x.device)
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`lin(x)` on x's rank."""
+    return F.linear(x, _at(lin.weight, x), _at(lin.bias, x))
 
 
 def _dense(din: int, dout: int, gen: torch.Generator) -> nn.Linear:
@@ -162,13 +195,15 @@ class HyperTem(nn.Module):
         self.bias_pool = _xavier((embed_dim, dim_out), gen)
 
     def forward(self, eb, node_emb, time_eb):
+        """Per node: on a rank, eb and node_emb are its nodes' shard and
+        rows, time_eb its copy."""
         # (N, E) x (E, H, T) -> (H, T, N)
         adj_dyn = torch.einsum("nk,kht->nht", node_emb,
-                               self.adj).permute(1, 2, 0)
+                               _at(self.adj, eb)).permute(1, 2, 0)
         hyper = torch.einsum("htn,btnd->bhnd", adj_dyn, eb)
         ret = torch.einsum("thn,bhnd->btnd", adj_dyn.permute(1, 0, 2), hyper)
-        out = time_param_linear(ret, time_eb, self.weights_pool,
-                                self.bias_pool)
+        out = time_param_linear(ret, time_eb, _at(self.weights_pool, eb),
+                                _at(self.bias_pool, eb))
         return F.leaky_relu(out + eb)
 
 
@@ -180,7 +215,12 @@ class Cap(nn.Module):
     and LeakyReLU.
 
     Returns (out, routing c, dynamic inter-cluster incidence), the last
-    two detached as in the reference."""
+    two detached as in the reference.
+
+    With `shards` (`parallel/mesh.NodeShards`), x, node_emb and teb are
+    lists, each rank's node shard, its rows of the node table and its
+    copy of teb, and so are out and c; time_eb_spg and the cluster stage
+    (B, HS*T, D) live on the row's first device."""
 
     def __init__(self, dim: int, num_nodes: int, timesteps: int,
                  embed_dim: int, embed_dim_spa: int, hs: int, ht: int,
@@ -193,27 +233,43 @@ class Cap(nn.Module):
         self.bias_spa = _xavier((embed_dim, dim), gen)
         self.dense = nn.ModuleList([_dense(dim, dim, gen)])
 
-    def forward(self, x, node_emb, time_eb_spg, teb):
-        B, T, _, D = x.shape
-        pcaps = squash(self.dense[0](x))                          # (B,T,N,D)
-        dadj = torch.einsum("btd,dhn->bthn", teb, self.adj)       # (B,T,HS,N)
-        c = dynamic_routing(pcaps, dadj, self.num_route)          # (B,T,HS,N)
+    def forward(self, x, node_emb, time_eb_spg, teb,
+                shards: NodeShards | None = None):
+        whole = shards is None
+        if whole:
+            shards = NodeShards((x.device,), x.shape[2])
+            x, node_emb, teb = [x], [node_emb], [teb]
+        adj = shards.split(self.adj, dim=-1)
+        pcaps = [squash(_linear(self.dense[0], xg)) for xg in x]  # (B,T,N,D)
+        dadj = [torch.einsum("btd,dhn->bthn", tg, ag)             # (B,T,HS,N)
+                for tg, ag in zip(teb, adj)]
+        c = dynamic_routing(pcaps, dadj, self.num_route, shards)  # (B,T,HS,N)
 
-        s = torch.einsum("bthn,btnd->bthd", c, pcaps)             # (B,T,HS,D)
-        time_index = (torch.arange(1, T + 1, dtype=x.dtype, device=x.device)
+        s = shards.node_sum([torch.einsum("bthn,btnd->bthd", cg, pg)
+                             for cg, pg in zip(c, pcaps)])      # (B,T,HS,D)
+        B, T, _, D = s.shape
+        time_index = (torch.arange(1, T + 1, dtype=s.dtype, device=s.device)
                       / 12.0)[None, :, None, None]
         hyper_spa = (s + time_index).reshape(B, self.hs * T, D)
 
-        dyn = torch.einsum("bd,dhk->bhk", time_eb_spg, self.t_adj)  # (B,HT,TT)
+        dyn = torch.einsum("bd,dhk->bhk", time_eb_spg,
+                           _at(self.t_adj, s))                  # (B,HT,TT)
         hyper_tem = F.leaky_relu(torch.einsum("bhk,bkd->bhd", dyn, hyper_spa))
         ret_tem = F.leaky_relu(torch.einsum(
             "bkh,bhd->bkd", dyn.transpose(1, 2), hyper_tem))
         ret = ret_tem.reshape(B, T, self.hs, D) + s
 
-        recon = torch.einsum("bthn,bthd->btnd", c, squash(ret))
-        out = node_param_linear(recon, node_emb, self.weights_spa,
-                                self.bias_spa)
-        return F.leaky_relu(out + x), c.detach(), dyn.detach()
+        out = []
+        for xg, cg, rg, ng in zip(x, c, shards.replicate(squash(ret)),
+                                  node_emb):
+            recon = torch.einsum("bthn,bthd->btnd", cg, rg)
+            og = node_param_linear(recon, ng, _at(self.weights_spa, xg),
+                                   _at(self.bias_spa, xg))
+            out.append(F.leaky_relu(og + xg))
+        c = [cg.detach() for cg in c]
+        if whole:
+            return out[0], c[0], dyn.detach()
+        return out, c, dyn.detach()
 
 
 class MLPRL(nn.Module):
@@ -232,19 +288,23 @@ class MLPRL(nn.Module):
                                     _dense(h, dim_out, gen)])
 
     def forward(self, eb, time_eb, node_eb):
-        h = self.dense[0](eb)
+        """Per node, as `HyperTem.forward`."""
+        h = _linear(self.dense[0], eb)
         h = F.leaky_relu(node_param_linear(
-            h, node_eb, self.weights_pool_spa, self.bias_pool_spa))
+            h, node_eb, _at(self.weights_pool_spa, h),
+            _at(self.bias_pool_spa, h)))
         h = F.leaky_relu(time_param_linear(
-            h, time_eb, self.weights_pool_tem, self.bias_pool_tem))
-        return self.dense[1](h)
+            h, time_eb, _at(self.weights_pool_tem, h),
+            _at(self.bias_pool_tem, h)))
+        return _linear(self.dense[1], h)
 
 
 class STHCN(nn.Module):
     """Encoder/decoder trunk: hyperTem1 -> cap1 -> hyperTem2 ->
     hyperTem3 -> cap2 -> hyperTem4, with the time embeddings computed
     once from node 0's calendar channels. Returns (out, routing of cap1,
-    routing of cap2)."""
+    routing of cap2); with `shards`, x_in and the results are lists of
+    the ranks' node shards, and `source` is the row's whole input."""
 
     def __init__(self, cfg: GPTSTConfig, gen: torch.Generator):
         super().__init__()
@@ -262,25 +322,34 @@ class STHCN(nn.Module):
                 c.embed_dim_spa, c.HS, c.HT, c.num_route, gen)
             for _ in range(2)])
 
-    def forward(self, source, x_in):
+    def forward(self, source, x_in, shards: NodeShards | None = None):
+        whole = shards is None
+        if whole:
+            shards = NodeShards((x_in.device,), x_in.shape[2])
+            x_in = [x_in]
         b = self.cfg.input_base_dim
         tcat = source[:, :, 0, b:b + 2]
-        time_eb = self.time_feature[0](tcat)
-        teb = self.time_feature[1](tcat)
+        time_eb = shards.replicate(self.time_feature[0](tcat))
+        teb = shards.replicate(self.time_feature[1](tcat))
         time_eb_spg = self.time_feature_spg(tcat)
-        node_emb, node_emb_spg = self.node_embeddings, self.node_embeddings_spg
+        node_emb = shards.split(self.node_embeddings, dim=0)
+        node_emb_spg = shards.split(self.node_embeddings_spg, dim=0)
 
         def ht(i, x):
-            return remat_cell(self.hyper_tem[i], self.cfg.remat)(
-                x, node_emb, time_eb)
+            cell = remat_cell(self.hyper_tem[i], self.cfg.remat)
+            return [cell(xg, ng, tg)
+                    for xg, ng, tg in zip(x, node_emb, time_eb)]
 
         def cap(i, x):
             return remat_cell(self.cap[i], self.cfg.remat)(
-                x, node_emb_spg, time_eb_spg, teb)
+                x, node_emb_spg, time_eb_spg, teb, shards)
 
         xg1, hs1, _ = cap(0, ht(0, x_in))
         xg3, hs3, _ = cap(1, ht(2, ht(1, xg1)))
-        return ht(3, xg3), hs1, hs3
+        out = ht(3, xg3)
+        if whole:
+            return out[0], hs1[0], hs3[0]
+        return out, hs1, hs3
 
 
 def _rank_desc(score: torch.Tensor) -> torch.Tensor:
@@ -363,11 +432,15 @@ def generate_mask(cfg: GPTSTConfig, generator: torch.Generator,
 
 class GPTST(nn.Module):
     """The pretrain network: `pretrain` (masked autoencoding) and
-    `encode` (the frozen encoder's embedding)."""
+    `encode` (the frozen encoder's embedding), node-sharded over the
+    graph ranks of the calling data row when `mesh` is set (see the
+    module docstring)."""
 
     def __init__(self, cfg: GPTSTConfig,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         super().__init__()
+        # a `parallel/mesh.Mesh`, or None: one device
+        self.mesh = mesh
         c = self.cfg = cfg
         gen = generator if generator is not None else torch.Generator()
         self.dim_in_flow = _dense(c.input_base_dim, c.hidden_dim, gen)
@@ -379,20 +452,31 @@ class GPTST(nn.Module):
         self.teb4mask = TimeFeature(c.embed_dim, gen)
         self.neb4mask = _xavier((c.num_nodes, c.embed_dim), gen)
 
-    def policy(self, source: torch.Tensor) -> torch.Tensor:
-        """The mask policy's (B, T, N, HS) softmax."""
+    def shards(self, source: torch.Tensor) -> NodeShards:
+        """The node shards of the calling data row (row 0 outside a
+        data-parallel forward), or one shard on source's device."""
+        return node_shards(self.mesh, self.cfg.num_nodes,
+                           current_row() or 0, source.device)
+
+    def policy(self, source, base, shards) -> list[torch.Tensor]:
+        """The mask policy's (B, T, n_g, HS) softmax on each rank's
+        nodes; `base` the ranks' shards of the base channels."""
         b = self.cfg.input_base_dim
-        time_eb = self.teb4mask(source[:, :, 0, b:b + 2])
-        logits = self.mlp_rl(source[..., :b], time_eb, self.neb4mask)
-        return torch.softmax(logits, dim=-1)
+        time_eb = shards.replicate(self.teb4mask(source[:, :, 0, b:b + 2]))
+        return [torch.softmax(self.mlp_rl(xg, tg, ng), dim=-1)
+                for xg, tg, ng in zip(base, time_eb,
+                                      shards.split(self.neb4mask, dim=0))]
 
     def pretrain(self, source: torch.Tensor, generator: torch.Generator,
                  epoch: int):
         """Returns (flow_out, decoder output, 1 - mask, policy softmax,
-        routing of the encoder's first Cap as (B, T, N, HS))."""
+        routing of the encoder's first Cap as (B, T, N, HS)); node-
+        sharded, the decoder output is None."""
         c = self.cfg
         b = c.input_base_dim
-        guide = self.policy(source)
+        shards = self.shards(source)
+        base = shards.split(source[..., :b])
+        guide = shards.gather(self.policy(source, base, shards))
         # in a data-parallel step: once, from the global batch's guide
         mask = on_global_batch(lambda g: generate_mask(
             c, generator, g, epoch, (g.shape[0], c.horizon, c.num_nodes, b)),
@@ -400,18 +484,22 @@ class GPTST(nn.Module):
         # built in f32 for exact budget arithmetic, then cast so that a
         # bf16 forward stays bf16
         mask = mask.to(source.dtype)
-        masked_src = torch.where(mask == 0, c.scaler_zeros,
-                                 mask * source[..., :b])
-        enc, hs1, _ = self.encoder(source, self.dim_in_flow(masked_src))
-        dec, _, _ = self.decoder(source, enc)
-        return (self.dim_flow_out(dec), dec, 1.0 - mask, guide,
-                hs1.permute(0, 1, 3, 2))
+        x_in = [_linear(self.dim_in_flow, torch.where(
+                    mg == 0, c.scaler_zeros, mg * xg))
+                for mg, xg in zip(shards.split(mask), base)]
+        enc, hs1, _ = self.encoder(source, x_in, shards)
+        dec, _, _ = self.decoder(source, enc, shards)
+        flow = shards.gather([_linear(self.dim_flow_out, d) for d in dec])
+        return (flow, dec[0] if shards.parts == 1 else None, 1.0 - mask,
+                guide, shards.gather(hs1, dim=-1).permute(0, 1, 3, 2))
 
     def encode(self, source: torch.Tensor) -> torch.Tensor:
         """The frozen-encoder embedding (B, T, N, hidden) of the
-        unmasked input."""
-        x_flow = self.dim_in_flow(source[..., : self.cfg.input_base_dim])
-        return self.encoder(source, x_flow)[0]
+        unmasked input, on source's device."""
+        shards = self.shards(source)
+        x_flow = [_linear(self.dim_in_flow, xg) for xg in
+                  shards.split(source[..., : self.cfg.input_base_dim])]
+        return shards.gather(self.encoder(source, x_flow, shards)[0])
 
     def forward(self, source: torch.Tensor,
                 generator: torch.Generator | None = None,

@@ -5,11 +5,18 @@ hierarchical spatial pattern encoder (`models/gptst.Cap`). The routing
 loop runs a fixed `num_route` iterations on detached tensors (the
 primary capsules and the routing seed), so only the final posterior
 `softmax(b + dadj)` carries gradients, into `dadj`.
+
+Node-sharded (a `parallel/mesh.NodeShards` layout), only the routing's
+two sums over nodes couple the ranks: each rank sums its own nodes, the
+partials meet in `NodeShards.node_sum`, and the agreement update and
+both softmaxes over clusters run per node on each rank.
 """
 
 from __future__ import annotations
 
 import torch
+
+from gptst_tpu_torch.parallel.mesh import NodeShards
 
 
 def squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -18,26 +25,37 @@ def squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return sq / (1.0 + sq) * x / (sq.sqrt() + 1e-8)
 
 
-def dynamic_routing(pcaps: torch.Tensor, dadj: torch.Tensor,
-                    num_route: int = 2) -> torch.Tensor:
+def dynamic_routing(pcaps, dadj, num_route: int = 2,
+                    shards: NodeShards | None = None):
     """Cluster-assignment routing.
 
     pcaps: (B, T, N, D) squashed primary capsules.
     dadj:  (B, T, H, N) time-conditioned assignment prior.
     Returns the posterior c: (B, T, H, N) = softmax over H of
     (b + dadj), b the agreement summed over `num_route` iterations.
+    With `shards`, pcaps, dadj and c are lists of the ranks' node shards.
 
     The reference's u_hat[b,t,h,n,:] = squash(s0)[b,t,h,:] * k[b,t,n,:]
     enters only through sum_n c[b,t,h,n] u_hat[b,t,h,n,:], which is
     squash(s0)[b,t,h,:] * einsum('bthn,btnd->bthd', c, k): the
     (B, T, H, N, D) tensor is never built.
     """
-    k = pcaps.detach()
-    prior = torch.softmax(dadj, dim=-2)
-    u_hat_seed = squash(torch.einsum("bthn,btnd->bthd", prior, k)).detach()
-    b = torch.zeros_like(dadj)
+    if shards is None:
+        return dynamic_routing([pcaps], [dadj], num_route, NodeShards(
+            (pcaps.device,), pcaps.shape[-2]))[0]
+    k = [p.detach() for p in pcaps]
+
+    def node_sum(c):
+        # sum_n c[b,t,h,n] k[b,t,n,:] over every rank's nodes
+        return shards.node_sum([torch.einsum("bthn,btnd->bthd", cg, kg)
+                                for cg, kg in zip(c, k)])
+
+    prior = [torch.softmax(d, dim=-2) for d in dadj]
+    u_hat_seed = squash(node_sum(prior)).detach()
+    b = [torch.zeros_like(d) for d in dadj]
     for _ in range(num_route):
-        c = torch.softmax(b, dim=2)
-        v = squash(u_hat_seed * torch.einsum("bthn,btnd->bthd", c, k))
-        b = b + torch.einsum("bthd,btnd->bthn", v, k)
-    return torch.softmax(b + dadj, dim=2)
+        c = [torch.softmax(bg, dim=2) for bg in b]
+        v = shards.replicate(squash(u_hat_seed * node_sum(c)))
+        b = [bg + torch.einsum("bthd,btnd->bthn", vg, kg)
+             for bg, vg, kg in zip(b, v, k)]
+    return [torch.softmax(bg + d, dim=2) for bg, d in zip(b, dadj)]

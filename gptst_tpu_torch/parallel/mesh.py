@@ -21,10 +21,15 @@ with partition specs written as tuples of axis names:
     it over 'data': the same math, no batch parallelism);
   * `param_pspec`: a leaf whose first axis is `num_nodes` (a node table)
     over 'graph', everything else replicated. In this port every
-    parameter stays whole on `mesh.root` (`shard_params`); only graph
-    aggregation is node-sharded (`ops/graph_conv.ShardedSupport`).
+    parameter stays whole on `mesh.root` (`shard_params`); what is
+    node-sharded is the activations: graph aggregation
+    (`ops/graph_conv.ShardedSupport`) and GPT-ST's trunks, whose ranks
+    read the rows of a node table they need through `.to()`.
 `shard_rows` / `gather_rows` stand in for placing a tensor with
-`NamedSharding(mesh, P('graph', None))` on one row and reading it back.
+`NamedSharding(mesh, P('graph', None))` on one row and reading it back;
+`NodeShards` is a row's node axis over its graph ranks, with the
+differentiable sum over them (`node_sum`, GSPMD's all-reduce over
+'graph' of a sum over nodes).
 """
 
 from __future__ import annotations
@@ -152,10 +157,11 @@ def param_pspec(leaf, num_nodes: int) -> tuple:
 
 def shard_params(model: torch.nn.Module, mesh: Mesh,
                  num_nodes: int) -> dict[str, tuple]:
-    """The layout of `model`'s parameters on the mesh, by name. Every
-    parameter lives whole on `mesh.root` (the node tables' layout over
-    'graph' is not ported): raises when one lies elsewhere, since the
-    model's graph operands were built beside its parameters."""
+    """The layout of `model`'s parameters on the mesh, by name (the JAX
+    package's). Every parameter lives whole on `mesh.root`, a
+    node-sharded GPT-ST's ranks reading their rows through `.to()`:
+    raises when one lies elsewhere, since the model's graph operands
+    were built beside its parameters."""
     layout = {}
     for name, p in model.named_parameters():
         if p.device != mesh.root:
@@ -200,3 +206,66 @@ def gather_rows(shards: Sequence[torch.Tensor],
                 device: torch.device) -> torch.Tensor:
     """Concatenate row shards along axis -2 on `device`."""
     return torch.cat([s.to(device) for s in shards], dim=-2)
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeShards:
+    """The node axis of one data row over its graph ranks: rank g holds
+    nodes `node_range(g)` on `devices[g]`. A node-sharded activation is
+    the list of the ranks' shards; one rank is the one-device layout,
+    where every helper below is the identity (no copy, no extra op)."""
+
+    devices: tuple            # torch.device per rank
+    n: int                    # nodes in all
+
+    @property
+    def parts(self) -> int:
+        return len(self.devices)
+
+    def node_range(self, g: int) -> tuple[int, int]:
+        """Rank g's nodes [lo, hi)."""
+        n_loc = self.n // self.parts
+        return g * n_loc, (g + 1) * n_loc
+
+    def split(self, x: torch.Tensor, dim: int = -2) -> list[torch.Tensor]:
+        """Axis `dim` of x (n long: activations, node tables, routing
+        priors) cut into the ranks' shards, shard g on rank g's device.
+        Differentiable: the gradients meet where x lies."""
+        if self.parts == 1:
+            return [x.to(self.devices[0])]
+        return [s.to(d) for s, d in zip(
+            x.split(self.n // self.parts, dim), self.devices)]
+
+    def gather(self, shards: Sequence[torch.Tensor],
+               dim: int = -2) -> torch.Tensor:
+        """The shards concatenated on `dim`, on the row's first device."""
+        if len(shards) == 1:
+            return shards[0]
+        return torch.cat([s.to(self.devices[0]) for s in shards], dim)
+
+    def replicate(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """t on every rank (a node-free value: time embeddings, the
+        clusters of a capsule layer)."""
+        return [t.to(d) for d in self.devices]
+
+    def node_sum(self, partials: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of the ranks' partial sums over their nodes, on the
+        row's first device: the all-reduce over 'graph' of a sum over
+        nodes, in one process. Differentiable: each rank's partial gets
+        the gradient of the total."""
+        total = partials[0].to(self.devices[0])
+        for p in partials[1:]:
+            total = total + p.to(self.devices[0])
+        return total
+
+
+def node_shards(mesh: Optional[Mesh], n: int, row: int,
+                device: torch.device) -> NodeShards:
+    """The node shards of data row `row` of `mesh` for an n-node model:
+    its graph ranks when the graph axis is above 1 and divides n (the
+    JAX package's `batch_spec` rule), else one shard on `device`
+    (JAX replicates such a node axis: the same math, whole)."""
+    if mesh is None or n % mesh.shape[GRAPH_AXIS] or \
+            mesh.shape[GRAPH_AXIS] == 1:
+        return NodeShards((device,), n)
+    return NodeShards(tuple(mesh.graph_devices(row)), n)

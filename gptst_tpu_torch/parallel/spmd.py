@@ -25,7 +25,11 @@ process:
 
 So the step's numbers are the one-device step's, up to the order of f32
 sums. With a graph axis above 1 each row's aggregation runs on its own
-graph ranks (`ops/graph_conv.ShardedSupport.fn_of_row`).
+graph ranks (`ops/graph_conv.ShardedSupport.fn_of_row`), and so does
+each row's GPT-ST (`models/gptst.py`): its ranks read the parameters
+of the row's module through `.to(rank device)`, so a row needs a copy
+of the model only on its first device, and autograd carries every
+rank's gradient back through the row's copy to the root.
 """
 
 from __future__ import annotations

@@ -235,6 +235,9 @@ CASES = {
                  12, 8, (2, 1), None),
     "eval_gwn": ("PEMS08", "eval", "GWN", (("nhid", "4"),), 12, 8, (2, 1),
                  None),
+    # the frozen encoder node-sharded on each row's two graph ranks
+    "eval_tgcn_graph": ("PEMS08", "eval", "TGCN", (("rnn_units", "4"),), 12,
+                        8, (2, 2), None),
     "tgcn_sparse": ("PEMS08", "ori", "TGCN", (("rnn_units", "8"),), 130, 8,
                     (2, 1), None),
     "tgcn_sharded": ("PEMS08", "ori", "TGCN", (("rnn_units", "8"),), 130, 8,
@@ -408,39 +411,79 @@ def _recorded(tr, name):
     return losses
 
 
-def _torch_trainer(cfg, state, mesh, log_dir=None):
-    """The port's trainer of `cfg`, TGCN's weights from `state`."""
+def _torch_trainer(cfg, state, mesh, log_dir=None, **build):
+    """The port's trainer of `cfg`, TGCN's weights from `state` (the
+    whole model's with `build`, `build_model`'s eval-mode arguments)."""
     ds = build_dataset(cfg, num_steps=NUM_STEPS, seed=cfg.seed)
-    model = tbuild.build_model(cfg, device="cpu", mesh=mesh)
-    model.predictor.net.load_state_dict(state)
+    model = tbuild.build_model(cfg, device="cpu", mesh=mesh, **build)
+    (model if build else model.predictor.net).load_state_dict(state)
     return Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
                    log_dir=log_dir, device="cpu", mesh=mesh)
 
 
-@pytest.mark.parametrize("d, g", [(2, 1), (2, 2)])
-def test_trainer_under_a_mesh_matches_jax_and_one_device(d, g, _interpret):
+# eval mode: the frozen GPT-ST encoder at small widths
+EVAL_CFG = dict(TRAIN_CFG, mode="eval", hidden_dim=16, embed_dim=8,
+                embed_dim_spa=4, HS=4, HT=6, HT_Tem=4)
+
+
+def _eval_params(cfg, jcfg, jds, jm):
+    """Eval mode's JAX forward under `jm` and its parameters, the port's
+    init carried to JAX (a JAX GPT-ST init runs op by op), with the
+    port's build arguments (the encoder's state dict)."""
+    ds = build_dataset(cfg, num_steps=NUM_STEPS, seed=cfg.seed)
+    pre = tbuild.build_pretrain(cfg.replace(mode="pretrain"),
+                                ds.scaler_zeros, "cpu", 0).gptst.state_dict()
+    build = dict(seed=1, scaler_zeros=ds.scaler_zeros, pretrain_params=pre)
+    params = state_dict_to_flax(tbuild.build_model(
+        cfg, device="cpu", **build).state_dict())
+    _, forward = jbuild.build_model(jcfg, scaler_zeros=jds.scaler_zeros,
+                                    mesh=jm,
+                                    pretrain_params=state_dict_to_flax(pre))
+    return forward, params, build
+
+
+@pytest.mark.parametrize("d, g, mode", [
+    pytest.param(2, 1, "ori", id="2-1"), pytest.param(2, 2, "ori", id="2-2"),
+    pytest.param(1, 2, "eval", id="eval-1-2")])
+def test_trainer_under_a_mesh_matches_jax_and_one_device(d, g, mode,
+                                                         _interpret):
     """Two epochs of TGCN at 20 nodes (the halo exchange under (2, 2)),
     batch 16 with a ragged tail of 8 on row 0: the JAX trainer under
     the same mesh and the port's one-device trainer, from the same
     weights; per-step losses, val losses (the history's best) and the
-    test report at rtol 1e-4."""
-    jcfg = jax_default_config("PEMS08", **TRAIN_CFG, scan_steps=1)
+    test report at rtol 1e-4. In eval mode under (1, 2) the frozen
+    GPT-ST encoder runs node-sharded (every HyperTem and Cap input
+    holds 10 nodes on each rank) and TGCN aggregates through its 2-rank
+    halo."""
+    kw = TRAIN_CFG if mode == "ori" else EVAL_CFG
+    jcfg = jax_default_config("PEMS08", **kw, scan_steps=1)
     jds = jax_build_dataset(jcfg, num_steps=NUM_STEPS, seed=jcfg.seed)
     jm = jmesh.make_mesh(d * g, graph_axis_size=g)
-    init_fn, forward = jbuild.build_model(jcfg, mesh=jm)
-    params = init_fn(jax.random.PRNGKey(jcfg.seed))
+    cfg = default_config("PEMS08", **kw)
+    build = {}
+    if mode == "ori":
+        init_fn, forward = jbuild.build_model(jcfg, mesh=jm)
+        params = init_fn(jax.random.PRNGKey(jcfg.seed))
+    else:
+        forward, params, build = _eval_params(cfg, jcfg, jds, jm)
     jtr = JTrainer(forward=forward, params=params, cfg=jcfg, dataset=jds,
                    seed=jcfg.seed, mesh=jm)
     jlosses = _recorded(jtr, "_run_chunk")
     jres = jtr.train()
-    cfg = default_config("PEMS08", **TRAIN_CFG)
     state = flax_to_state_dict(jax.tree.map(np.asarray, params))
-    runs = []
+    runs, widths = [], set()
     for mesh in (_mesh(d, g), None):
-        tr = _torch_trainer(cfg, state, mesh)
+        tr = _torch_trainer(cfg, state, mesh, **build)
+        if mode == "eval" and mesh is not None:
+            for m in tr.model.encoder.modules():
+                if type(m).__name__ in ("HyperTem", "Cap"):
+                    m.register_forward_pre_hook(lambda _, a: widths.add(
+                        tuple(t.shape[2] for t in a[0])
+                        if isinstance(a[0], list) else a[0].shape[2]))
         losses = _recorded(tr, "_train_batch")
         res = tr.train()
         runs.append(([float(v) for v in losses], res))
+    assert widths == ({10, (10, 10)} if mode == "eval" else set())
     for losses, res in runs:
         assert len(losses) == len(jlosses) == 2 * 7
         np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
