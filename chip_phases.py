@@ -2,14 +2,16 @@
 
     python3 chip_phases.py build bsr dia dia_model data_parallel
     python3 chip_phases.py build ring gptst_graph
+    python3 chip_phases.py build distributed
     python3 chip_phases.py build cards      # with 2+ cards
 
 Each name is a phase of `chip_smoke.PHASES`, run in the order given,
 or `cards`: the several-card parts of `data_parallel` (one data row per
-card and the CLI graph's mesh) and of `gptst_graph` (GPT-ST's two graph
-ranks on two cards). The state that earlier phases leave for later
-ones is made up front: the CLI graph's adjacency, its sym-normalized
-form and `bsr_spmm` support, and empty `bsr_spmm`/`dia_spmm` records.
+card and the CLI graph's mesh), of `gptst_graph` (GPT-ST's two graph
+ranks on two cards) and of `distributed` (NCCL, one process per card).
+The state that earlier phases leave for later ones is made up front:
+the CLI graph's adjacency, its sym-normalized form and `bsr_spmm`
+support, and empty `bsr_spmm`/`dia_spmm` records.
 `data_parallel` also needs `dia_model` before it (the road graph's
 support and losses). Prints the phases' lines, the kernel records and
 the card's name and power limit.
@@ -36,7 +38,8 @@ def main(names: list[str]) -> int:
     rec["_supports"]["cli_graph"] = make_support(rec["_cli_sym"],
                                                  device="cuda")
     for name in names:
-        runs = ((c.data_parallel_cards, c.gptst_graph_cards)
+        runs = ((c.data_parallel_cards, c.gptst_graph_cards,
+                 c.distributed_cards)
                 if name == "cards" else (getattr(c, f"phase_{name}"),))
         t0 = time.perf_counter()
         for run in runs:

@@ -103,6 +103,21 @@ Phases, one JSON line each; any failure exits non-zero:
              cards, (a) over cuda:0 and cuda:1; with 4, (b) over the
              four beside GPT-ST whole on each data row's first card,
              and one profiled step of each.
+  distributed
+             data-parallel training across processes
+             (`core/distributed.py`): two processes on cuda:0 over gloo
+             (explicit: NCCL refuses two ranks on one device), each a
+             (1, 1) mesh of a global (2, 1) data axis, started with a
+             deadline and killed past it: TGCN `-mode ori` on the CLI
+             graph at 16,384 nodes, global batch 16 (`bsr_spmm` in each
+             process), and GPT-ST pretrain at 16,384 nodes, global batch
+             8, through the library; losses and final parameters
+             against the same runs in one process on a (2, 1) mesh of
+             `[cuda:0, cuda:0]`, both processes' parameters equal; ms per
+             step and each process's peak memory; gloo runs every
+             collective on the CUDA tensors. With 2 or more cards, NCCL
+             with one process per card, beside one card and the
+             one-process mesh over the same cards.
   gptst_model
              GPT-ST `-mode pretrain` train steps through the library at
              16,384 nodes, PEMS08's published widths, batch 8, f32: one
@@ -221,7 +236,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
-          "data_parallel", "gptst_graph", "gptst_model", "gptst_cli", "eval_cli",
+          "data_parallel", "gptst_graph", "distributed", "gptst_model",
+          "gptst_cli", "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
           "predictors_cli", "graph_predictors_cli", "graph_predictors_model",
           "last_predictors_cli", "last_predictors_model", "profile",
@@ -1914,6 +1930,288 @@ def gptst_graph_cards(rec: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the distributed phase: seconds a collective waits for a peer, and the
+# seconds a run's processes may take in all before they are killed
+DIST_TIMEOUT_S = 120
+DIST_DEADLINE_S = 420
+DIST_TGCN_STEPS = (1, 3)          # warm, timed
+DIST_GPTST_EPOCHS = (1, 2, 2)     # one warm step, two timed
+
+
+def dist_models(mesh, adj) -> dict:
+    """The distributed phase's two runs through the port's library under
+    `mesh` (None: one device), from seed-0 weights and seed-0 data of
+    the global batch: TGCN `-mode ori` on the CLI graph `adj` at 16,384
+    nodes, global batch 16 (1 warm and 3 timed steps), then GPT-ST
+    pretrain at 16,384 nodes, global batch 8 (epochs 1, 2, 2: both mask
+    branches, the KL term; 1 warm and 2 timed). Per model: the losses,
+    ms per timed step, the peak memory on the mesh's root (this
+    process's), the kernel launches of its steps and the parameters
+    after them (on the CPU)."""
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.models.build import build_model
+
+    root = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh is None else mesh.root
+    out = {}
+    cfg = default_config("PEMS08", mode="ori", model="TGCN", num_nodes=N_BIG,
+                         batch_size=BATCH, lr_decay=False)
+    model = build_model(cfg, adj=adj, device=root, seed=0, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(root)
+    losses, ms, launches, dense = train_steps(
+        "TGCN", model, BATCH, *DIST_TGCN_STEPS, mesh=mesh)
+    assert not any(dense.values()), dense
+    out["TGCN"] = dict(losses=losses, ms_per_step=ms, launches=launches,
+                       lr=cfg.lr_init,
+                       max_memory_allocated=torch.cuda.max_memory_allocated(
+                           root),
+                       params={k: v.detach().cpu()
+                               for k, v in model.state_dict().items()})
+    del model
+    torch.cuda.empty_cache()
+    gcfg = gptst_cfg(batch_size=GPTST_BATCH)
+    model = build_model(gcfg, device=root, seed=0, scaler_zeros=-0.5,
+                        mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(root)
+    reset_launch_counts()
+    losses, ms = gptst_steps(model, gcfg, GPTST_BATCH, DIST_GPTST_EPOCHS,
+                             mesh=mesh)
+    out["GPT-ST"] = dict(losses=losses, ms_per_step=ms, lr=gcfg.lr_init,
+                         launches=dict(LAUNCHES),
+                         max_memory_allocated=torch.cuda.max_memory_allocated(
+                             root),
+                         params={k: v.detach().cpu()
+                                 for k, v in model.state_dict().items()})
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def distributed_child() -> int:
+    """One process of a `dist_run`: joins the process group from
+    torchrun's variables (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`,
+    `MASTER_PORT`) with the backend `GPTST_SMOKE_BACKEND`, lays its
+    global mesh over `GPTST_SMOKE_DEVICE` (one data row), runs
+    `dist_models`, then the trainer's collectives (rank 0's values
+    broadcast, a barrier) on that device, and writes the results to
+    `$GPTST_SMOKE_OUT/rank<RANK>.pt`."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.core.distributed import (
+        global_mesh, initialize_distributed, is_coordinator,
+    )
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph
+    from gptst_tpu_torch.parallel import collectives
+    from gptst_tpu_torch.run import set_precision
+
+    set_precision(default_config("PEMS08"))
+    env = os.environ
+    initialize_distributed(backend=env["GPTST_SMOKE_BACKEND"],
+                           timeout=DIST_TIMEOUT_S)
+    mesh = global_mesh(1, devices=[env["GPTST_SMOKE_DEVICE"]])
+    t0 = time.perf_counter()
+    adj = random_sensor_graph(N_BIG, avg_degree=6, seed=0)
+    out = dist_models(mesh, adj)
+    rank = torch.distributed.get_rank()
+    assert collectives.broadcast_floats([rank, 1.5], mesh.root) == [0, 1.5]
+    collectives.barrier()
+    out.update(rank=rank, coordinator=is_coordinator(),
+               backend=torch.distributed.get_backend(), mesh=mesh.shape,
+               data_offset=mesh.data_offset, device=str(mesh.root),
+               seconds=time.perf_counter() - t0)
+    torch.save(out, os.path.join(env["GPTST_SMOKE_OUT"],
+                                 f"rank{out['rank']}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dist_run(world: int, backend: str, devices: list[str]) -> list[dict]:
+    """`world` processes of `distributed_child`, rank r on devices[r],
+    started together with a fresh localhost port; joined within
+    DIST_DEADLINE_S, else every one is killed. Raises, with the end of
+    each process's output, when one fails; returns their results."""
+    import socket
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for r in range(world):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+                   "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(world),
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                   "GPTST_SMOKE_BACKEND": backend,
+                   "GPTST_SMOKE_DEVICE": devices[r], "GPTST_SMOKE_OUT": tmp}
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.distributed_child())"],
+                cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        end = time.monotonic() + DIST_DEADLINE_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(end - time.monotonic(), 0.01))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        tails = []
+        for r, log in enumerate(logs):
+            log.seek(0)
+            tails.append(f"rank {r} (exit {procs[r].returncode}): "
+                         + log.read()[-2000:])
+            log.close()
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"{world} processes over {backend}: a "
+                               "process failed or passed the deadline\n"
+                               + "\n".join(tails))
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+def dist_check(results: list[dict], want: dict,
+               adam_noise: bool = False) -> dict:
+    """Every process's runs against the one-process runs `want` of the
+    same global mesh: the losses at rtol 1e-5, every parameter at rtol
+    1e-4 with an atol of 1e-5 of its largest entry; every process's
+    parameters equal to rank 0's, bit for bit. With `adam_noise` (more
+    than two processes, whose gradient sum runs in another order than
+    one process's), at most 1e-3 of a model's entries may miss that
+    tolerance, each by at most 2 lr a step: Adam turns a gradient that
+    is f32 noise around 0 into a step of up to lr either way. Returns
+    per model the largest parameter error and the entries that missed
+    the tolerance."""
+    import numpy as np
+    import torch
+
+    errs = {}
+    for model, ref in want.items():
+        for res in results:
+            got = res[model]
+            np.testing.assert_allclose(got["losses"], ref["losses"],
+                                       rtol=1e-5, err_msg=model)
+            err, off, size = 0.0, 0, 0
+            for k, w in ref["params"].items():
+                diff = (got["params"][k] - w).abs()
+                tol = 1e-4 * w.abs() + 1e-5 * w.abs().max()
+                miss = diff > tol
+                err = max(err, float(diff.max()))
+                off += int(miss.sum())
+                size += w.numel()
+                bound = 2 * ref["lr"] * len(ref["losses"])
+                assert not miss.any() or (
+                    adam_noise and float(diff[miss].max()) <= bound), (
+                    f"{model} rank {res['rank']} params {k}: "
+                    f"{int(miss.sum())} entries off, up to "
+                    f"{float(diff.max())}")
+                assert torch.equal(got["params"][k],
+                                   results[0][model]["params"][k]), k
+            assert off <= 1e-3 * size, (model, off, size)
+            prev = errs.get(model, {"max_param_err": 0.0, "entries_off": 0})
+            errs[model] = {"max_param_err": max(prev["max_param_err"], err),
+                           "entries_off": max(prev["entries_off"], off),
+                           "entries": size}
+    return errs
+
+
+def dist_summary(runs: dict) -> dict:
+    """`dist_models`' runs without their parameters."""
+    return {m: {k: v for k, v in r.items() if k != "params"}
+            for m, r in runs.items()}
+
+
+def dist_line(results: list[dict]) -> dict:
+    """What each process reports, without its parameters."""
+    return {f"rank {res['rank']}": {
+        **{k: res[k] for k in ("device", "backend", "mesh", "data_offset",
+                               "coordinator", "seconds")},
+        **dist_summary({m: res[m] for m in ("TGCN", "GPT-ST")})}
+        for res in results}
+
+
+def phase_distributed(rec: dict) -> None:
+    """Data-parallel training across processes (`core/distributed.py`):
+    two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    device; the backend is chosen explicitly), each with a (1, 1) mesh
+    of a global (2, 1) data axis, run `dist_models` (TGCN on the CLI
+    graph through `bsr_spmm` in each process, GPT-ST pretrain) against
+    the same runs in this process on a (2, 1) mesh of `[cuda:0,
+    cuda:0]`: `dist_check`'s tolerances, `bsr_spmm` launched in every
+    process, ms per step and each process's peak memory beside the
+    one-process run's. Gloo runs every collective of the step and the
+    trainer (all-gather, all-reduce, broadcast, barrier) on the CUDA
+    tensors, copying them through host memory itself. With 2 or more
+    cards, `distributed_cards`."""
+    import torch
+
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * 2, graph_axis_size=1)
+    t0 = time.perf_counter()
+    want = dist_models(mesh, rec["_cli_base"])
+    one_s = time.perf_counter() - t0
+    assert want["TGCN"]["launches"]["bsr_spmm"] > 0, want["TGCN"]
+    t0 = time.perf_counter()
+    results = dist_run(2, "gloo", ["cuda:0"] * 2)
+    run_s = time.perf_counter() - t0
+    errs = dist_check(results, want)
+    for res in results:
+        assert res["backend"] == "gloo" and res["mesh"] == mesh.shape, res
+        assert res["TGCN"]["launches"]["bsr_spmm"] > 0, res["TGCN"]
+    rec["bsr_spmm"]["launches_by_path"]["distributed"] = {
+        f"rank {res['rank']}": res["TGCN"]["launches"]["bsr_spmm"]
+        for res in results}
+    emit("distributed", case="one card", processes=2, backend="gloo",
+         devices=["cuda:0"] * 2, global_mesh=mesh.shape, nodes=N_BIG,
+         batch={"TGCN": BATCH, "GPT-ST": GPTST_BATCH},
+         one_process=dist_summary(want), one_process_s=one_s,
+         processes_s=run_s, check=errs,
+         tol={"losses_rtol": 1e-5, "params_rtol": 1e-4,
+              "params_atol_of_largest": 1e-5},
+         **dist_line(results))
+    torch.cuda.empty_cache()
+    distributed_cards(rec)
+
+
+def distributed_cards(rec: dict) -> None:
+    """With 2 or more cards: NCCL, one process per card, 2 processes
+    (and 4 with 4 cards), against the one-process mesh over the same
+    cards (`dist_check`), and beside one card's runs (no mesh). On one
+    card it prints that it did not run."""
+    import torch
+
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("distributed", case="cards", ran=False, cards=count)
+        return
+    one_card = dist_models(None, rec["_cli_base"])
+    for world in (2, 4)[:1 + (count >= 4)]:
+        cards = [f"cuda:{i}" for i in range(world)]
+        mesh = make_mesh(devices=cards, graph_axis_size=1)
+        want = dist_models(mesh, rec["_cli_base"])
+        results = dist_run(world, "nccl", cards)
+        emit("distributed", case="cards", ran=True, cards=count,
+             processes=world, backend="nccl", devices=cards,
+             global_mesh=mesh.shape, one_card=dist_summary(one_card),
+             one_process=dist_summary(want), **dist_line(results))
+        emit("distributed", case="cards", processes=world,
+             check=dist_check(results, want, adam_noise=world > 2))
+        torch.cuda.empty_cache()
+
+
 def gptst_cfg(**kw):
     """`-mode pretrain` at PEMS08's published widths (hidden 64, embed
     16, spa 4, HS 10, HT 16, HT_Tem 8, 2 routing rounds, lag = horizon
@@ -1932,21 +2230,26 @@ def gptst_net(cfg):
 
 
 def gptst_steps(model, cfg, batch: int, epochs: tuple,
-                trace: str | None = None):
+                trace: str | None = None, mesh=None):
     """Pretrain train steps of `model` through the port's library on
     random data from seed 0, one at each epoch of `epochs`; the steps
     after the first are timed and, with `trace`, profiled
-    (`run_steps`). Returns the losses and ms per timed step."""
+    (`run_steps`); with `mesh`, data-parallel over its data rows.
+    Returns the losses and ms per timed step."""
     import numpy as np
     import torch
 
     from gptst_tpu_torch.train.loss import build_loss
-    from gptst_tpu_torch.train.step import make_loss_terms, train_step
+    from gptst_tpu_torch.train.step import (
+        make_loss_terms, model_forwards, train_step,
+    )
     from gptst_tpu_torch.train.trainer import make_optimizer
 
     opt = make_optimizer(cfg, model.parameters(), steps_per_epoch=10)
     loss_terms = make_loss_terms(
-        model, build_loss("mask_mae", 200.0, 100.0, 0.0, True), cfg)
+        model, build_loss("mask_mae", 200.0, 100.0, 0.0, True), cfg,
+        forward=None if mesh is None else model_forwards(model, cfg,
+                                                         mesh)[1])
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal(
         (batch, cfg.lag, cfg.num_nodes, 3), np.float32)).cuda()

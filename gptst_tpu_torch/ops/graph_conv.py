@@ -32,7 +32,7 @@ from gptst_tpu_torch.kernels.spmm import (
     dia_pair_from_coo, spmm, split_coo_hybrid,
 )
 from gptst_tpu_torch.ops.dtypes import promoted
-from gptst_tpu_torch.parallel.mesh import DATA_AXIS, GRAPH_AXIS
+from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
 from gptst_tpu_torch.parallel.rows import current_row
 from gptst_tpu_torch.utils.device import resolve_device
 
@@ -157,7 +157,7 @@ def make_sharded_support(adj: np.ndarray | None, mesh,
             else "ring")
     built: dict[tuple, object] = {}
     fns = []
-    for row in range(mesh.shape[DATA_AXIS]):
+    for row in range(mesh.local_rows):
         ranks = tuple(mesh.graph_devices(row))
         if ranks not in built:
             built[ranks], n_pad = (make_halo_spmm(mesh, part, row)

@@ -25,6 +25,16 @@ with partition specs written as tuples of axis names:
     node-sharded is the activations: graph aggregation
     (`ops/graph_conv.ShardedSupport`) and GPT-ST's trunks, whose ranks
     read the rows of a node table they need through `.to()`.
+
+With one process per card or host (`core/distributed.global_mesh`) a
+`Mesh` holds this process's rows of a global 'data' axis that spans
+processes: `shape` is the global (data, graph) shape, as a JAX mesh
+over every process's devices is, `devices` this process's rows, which
+start at global row `data_offset`; a data row's graph ranks never span
+processes. `batch_spec` applies the divisibility rule to the global
+data axis and `shard_batch` gives this process its rows' slices of the
+global batch (a ragged batch runs whole on every process's first row).
+
 `shard_rows` / `gather_rows` stand in for placing a tensor with
 `NamedSharding(mesh, P('graph', None))` on one row and reading it back;
 `NodeShards` is a row's node axis over its graph ranks, with the
@@ -59,15 +69,33 @@ def choose_mesh_shape(n_devices: int,
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A (data, graph) array of torch devices, one process for all."""
+    """A (data, graph) array of torch devices held by one process: the
+    whole mesh, or this process's rows of a 'data' axis that spans
+    processes."""
 
     devices: np.ndarray       # (data, graph), dtype object: torch.device
+    # this process's first row on the global 'data' axis, and that
+    # axis's rows over every process (None: this process's alone)
+    data_offset: int = 0
+    global_data: Optional[int] = None
 
     axis_names = (DATA_AXIS, GRAPH_AXIS)
 
     @property
     def shape(self) -> dict[str, int]:
-        return dict(zip(self.axis_names, self.devices.shape))
+        """The global (data, graph) shape."""
+        d, g = self.devices.shape
+        return dict(zip(self.axis_names, (self.global_data or d, g)))
+
+    @property
+    def local_rows(self) -> int:
+        """The data rows this process holds."""
+        return self.devices.shape[0]
+
+    @property
+    def processes(self) -> int:
+        """The processes the 'data' axis spans."""
+        return self.shape[DATA_AXIS] // self.local_rows
 
     @property
     def root(self) -> torch.device:
@@ -173,17 +201,19 @@ def shard_params(model: torch.nn.Module, mesh: Mesh,
 
 def shard_batch(batch, mesh: Mesh):
     """Split (B, T, N, D) batch leaves (a tensor, or a tuple of them)
-    over the mesh's data rows: row r's slice on its first device, when
-    the data axis divides B; else the whole leaf on data row 0 (one
-    shard). The node axis stays whole: a row's sharded graph support
-    splits it over the row's graph ranks. Returns, per leaf, the list
-    of row shards."""
+    over the mesh's data rows: this process's row r's slice of the
+    global batch on its first device, when the global data axis divides
+    B; else the whole leaf on data row 0 (one shard, on every process).
+    The node axis stays whole: a row's sharded graph support splits it
+    over the row's graph ranks. Returns, per leaf, the list of row
+    shards."""
 
     def put(a: torch.Tensor) -> list[torch.Tensor]:
         devs = mesh.row_devices
         if batch_spec(a.shape, mesh)[0] is None:
             return [a.to(devs[0])]
-        return [s.to(d) for s, d in zip(a.chunk(len(devs)), devs)]
+        rows = a.chunk(mesh.shape[DATA_AXIS])[mesh.data_offset:]
+        return [s.to(d) for s, d in zip(rows, devs)]
 
     if isinstance(batch, torch.Tensor):
         return put(batch)

@@ -23,9 +23,19 @@ the plain one-device expression, so the one-device path does not change:
   * `on_global_batch` — a function of the whole batch, computed once
     on the concatenated rows and sliced back (GPT-ST's mask).
 
-`current_row()` tells a sharded graph support which row's ranks to
-run on. `ROW_LAUNCHES` tallies the kernel launches of each row's
-forward.
+Where the mesh's 'data' axis spans processes (`core/distributed.py`),
+each meeting is also a meeting of the processes, in the same program
+order: the rows of this process combine first, then the processes
+(`parallel/collectives.py`). `batch_sum` is an all-reduce whose
+backward sums the gradients over processes too; `batch_count` an
+all-reduce; `batch_draw` draws the global shape from every process's
+generator (seeded alike, on the same device type) and takes this
+process's slice, and `shared_draw` needs no communication at all;
+`on_global_batch` all-gathers the rows' inputs.
+
+`current_row()` tells a sharded graph support which of this process's
+rows' ranks to run on. `ROW_LAUNCHES` tallies the kernel launches of
+each row's forward.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from gptst_tpu_torch.kernels.spmm import tally_launches
+from gptst_tpu_torch.parallel import collectives
 
 _LOCAL = threading.local()
 # the kernel launches made in data row r's forwards, {r: {kernel: n}},
@@ -49,13 +60,25 @@ class RowReleased(RuntimeError):
 
 
 class RowGroup:
-    """The `n` rows of one data-parallel forward."""
+    """The `n` rows of one data-parallel forward in this process, and
+    with `processes` above 1 the same rows of every other process (this
+    one's index `process`; the collectives' scalars on `device`)."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, processes: int = 1, process: int = 0,
+                 device: torch.device = torch.device("cpu")):
         self.n = n
+        self.processes, self.process = processes, process
+        self.device = device
         self._cond = threading.Condition()
         self._meetings: dict[int, dict] = {}
         self._failed = False
+        self._token = None        # orders the backward's all-reduces
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The differentiable SUM of t over processes (one call per
+        meeting, in program order)."""
+        out, self._token = collectives.all_reduce_sum(t, self._token)
+        return out
 
     def fail(self) -> None:
         """Release every row waiting at a meeting: a row raised."""
@@ -64,10 +87,10 @@ class RowGroup:
             self._cond.notify_all()
 
     def meet(self, row: int, k: int, value: Any,
-             combine: Callable[[list], list]) -> Any:
+             combine: Callable[[list, "RowGroup"], list]) -> Any:
         """Meeting k: hand in `value`; once every row has, `combine`
-        runs once on the values in row order and returns one result per
-        row. Returns this row's."""
+        runs once on the values in row order (and the group) and
+        returns one result per row. Returns this row's."""
         n = self.n
         with self._cond:
             m = self._meetings.setdefault(
@@ -77,7 +100,7 @@ class RowGroup:
             m["left"] -= 1
             if m["left"] == 0:
                 try:
-                    m["out"] = combine(m["values"])
+                    m["out"] = combine(m["values"], self)
                 except BaseException as e:   # every row raises it
                     m["error"] = e
                 m["values"] = None
@@ -132,15 +155,18 @@ def _in_rows() -> bool:
 def batch_draw(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int],
                device: torch.device, dim: int = 0) -> torch.Tensor:
     """`draw(shape)`; in a data row, `draw` of the global shape (the
-    rows' sizes summed on axis `dim`), made once, and this row's slice
-    on `device`."""
+    rows' sizes summed on axis `dim`, over every process), made once,
+    and this row's slice on `device`."""
     if not _in_rows():
         return draw(tuple(shape))
 
-    def combine(shapes):
+    def combine(shapes, group):
+        sizes = [s[dim] for s in shapes]
         full = list(shapes[0])
-        full[dim] = sum(s[dim] for s in shapes)
-        return list(draw(tuple(full)).split([s[dim] for s in shapes], dim))
+        full[dim] = sum(sizes) * group.processes
+        mine = draw(tuple(full)).narrow(dim, sum(sizes) * group.process,
+                                        sum(sizes))
+        return list(mine.split(sizes, dim))
 
     return _meet(tuple(shape), combine).to(device)
 
@@ -151,45 +177,65 @@ def shared_draw(draw: Callable[[], Any],
     tensor moved to `device` when one is given)."""
     if not _in_rows():
         return draw()
-    t = _meet(None, lambda values: [draw()] * len(values))
+    t = _meet(None, lambda values, _: [draw()] * len(values))
     return t if device is None else t.to(device)
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
-    """`t`; in a data row, the sum of every row's `t` (the same shape),
-    on this row's device. Differentiable."""
+    """`t`; in a data row, the sum of every row's `t` (the same shape)
+    over every process, on this row's device. Differentiable."""
     if not _in_rows():
         return t
 
-    def combine(values):
+    def combine(values, group):
         root = values[0].device
         total = values[0]
         for v in values[1:]:
             total = total + v.to(root)
+        if group.processes > 1:
+            total = group.all_reduce_sum(total)
         return [total] * len(values)
 
     return _meet(t, combine).to(t.device)
 
 
 def batch_count(n: int) -> int:
-    """`n`; in a data row, the sum of every row's `n`."""
+    """`n`; in a data row, the sum of every row's `n` over every
+    process."""
     if not _in_rows():
         return n
-    return _meet(n, lambda values: [sum(values)] * len(values))
+
+    def combine(values, group):
+        total = sum(values)
+        if group.processes > 1:
+            total = collectives.all_reduce_int(total, group.device)
+        return [total] * len(values)
+
+    return _meet(n, combine)
 
 
 def on_global_batch(fn: Callable[[torch.Tensor], torch.Tensor],
                     t: torch.Tensor) -> torch.Tensor:
     """`fn(t)`, `t` batch-first; in a data row, `fn` of the rows' `t`
-    concatenated in row order, computed once, and this row's batch
-    slice of the result on `t`'s device. `fn` must map the batch axis
-    to the batch axis."""
+    concatenated in row order (and process order), computed once in
+    each process, and this row's batch slice of the result on `t`'s
+    device. `fn` must map the batch axis to the batch axis. Across
+    processes `t` takes no gradient (GPT-ST passes its guide
+    detached)."""
     if not _in_rows():
         return fn(t)
 
-    def combine(values):
+    def combine(values, group):
         root = values[0].device
-        out = fn(torch.cat([v.to(root) for v in values]))
-        return list(out.split([v.shape[0] for v in values]))
+        sizes = [v.shape[0] for v in values]
+        local = torch.cat([v.to(root) for v in values])
+        if group.processes == 1:
+            return list(fn(local).split(sizes))
+        if local.requires_grad:
+            raise ValueError("on_global_batch across processes takes "
+                             "no gradient: detach its input")
+        out = fn(collectives.all_gather_cat(local))
+        return list(out.narrow(0, sum(sizes) * group.process,
+                               sum(sizes)).split(sizes))
 
     return _meet(t, combine).to(t.device)

@@ -30,6 +30,19 @@ each row's GPT-ST (`models/gptst.py`): its ranks read the parameters
 of the row's module through `.to(rank device)`, so a row needs a copy
 of the model only on its first device, and autograd carries every
 rank's gradient back through the row's copy to the root.
+
+Where the mesh's 'data' axis spans processes (`core/distributed.py`:
+one process per card or host, each with its own copy of the
+parameters and optimizer), each process runs its rows' slices of the
+global batch as above, the rows meet across processes as well
+(`parallel/rows.py`), and the rows' outputs are all-gathered in global
+batch order (`parallel/collectives.gather_batch`), so every process
+computes the same global loss; the gather's backward keeps this
+process's slice. After the one `backward()`, `reduce_gradients` sums
+the gradients over processes (one flat bucket; the exact gradient, no
+division), and the optimizer, clipping included, runs on every
+process, so the parameters stay equal everywhere. A ragged batch runs
+whole on every process's first row and its gradient is not summed.
 """
 
 from __future__ import annotations
@@ -45,7 +58,8 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from gptst_tpu_torch.parallel.mesh import Mesh, shard_batch
+from gptst_tpu_torch.parallel import collectives
+from gptst_tpu_torch.parallel.mesh import Mesh, batch_spec, shard_batch
 from gptst_tpu_torch.parallel.rows import RowGroup, RowReleased, row_scope
 
 
@@ -106,15 +120,19 @@ class _Rows(nn.Module):
         return run(self)
 
 
-def _gather(outs: list, root: torch.device):
+def _gather(outs: list, root: torch.device, processes: bool = False):
     """Row outputs (`ModelOutput`s) concatenated on the batch axis on
-    the root, field by field."""
-    if len(outs) == 1:
+    the root, field by field; with `processes`, every process's in
+    process order."""
+    if len(outs) == 1 and not processes:
         return outs[0]
     fields = []
     for vals in zip(*outs):
-        fields.append(None if vals[0] is None
-                      else torch.cat([v.to(root) for v in vals]))
+        if vals[0] is None:
+            fields.append(None)
+            continue
+        t = torch.cat([v.to(root) for v in vals])
+        fields.append(collectives.gather_batch(t) if processes else t)
     return type(outs[0])(*fields)
 
 
@@ -123,9 +141,11 @@ class DataParallel:
     lie on `mesh.root`) over the mesh's data rows:
     `dp(x, params=None, **kw)` splits x and a tensor `y` in `kw` with
     `shard_batch`, runs each row's slice on its devices and returns the
-    gathered `ModelOutput` on the root. `params`, by name, replaces the
-    model's parameters (the train step's bf16 cast of them,
-    `train/step.model_forwards`)."""
+    gathered `ModelOutput` on the root (the global batch's, when the
+    data axis spans processes). `params`, by name, replaces the model's
+    parameters (the train step's bf16 cast of them,
+    `train/step.model_forwards`). After a backward through its output,
+    `reduce_gradients()` sums the gradients over processes."""
 
     def __init__(self, model: nn.Module, mesh: Mesh):
         self.model, self.mesh = model, mesh
@@ -137,6 +157,15 @@ class DataParallel:
         self.pool = (concurrent.futures.ThreadPoolExecutor(
             max_workers=len(self.devices), thread_name_prefix="data-row")
             if len(self.devices) > 1 else None)
+        # whether the last call split its batch over processes
+        self.across = False
+
+    def reduce_gradients(self) -> None:
+        """Sum the model's gradients over processes, where the last call
+        split its batch over them (a ragged batch ran whole on every
+        process: its gradient is already the batch's)."""
+        if self.across:
+            collectives.reduce_gradients(list(self.model.parameters()))
 
     def _module(self, rows: _Rows, device: torch.device) -> nn.Module:
         return (rows.model if device == self.mesh.root
@@ -161,7 +190,12 @@ class DataParallel:
         devices = self.devices[:len(xs)]
         grad = torch.is_grad_enabled()
         threads = torch.get_num_threads()
-        group = RowGroup(len(xs))
+        across = self.across = (self.mesh.processes > 1 and batch_spec(
+            x.shape, self.mesh)[0] is not None)
+        group = (RowGroup(len(xs), self.mesh.processes,
+                          self.mesh.data_offset // self.mesh.local_rows,
+                          self.mesh.root)
+                 if across else RowGroup(len(xs)))
 
         def row(rows: _Rows, r: int):
             module = self._module(rows, devices[r])
@@ -175,9 +209,11 @@ class DataParallel:
                 raise
 
         def run(rows: _Rows) -> list:
-            if len(xs) == 1:          # the whole batch on row 0
+            if len(xs) == 1 and not across:     # the whole batch on row 0
                 return [self._module(rows, devices[0])(xs[0], y=ys[0],
                                                        **kw)]
+            if len(xs) == 1:          # one row here, meeting the others'
+                return [row(rows, 0)]
             futures = [self.pool.submit(row, rows, r)
                        for r in range(len(xs))]
             errors = [e for e in (f.exception() for f in futures) if e]
@@ -192,7 +228,7 @@ class DataParallel:
             outs = functional_call(self.rows, self._params(params), (run,))
         else:
             outs = run(self.rows)
-        return _gather(outs, self.mesh.root)
+        return _gather(outs, self.mesh.root, across)
 
 
 def make_spmd_train_state(cfg, mesh: Mesh, model: nn.Module,

@@ -37,7 +37,9 @@ def model_forwards(model: nn.Module, cfg: FrameworkConfig,
     with `cfg.compute_dtype == "bfloat16"`, on a bf16 cast of the
     trainable parameters, of x and of a tensor `y`. With a `mesh` both
     run over its data rows (`parallel/spmd.DataParallel`), the
-    parameters placed on its root (`shard_params`)."""
+    parameters placed on its root (`shard_params`), and the train
+    forward's `reduce_gradients()` sums the gradients over the processes
+    a data axis spans (`make_loss_terms` hands it to `train_step`)."""
     if mesh is None:
         run = model
 
@@ -57,6 +59,8 @@ def model_forwards(model: nn.Module, cfg: FrameworkConfig,
         return call(params, _cast_bf16(x),
                     {k: _cast_bf16(v) for k, v in kw.items()})
 
+    if mesh is not None:       # the f32 master gradients, summed
+        forward.reduce_gradients = run.reduce_gradients
     return run, forward
 
 
@@ -70,7 +74,8 @@ def make_loss_terms(model: nn.Module, loss_fn: Callable,
     step passes its own). `generator` draws pretrain's mask (and
     a predictor's dropout in the other modes); `epoch` is pretrain's.
     In eval mode the cast reaches only the trainable parameters: the
-    frozen encoder, outside them, stays f32."""
+    frozen encoder, outside them, stays f32. `loss_terms.reduce_gradients`
+    is the forward's (None on one process)."""
     pretrain = cfg.mode == "pretrain"
     if forward is None:
         forward = model_forwards(model, cfg)[1]
@@ -89,6 +94,7 @@ def make_loss_terms(model: nn.Module, loss_fn: Callable,
             return flow + 0.1 * kl_div_sum(log_prob, out.routing), flow
         return flow, flow
 
+    loss_terms.reduce_gradients = getattr(forward, "reduce_gradients", None)
     return loss_terms
 
 
@@ -96,10 +102,14 @@ def train_step(loss_terms: Callable, optimizer: torch.optim.Optimizer,
                x: torch.Tensor, y: torch.Tensor, step=None, **kw
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step on a batch (`kw`: pretrain's epoch and
-    generator); returns the (total, flow) losses as detached tensors
-    (reading them synchronizes the device)."""
+    generator), the gradients summed over processes before it where the
+    data axis spans them; returns the (total, flow) losses as detached
+    tensors (reading them synchronizes the device)."""
     optimizer.zero_grad(set_to_none=True)
     total, flow = loss_terms(x, y, step, **kw)
     total.backward()
+    reduce = getattr(loss_terms, "reduce_gradients", None)
+    if reduce is not None:
+        reduce()
     optimizer.step()
     return total.detach(), flow.detach()

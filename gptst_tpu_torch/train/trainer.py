@@ -42,6 +42,17 @@ batch order. The generators, the batch order and the step counts do not
 change, and checkpoints hold the root's parameters, so they load into a
 one-device trainer and back.
 
+With a mesh whose 'data' axis spans processes (`core/distributed.
+global_mesh`), every process runs this loop on the same dataset and
+batch order, its rows taking their slice of each global batch; every
+process's train step, validation and test see the global batch's
+outputs (`parallel/spmd.DataParallel` gathers them), and the epoch's
+decisions (best model, early stop, divergence) use the coordinator's
+losses, broadcast, so every process decides alike. Only the coordinator
+logs and writes `best_model.pt` and `full_ckpt.pt`; every process waits
+at a barrier after a write and before `resume` reads, so every process
+must be given the same `log_dir` (a shared file system across hosts).
+
 Best parameters are saved with `torch.save` to `<log_dir>/best_model.pt`
 when `log_dir` is set. Every `ckpt_every_epochs` epochs the full state
 (the model's `state_dict`, `ClippedAdam`'s state and step count, the
@@ -54,6 +65,7 @@ are seeded per epoch, so a resumed run reproduces the uninterrupted one.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Any, Callable, Iterable, Optional
@@ -63,8 +75,10 @@ import torch
 from torch import nn
 
 from gptst_tpu_torch.config.config import FrameworkConfig
+from gptst_tpu_torch.core.distributed import is_coordinator
 from gptst_tpu_torch.data.pipeline import STDataset
 from gptst_tpu_torch.eval.metrics import all_metrics
+from gptst_tpu_torch.parallel import collectives
 from gptst_tpu_torch.parallel.mesh import normalize_device
 from gptst_tpu_torch.train.loss import build_loss
 from gptst_tpu_torch.train.step import (
@@ -225,6 +239,12 @@ class Trainer:
                 raise ValueError(f"Trainer on {self.device} with a mesh "
                                  f"rooted at {self.mesh.root}")
             self.device = self.mesh.root
+        # the processes the data axis spans; only the coordinator logs
+        # and writes files
+        self.processes = 1 if self.mesh is None else self.mesh.processes
+        self.coordinator = self.processes == 1 or is_coordinator()
+        if not self.coordinator:
+            self.logger.setLevel(logging.WARNING)
         # the forward of evaluation (f32) and of the train step
         self._eval_forward, forward = model_forwards(self.model, self.cfg,
                                                      self.mesh)
@@ -314,6 +334,8 @@ class Trainer:
         start_epoch = 1
         ckpt = os.path.join(self.log_dir, "full_ckpt.pt") if self.log_dir \
             else None
+        if resume and ckpt:
+            self._barrier()       # the coordinator's writes are done
         if resume and ckpt and os.path.exists(ckpt):
             start_epoch = self.restore_full_checkpoint(ckpt)
             best_loss, best_state = self._best_loss, self._best_state
@@ -338,6 +360,9 @@ class Trainer:
                 best_loss = float("inf")  # watermark reset
             cur = (train_loss if self.pretrain
                    else self.val_epoch(epoch, val_split))
+            if self.processes > 1:    # every process decides alike
+                train_loss, cur = collectives.broadcast_floats(
+                    [train_loss, cur], self.device)
             if cur < best_loss:
                 best_loss = cur
                 not_improved = 0
@@ -356,18 +381,27 @@ class Trainer:
                 break
             if (ckpt and self.cfg.ckpt_every_epochs
                     and epoch % self.cfg.ckpt_every_epochs == 0):
-                self.save_full_checkpoint(ckpt, epoch, best_state, best_loss,
-                                          not_improved)
+                if self.coordinator:
+                    self.save_full_checkpoint(ckpt, epoch, best_state,
+                                              best_loss, not_improved)
+                self._barrier()
                 self.logger.info("Periodic checkpoint at epoch %d", epoch)
         self.logger.info("Total training time: %.4f min, best loss: %.6f",
                          (time.time() - start) / 60, best_loss)
         self.model.load_state_dict(best_state)
         if self.log_dir:
-            self.save_checkpoint(os.path.join(self.log_dir, "best_model.pt"))
+            if self.coordinator:
+                self.save_checkpoint(os.path.join(self.log_dir,
+                                                  "best_model.pt"))
+            self._barrier()
         report = self.test("train" if self.pretrain else "test")
         return {"best_loss": best_loss, "history": history,
                 "epoch_seconds": epoch_seconds,
                 "steps_per_epoch": self.steps_per_epoch, "report": report}
+
+    def _barrier(self) -> None:
+        if self.processes > 1:
+            collectives.barrier()
 
     def _snapshot(self) -> dict:
         return {k: v.detach().clone()

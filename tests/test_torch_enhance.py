@@ -97,7 +97,7 @@ def test_head_and_fusion_match_jax():
     def jfn(p, s, e):
         return jnp.sum(head.apply(p, s, e) * g)
 
-    jval, jgrads = jax.value_and_grad(jfn, argnums=(0, 1, 2))(
+    jval, jgrads = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1, 2)))(
         params, src, emb)
     port = EnhanceHead(16, 1)
     port.load_state_dict(flax_to_state_dict(params))

@@ -125,7 +125,7 @@ def test_squash_and_routing_value_and_grad():
         return (jnp.sum(jcap.squash(p) ** 3)
                 + jnp.sum(jcap.dynamic_routing(jcap.squash(p), d, 3) * g))
 
-    want = jax.value_and_grad(jfn, argnums=(0, 1))(pcaps, dadj)
+    want = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1)))(pcaps, dadj)
     p, d = torch.tensor(pcaps, requires_grad=True), torch.tensor(
         dadj, requires_grad=True)
     val = ((tcap.squash(p) ** 3).sum()
@@ -136,7 +136,8 @@ def test_squash_and_routing_value_and_grad():
     for got, w in zip((p.grad, d.grad), want[1]):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), **FWD)
     # routing reaches pcaps only through the detached agreement loop
-    jr = jax.grad(lambda q: jnp.sum(jcap.dynamic_routing(q, dadj) * g))(pcaps)
+    jr = jax.jit(jax.grad(
+        lambda q: jnp.sum(jcap.dynamic_routing(q, dadj) * g)))(pcaps)
     assert not np.asarray(jr).any()
 
 
@@ -152,8 +153,8 @@ def test_param_pool_linear_value_and_grad(kind):
     jf = getattr(jpool, f"{kind}_param_linear")
     tf = getattr(tpool, f"{kind}_param_linear")
     args = (x, emb, w, b)
-    want = jax.value_and_grad(
-        lambda *a: jnp.sum(jf(*a) * g), argnums=(0, 1, 2, 3))(*args)
+    want = jax.jit(jax.value_and_grad(
+        lambda *a: jnp.sum(jf(*a) * g), argnums=(0, 1, 2, 3)))(*args)
     targs = [torch.tensor(a, requires_grad=True) for a in args]
     val = (tf(*targs) * torch.tensor(g)).sum()
     val.backward()

@@ -30,15 +30,12 @@ import json
 import logging
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from gptst_tpu.parallel import mesh as jmesh
 from gptst_tpu.parallel import spmd as jspmd
-from gptst_tpu.train.loss import build_loss as jbuild_loss
-from gptst_tpu.train.step import make_loss_terms as jmake_loss_terms
 from gptst_tpu_torch import dryrun
 from gptst_tpu_torch.config.config import default_config
 from gptst_tpu_torch.models import build as tbuild
@@ -48,8 +45,8 @@ from gptst_tpu_torch.parallel import mesh as tmesh
 from gptst_tpu_torch.parallel.spmd import run_one_step
 from gptst_tpu_torch.train.loss import build_loss
 from gptst_tpu_torch.train.step import make_loss_terms, model_forwards
-from test_torch_spmd import _flax, tiny_pretrain
-from torch_parity import one_torch_thread
+from test_torch_spmd import tiny_pretrain
+from torch_parity import gptst_by_path, one_torch_thread
 
 _ = (one_torch_thread, tiny_pretrain)
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -76,13 +73,7 @@ def _close_grads(got: dict, want: dict) -> None:
 def jax_grads(tiny_pretrain):
     """`jax.grad` of JAX's pretrain loss at epoch 1 on the fixture's
     weights and x, by flax path."""
-    jcfg, forward, params, _, _, x = tiny_pretrain
-    loss = jbuild_loss(jcfg.loss_func, 0.0, 1.0, jcfg.mape_thresh, True)
-    terms = jmake_loss_terms(forward, loss, jcfg)
-    epoch, count = jnp.asarray(1, jnp.int32), jnp.asarray(0, jnp.int32)
-    return dict(jax.tree_util.tree_leaves_with_path(jax.jit(jax.grad(
-        lambda p: terms(p, x, x, jax.random.PRNGKey(0), epoch, count)[0]
-    ))(params)))
+    return tiny_pretrain[-1]
 
 
 @pytest.mark.parametrize("d", [1, 2])
@@ -96,7 +87,7 @@ def test_run_one_step_matches_jax_on_the_graph_axis(tiny_pretrain, jax_grads,
     the mesh (atol 1e-5 on the same entries, where JAX's step is that
     Adam step: under (2, 2) GSPMD's own gradient sums flip 279 of the
     ~1e6 entries, 8 of them with |g| >= 1e-6, by up to 2 lr)."""
-    jcfg, forward, params, cfg, model, x = tiny_pretrain
+    jcfg, forward, params, cfg, model, x, _ = tiny_pretrain
     stepped = []
     monkeypatch.setattr(jspmd.jax, "block_until_ready",
                         lambda t: stepped.append(t) or t)
@@ -108,10 +99,10 @@ def test_run_one_step_matches_jax_on_the_graph_axis(tiny_pretrain, jax_grads,
     model.gptst.mesh = mesh
     total, flow = run_one_step(cfg, mesh, model, x, x)
     np.testing.assert_allclose([total, flow], [jtotal, jflow], rtol=1e-4)
-    grads = _flax({k: p.grad for k, p in model.gptst.named_parameters()},
-                  model)
+    grads = gptst_by_path(
+        {k: p.grad for k, p in model.gptst.named_parameters()}, model)
     _close_grads(grads, jax_grads)
-    got = _flax(model.gptst.state_dict(), model)
+    got = gptst_by_path(model.gptst.state_dict(), model)
     before = dict(jax.tree_util.tree_leaves_with_path(params))
     lr, off, entries = cfg.lr_init, 0, 0
     for path, want in jax.tree_util.tree_leaves_with_path(stepped[0]):

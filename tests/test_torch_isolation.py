@@ -57,6 +57,12 @@ out = net(torch.zeros(2, 12, 42, 1), sup)
 assert out.shape == (2, 12, 42, 1)
 ring, n_pad = make_fused_ring_spmm(mesh, adj, 3)
 assert len(ring(shard_rows(torch.zeros(n_pad, 3), mesh))) == 4
+from gptst_tpu_torch.core import (
+    global_mesh, initialize_distributed, is_coordinator)
+from gptst_tpu_torch.parallel import collectives
+initialize_distributed()
+assert is_coordinator() and collectives.world() == (0, 1)
+assert global_mesh(2, devices=["cpu"] * 4).shape == {"data": 2, "graph": 2}
 from gptst_tpu_torch.config.config import default_config
 from gptst_tpu_torch.models.build import build_model
 from gptst_tpu_torch.train.loss import build_loss

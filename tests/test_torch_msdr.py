@@ -112,6 +112,7 @@ def _perturb(tree, seed):
         a.shape)).astype(np.float32), tree)
 
 
+@functools.lru_cache
 def _random_params(remat="none", seed=1):
     """A JAX MSDR and a flax tree of nonzero random weights."""
     x, _ = _inputs()
@@ -155,7 +156,8 @@ def test_forward_and_grads_match(sparse):
         pred = model.apply(p, jnp.asarray(x), jsups, jp)
         return jnp.sum(pred * jnp.asarray(g)), pred
 
-    (_, jpred), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    (_, jpred), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
     net = _torch_net(params)
     pred = net(torch.tensor(x), tsups, tp)
     (pred * torch.tensor(g)).sum().backward()

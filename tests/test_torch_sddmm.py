@@ -85,8 +85,8 @@ def test_sddmm_gradients_match():
     e1, e2 = _emb(n, d, 2)
     w = np.random.default_rng(3).standard_normal(
         (jp.nnzb, 16, 16)).astype(np.float32)
-    jg = jax.grad(lambda a, b: jnp.sum(jsddmm.sddmm(jp, a, b) * w),
-                  argnums=(0, 1))(jnp.asarray(e1), jnp.asarray(e2))
+    jg = jax.jit(jax.grad(lambda a, b: jnp.sum(jsddmm.sddmm(jp, a, b) * w),
+                          argnums=(0, 1)))(jnp.asarray(e1), jnp.asarray(e2))
     t1 = torch.tensor(e1, requires_grad=True)
     t2 = torch.tensor(e2, requires_grad=True)
     (tsddmm.sddmm(tp, t1, t2) * torch.tensor(w)).sum().backward()
@@ -107,8 +107,9 @@ def test_adaptive_support_forward_and_grads_match(n, tile):
         y = jgraph_matmul(jsddmm.adaptive_support(jp, a, b), jnp.asarray(x))
         return jnp.sum(y * g), y
 
-    (_, jy), jg = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
-        jnp.asarray(e1), jnp.asarray(e2))
+    (_, jy), jg = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(e1),
+                                               jnp.asarray(e2))
     t1 = torch.tensor(e1, requires_grad=True)
     t2 = torch.tensor(e2, requires_grad=True)
     y = graph_matmul(tsddmm.adaptive_support(tp, t1, t2), torch.tensor(x))
@@ -169,7 +170,7 @@ def test_dvals_through_spmm_on_learned_values_match():
             n=n, n_pad=jp.n_pad, tile=16)
         return jnp.sum(jspmm.spmm(fwd, bwd, jnp.asarray(x)) * g)
 
-    jg = np.asarray(jax.grad(jloss)(jnp.asarray(vals)))
+    jg = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(vals)))
     tv = torch.tensor(vals, requires_grad=True)
     sup = tsddmm._learned_support(tp, tv)
     (graph_matmul(sup, torch.tensor(x)) * torch.tensor(g)).sum().backward()

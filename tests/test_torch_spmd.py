@@ -54,7 +54,7 @@ from gptst_tpu_torch.parallel.spmd import DataParallel, run_one_step
 from gptst_tpu_torch.train.loss import build_loss
 from gptst_tpu_torch.train.step import make_loss_terms, model_forwards
 from gptst_tpu_torch.train.trainer import Trainer
-from torch_parity import one_torch_thread
+from torch_parity import assert_step_matches_jax, one_torch_thread
 
 # many tiny torch ops: one intra-op thread (the workers share the cores)
 _ = one_torch_thread
@@ -134,7 +134,9 @@ def test_shard_batch_matches_jax_specs(b, d):
 def tiny_pretrain():
     """`tests/test_spmd.py`'s `_tiny_pretrain(16, 8)` with every point
     masked (mask_ratio 1.0: JAX's and torch's draws differ, and then no
-    draw matters), on the port's init carried to JAX."""
+    draw matters), on the port's init carried to JAX, with `jax.grad`
+    of JAX's loss on those parameters and x at epoch 1 (by flax path;
+    the same for every mesh)."""
     kw = dict(mode="pretrain", model="STGCN", num_nodes=16, batch_size=8,
               epochs=20, change_epoch=1, mask_ratio=1.0, log_dir=None)
     jcfg = jax_default_config("PEMS08", **kw)
@@ -144,33 +146,22 @@ def tiny_pretrain():
     _, forward = jbuild.build_model(jcfg, scaler_zeros=0.0)
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(3),
                                      (8, jcfg.lag, 16, 3)))
-    return jcfg, forward, params, cfg, model, x
-
-
-def _flax(tensors: dict, model) -> dict:
-    """GPT-ST tensors by flax path (a missing gradient as zeros)."""
-    return dict(jax.tree_util.tree_leaves_with_path(state_dict_to_flax({
-        k: torch.zeros_like(p) if tensors.get(k) is None else tensors[k]
-        for k, p in model.gptst.named_parameters()})))
-
-
-@pytest.mark.parametrize("d", [4, 2])
-def test_run_one_step_matches_jax(tiny_pretrain, d, monkeypatch):
-    """The loss at rtol 1e-4; the step's gradients against `jax.grad` of
-    JAX's loss on the same parameters and x at rtol 1e-4 with an atol of
-    1e-5 of each tensor's largest entry; every parameter after the Adam
-    step at atol 1e-5 where JAX's gradient is 0 or at least 1e-6: there
-    Adam's first step is 0 or lr * g / (|g| + 1e-8), lr to 1%. Where
-    0 < |g| < 1e-6 in JAX (~6% of the entries, gradients within f32
-    summation noise of zero) the step's size is that noise amplified,
-    and the parameter is held to within lr (3e-3) of JAX's."""
-    jcfg, forward, params, cfg, model, x = tiny_pretrain
     loss = jbuild_loss(jcfg.loss_func, 0.0, 1.0, jcfg.mape_thresh, True)
     terms = jmake_loss_terms(forward, loss, jcfg)
     epoch, count = jnp.asarray(1, jnp.int32), jnp.asarray(0, jnp.int32)
     jgrads = dict(jax.tree_util.tree_leaves_with_path(jax.jit(jax.grad(
         lambda p: terms(p, x, x, jax.random.PRNGKey(0), epoch, count)[0]
     ))(params)))
+    return jcfg, forward, params, cfg, model, x, jgrads
+
+
+@pytest.mark.parametrize("d", [4, 2])
+def test_run_one_step_matches_jax(tiny_pretrain, d, monkeypatch):
+    """The loss at rtol 1e-4; the step's gradients against `jax.grad` of
+    JAX's loss on the same parameters and x, and every parameter after
+    the Adam step against JAX's step
+    (`torch_parity.assert_step_matches_jax`)."""
+    jcfg, forward, params, cfg, model, x, jgrads = tiny_pretrain
     stepped = []
     monkeypatch.setattr(jspmd.jax, "block_until_ready",
                         lambda t: stepped.append(t) or t)
@@ -179,21 +170,9 @@ def test_run_one_step_matches_jax(tiny_pretrain, d, monkeypatch):
     model = copy.deepcopy(model)
     total, flow = run_one_step(cfg, _mesh(d, 1), model, x, x)
     np.testing.assert_allclose([total, flow], [jtotal, jflow], rtol=1e-4)
-    grads = _flax({k: p.grad for k, p in model.gptst.named_parameters()},
-                  model)
-    got = _flax(model.gptst.state_dict(), model)
-    assert grads.keys() == jgrads.keys()
-    for path, want in jax.tree_util.tree_leaves_with_path(stepped[0]):
-        want, name = np.asarray(want), jax.tree_util.keystr(path)
-        jg = np.asarray(jgrads[path])
-        np.testing.assert_allclose(grads[path], jg, rtol=1e-4,
-                                   atol=1e-5 * np.abs(jg).max(),
-                                   err_msg=name)
-        sure = (np.abs(jg) >= 1e-6) | (jg == 0)
-        np.testing.assert_allclose(got[path][sure], want[sure], atol=1e-5,
-                                   err_msg=name)
-        np.testing.assert_allclose(got[path], want, atol=cfg.lr_init,
-                                   err_msg=name)
+    assert_step_matches_jax(
+        model, {k: p.grad for k, p in model.gptst.named_parameters()},
+        model.gptst.state_dict(), jgrads, stepped[0], cfg.lr_init)
 
 
 # --- the data-parallel step against the one-device step ---------------------

@@ -95,7 +95,8 @@ def test_forward_and_grads_match(sparse):
         pred = model.apply(p, jnp.asarray(x), jsup)
         return jnp.sum(pred * jnp.asarray(g)), pred
 
-    (_, jpred), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    (_, jpred), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
 
     net = _torch_model(params)
     pred = net(torch.tensor(x), tsup)

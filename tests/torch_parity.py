@@ -152,6 +152,41 @@ def assert_model_matches(jm, net, params, x, graph, y, jit=True,
     return f32[2]
 
 
+def gptst_by_path(tensors: dict, model) -> dict:
+    """GPT-ST tensors by torch name (`model.gptst`'s parameters) as a
+    dict by flax path, a missing or None one as zeros."""
+    return dict(jax.tree_util.tree_leaves_with_path(state_dict_to_flax({
+        k: torch.zeros_like(p) if tensors.get(k) is None else tensors[k]
+        for k, p in model.gptst.named_parameters()})))
+
+
+def assert_step_matches_jax(model, grads: dict, params: dict, jgrads: dict,
+                            stepped, lr: float) -> None:
+    """A port step of `model`'s GPT-ST against JAX's: its gradients
+    `grads` and the parameters after it `params` (by torch name) against
+    `jax.grad`'s `jgrads` (by flax path) and JAX's stepped parameters
+    `stepped` (a flax tree). The gradients at rtol 1e-4 with an atol of
+    1e-5 of each tensor's largest entry; every parameter at atol 1e-5
+    where JAX's gradient is 0 or at least 1e-6: there Adam's first step
+    is 0 or lr * g / (|g| + 1e-8), lr to 1%. Where 0 < |g| < 1e-6 in
+    JAX (gradients within f32 summation noise of zero) the step's size
+    is that noise amplified, and the parameter is held to within lr of
+    JAX's."""
+    grads = gptst_by_path(grads, model)
+    got = gptst_by_path(params, model)
+    assert grads.keys() == jgrads.keys()
+    for path, want in jax.tree_util.tree_leaves_with_path(stepped):
+        want, name = np.asarray(want), jax.tree_util.keystr(path)
+        jg = np.asarray(jgrads[path])
+        np.testing.assert_allclose(grads[path], jg, rtol=1e-4,
+                                   atol=1e-5 * np.abs(jg).max(),
+                                   err_msg=name)
+        sure = (np.abs(jg) >= 1e-6) | (jg == 0)
+        np.testing.assert_allclose(got[path][sure], want[sure], atol=1e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(got[path], want, atol=lr, err_msg=name)
+
+
 def assert_round_trip(net, jm, *init_args):
     """`convert.py` both ways: the state dict comes back equal, and its
     flax tree has the JAX init's paths and shapes."""
