@@ -118,6 +118,28 @@ Phases, one JSON line each; any failure exits non-zero:
              collective on the CUDA tensors. With 2 or more cards, NCCL
              with one process per card, beside one card and the
              one-process mesh over the same cards.
+  predictors_graph
+             STGCN, GWN, MTGNN and CCRNN node-sharded over a data row's
+             graph ranks (`models/build.GraphPredictor.mesh`), f32, TF32
+             off, on a (1, 2) mesh of `[cuda:0, cuda:0]` beside the
+             one-device model from the same weights: GWN at 16,384
+             nodes, batch 8, conf widths (aptonly), STGCN, MTGNN and
+             CCRNN at 2,048 nodes, batch 16 (CCRNN's SVD embeddings of a
+             random-walk normalized random sensor graph in place of its
+             series' support); 1 warm and
+             3 timed Adam steps with dropout drawn from a generator
+             (CCRNN teacher-forced), in f32 free (ms per step, peak
+             memory, the first loss rtol 1e-5) and from the same
+             weights in float64 step-locked (the sharded model set to
+             the one-device model's parameters and Adam state before
+             each step), where every step's loss (rtol 1e-5) and the
+             parameters after it (rtol 1e-4 with an atol of 1e-5 of
+             each tensor's largest entry) must match; then eval STGCN
+             at 2,048 nodes
+             with the frozen GPT-ST encoder and the predictor both
+             sharded. No kernel of `csrc/` is on this path. With 2 or
+             more cards, the same over cuda:0 and cuda:1, the peak per
+             card against one card.
   gptst_model
              GPT-ST `-mode pretrain` train steps through the library at
              16,384 nodes, PEMS08's published widths, batch 8, f32: one
@@ -236,7 +258,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
-          "data_parallel", "gptst_graph", "distributed", "gptst_model",
+          "data_parallel", "gptst_graph", "predictors_graph",
+          "distributed", "gptst_model",
           "gptst_cli", "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
           "predictors_cli", "graph_predictors_cli", "graph_predictors_model",
@@ -1928,6 +1951,329 @@ def gptst_graph_cards(rec: dict) -> None:
         model.gptst.mesh = None
     del model, x
     torch.cuda.empty_cache()
+
+
+# --- STGCN, GWN, MTGNN and CCRNN over the graph axis -----------------------
+
+PG_WARM, PG_STEPS = 1, 3
+PG_STEP0 = 1711          # CCRNN's teacher-forcing coins are fair here
+
+
+def predictors_graph_models(mesh) -> list:
+    """(name, one-device model, its copy node-sharded over `mesh`, cfg,
+    batch, nodes, graph) of the phase: built by `build_model` (CCRNN's
+    network by hand, its SVD embeddings of the random-walk normalized
+    `random_sensor_graph(2048, seed 1)`, D^-1 A as the builder's
+    `svd_rbf_support` normalizes, in place of the support it derives
+    from the dataset's series, which has fewer nodes: ROADMAP.md Queue
+    3.9; with the symmetric D^-1/2 A D^-1/2 its f32 forward was 3% off
+    float64 on one device), the sharded one a deep copy whose
+    `GraphPredictor.mesh` is set (what `build_model(mesh=)` sets for
+    these four; their graphs are dense, whole or computed)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.graph.artifacts import (
+        asym_adj, random_sensor_graph,
+    )
+    from gptst_tpu_torch.models.build import (
+        GraphPredictor, build_model, make_predictor_config,
+        predictor_forward,
+    )
+    from gptst_tpu_torch.models.predictors.ccrnn import (
+        CCRNN, CCRNNConfig, svd_graph_embeddings,
+    )
+
+    n = GRAPH_MODEL_NODES
+    adj = random_sensor_graph(n, avg_degree=6, seed=0)
+    out = []
+    for name, dataset, nodes, batch in (
+            ("GWN", "PEMS08", N_BIG, GWN_BATCH),
+            ("STGCN", "PEMS08", n, GRAPH_MODEL_BATCH),
+            ("MTGNN", "PEMS08", n, GRAPH_MODEL_BATCH),
+            ("CCRNN", "NYC_BIKE", n, GRAPH_MODEL_BATCH)):
+        cfg = default_config(dataset, mode="ori", model=name,
+                             num_nodes=nodes, batch_size=batch,
+                             lr_decay=False)
+        graph = f"random_sensor_graph({n}, 6, seed 0)"
+        if name == "GWN":        # aptonly: the adjacency is not read
+            one = build_model(cfg, adj=np.zeros((1, 1)), device="cuda",
+                              seed=0)
+            graph = "adaptive adjacency only (aptonly)"
+        elif name == "CCRNN":
+            pcfg = make_predictor_config(CCRNNConfig, cfg, num_nodes=n,
+                                         n_dim=min(50, n))
+            e1, e2 = svd_graph_embeddings(asym_adj(
+                random_sensor_graph(n, avg_degree=6, seed=1)), pcfg.n_dim)
+            net = CCRNN(pcfg, dim_in=cfg.input_base_dim,
+                        dim_out=cfg.output_dim, horizon=cfg.horizon,
+                        emb1_init=e1, emb2_init=e2,
+                        generator=torch.Generator().manual_seed(0))
+            one = predictor_forward(cfg, GraphPredictor(
+                net.to("cuda"), takes_targets=True))
+            graph = (f"SVD embeddings of asym_adj(random_sensor_graph({n}, "
+                     "6, seed 1))")
+        else:
+            one = build_model(cfg, adj=adj, device="cuda", seed=0)
+        sharded = copy.deepcopy(one)
+        sharded.predictor.mesh = mesh
+        out.append((name, one, sharded, cfg, batch, nodes, graph))
+    return out
+
+
+def graph_steps(model, cfg, mesh, x, y) -> dict:
+    """`PG_WARM` + `PG_STEPS` Adam steps of `model` on (x, y), in their
+    dtype, dropout from a generator seeded 0 on the card (CCRNN's coins
+    at steps from `PG_STEP0`), data-parallel over `mesh` when given;
+    the losses, ms per timed step, the peak memory on every card of the
+    mesh, the kernel launches and the parameters after the steps."""
+    import torch
+
+    from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
+    from gptst_tpu_torch.train.loss import build_loss
+    from gptst_tpu_torch.train.step import (
+        make_loss_terms, model_forwards, train_step,
+    )
+    from gptst_tpu_torch.train.trainer import make_optimizer
+
+    cards = sorted({d.index for d in mesh.devices.flat}) if mesh else [0]
+    opt = make_optimizer(cfg, model.parameters(), steps_per_epoch=10)
+    terms = make_loss_terms(
+        model, build_loss(cfg.loss_func, 200.0, 100.0, cfg.mape_thresh,
+                          False), cfg,
+        forward=None if mesh is None else model_forwards(model, cfg,
+                                                         mesh)[1])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    reset_launch_counts()
+    losses, ms = run_steps(lambda i: train_step(
+        terms, opt, x, y, PG_STEP0 + i, generator=gen)[0],
+        PG_WARM, PG_STEPS)
+    return dict(losses=losses, ms_per_step=ms,
+                max_memory_allocated={
+                    f"cuda:{c}": torch.cuda.max_memory_allocated(c)
+                    for c in cards},
+                launches=dict(LAUNCHES),
+                params={k: p.detach().cpu()
+                        for k, p in model.named_parameters()})
+
+
+def params_close(got: dict, want: dict) -> dict:
+    """Every parameter at rtol 1e-4 with an atol of 1e-5 of its largest
+    entry; returns the largest error."""
+    import torch
+
+    err = 0.0
+    for k, w in want.items():
+        err = max(err, float((got[k] - w).abs().max()))
+        torch.testing.assert_close(got[k], w, rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=lambda m: f"{k}: {m}")
+    return dict(max_param_err=err)
+
+
+def param_gaps(got: dict, want: dict) -> dict:
+    """The largest parameter difference and the entries beyond rtol 1e-4
+    with an atol of 1e-5 of each tensor's largest entry (not asserted)."""
+    err, off, size = 0.0, 0, 0
+    for k, w in want.items():
+        diff = (got[k] - w).abs()
+        err = max(err, float(diff.max()))
+        off += int((diff > 1e-4 * w.abs() + 1e-5 * w.abs().max()).sum())
+        size += w.numel()
+    return dict(max_param_err=err, entries_off=off, entries=size)
+
+
+def locked_steps(one, sharded, cfg, mesh, x, y) -> dict:
+    """`PG_WARM` + `PG_STEPS` Adam steps of `one` and of `sharded` (over
+    `mesh`), the sharded model set to the one-device model's parameters
+    and optimizer state before each step, each with its own generator
+    seeded 0 (the same draws): each step's loss at rtol 1e-5 and every
+    parameter after it at rtol 1e-4 with an atol of 1e-5 of its largest
+    entry (`params_close`). Step by step, since a trajectory need not
+    be well conditioned (CCRNN's from these weights moves by 1% at its
+    third step for a 1e-14 nudge of x, in float64, on one device).
+    Returns the largest errors."""
+    import numpy as np
+    import torch
+
+    from gptst_tpu_torch.train.loss import build_loss
+    from gptst_tpu_torch.train.step import (
+        make_loss_terms, model_forwards, train_step,
+    )
+    from gptst_tpu_torch.train.trainer import make_optimizer
+
+    loss = build_loss(cfg.loss_func, 200.0, 100.0, cfg.mape_thresh, False)
+    side = {}
+    for name, model, m in (("one", one, None), ("sharded", sharded, mesh)):
+        side[name] = (
+            model, make_optimizer(cfg, model.parameters(), 10),
+            make_loss_terms(model, loss, cfg, forward=None if m is None
+                            else model_forwards(model, cfg, m)[1]),
+            torch.Generator(device="cuda").manual_seed(0))
+    errs = dict(max_param_err=0.0, loss_rel_err=0.0)
+    for i in range(1, PG_WARM + PG_STEPS + 1):
+        with torch.no_grad():
+            for p, q in zip(sharded.parameters(), one.parameters()):
+                p.copy_(q)
+        side["sharded"][1].load_state_dict(side["one"][1].state_dict())
+        losses = [float(train_step(terms, opt, x, y, PG_STEP0 + i,
+                                   generator=gen)[0])
+                  for _, opt, terms, gen in side.values()]
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+        check = params_close(
+            {k: p.detach().cpu() for k, p in sharded.named_parameters()},
+            {k: p.detach().cpu() for k, p in one.named_parameters()})
+        errs["max_param_err"] = max(errs["max_param_err"],
+                                    check["max_param_err"])
+        errs["loss_rel_err"] = max(errs["loss_rel_err"],
+                                   abs(losses[1] - losses[0]) / abs(losses[0]))
+    return errs
+
+
+def graph_pair_line(one, sharded, cfg, mesh, batch: int, nodes: int,
+                    seed: int = 0) -> dict:
+    """The one-device model and its sharded copy on the same random
+    (x, y) from `seed`, from the same initial weights, neither launching
+    a kernel of `csrc/`: in f32 each runs `graph_steps` free (ms per
+    step, peak memory; the first loss at rtol 1e-5, the rest and the
+    parameters after the steps recorded: a ReLU whose input lies within
+    f32 rounding of 0 flips its gradient when the sums run in another
+    order, one-device f32 runs flip against float64 too, and Adam
+    turns a flipped gradient entry into a step of up to lr); in float64
+    (the graph operands stay f32) they run `locked_steps`, where both
+    sides compute the same math to ~1e-13."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (batch, cfg.lag, nodes, cfg.input_base_dim + 2)
+    x, y = (torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
+            for _ in range(2))
+    runs = {}
+    for side, model, m in (("one_device", one, None),
+                           ("sharded", sharded, mesh)):
+        model = copy.deepcopy(model)
+        runs[side] = graph_steps(model, cfg, m, x, y)
+        assert not any(runs[side]["launches"].values()), runs
+        del model
+        torch.cuda.empty_cache()
+    one32, sh32 = runs["one_device"], runs["sharded"]
+    np.testing.assert_allclose(sh32["losses"][0], one32["losses"][0],
+                               rtol=1e-5)
+    f32 = param_gaps(sh32.pop("params"), one32.pop("params"))
+    rel = (np.abs(np.subtract(sh32["losses"], one32["losses"]))
+           / np.abs(one32["losses"]))
+    t0 = time.perf_counter()
+    f64 = locked_steps(copy.deepcopy(one).double(),
+                       copy.deepcopy(sharded).double(), cfg, mesh,
+                       x.double(), y.double())
+    torch.cuda.empty_cache()
+    return dict(float64_step_locked=dict(
+                    **f64, seconds=time.perf_counter() - t0),
+                f32=dict(**f32, loss_rel_err=[float(v) for v in rel]),
+                one_device=one32, sharded=sh32,
+                ms_ratio=sh32["ms_per_step"] / one32["ms_per_step"])
+
+
+def predictors_graph_eval(mesh) -> tuple:
+    """Eval STGCN at 2,048 nodes, PEMS08's published widths: a GPT-ST
+    encoder from seed 0, the head and STGCN from seed 1
+    (`build_model(-mode eval)`), and its deep copy with the encoder and
+    the predictor both over `mesh`."""
+    import copy
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph
+    from gptst_tpu_torch.models.build import build_model, build_pretrain
+
+    n = GRAPH_MODEL_NODES
+    cfg = default_config("PEMS08", mode="eval", model="STGCN", num_nodes=n,
+                         batch_size=GRAPH_MODEL_BATCH, lr_decay=False)
+    pre = build_pretrain(cfg.replace(mode="pretrain"), -0.5, "cuda", 0)
+    one = build_model(cfg, adj=random_sensor_graph(n, avg_degree=6, seed=0),
+                      device="cuda", seed=1, scaler_zeros=-0.5,
+                      pretrain_params=pre)
+    sharded = copy.deepcopy(one)
+    sharded.predictor.mesh = sharded.encoder.mesh = mesh
+    return cfg, one, sharded
+
+
+def phase_predictors_graph(rec: dict) -> None:
+    """STGCN, GWN, MTGNN and CCRNN node-sharded on (1, 2) of cuda:0
+    beside one device (`graph_pair_line`), then eval STGCN with the
+    encoder's node shards handed to the sharded predictor; with 2 or
+    more cards, `predictors_graph_cards`."""
+    import torch
+
+    from gptst_tpu_torch.models import gptst as G
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * 2, graph_axis_size=2)
+    for name, one, sharded, cfg, batch, nodes, graph in \
+            predictors_graph_models(mesh):
+        assert sharded.predictor.shards(torch.device("cuda", 0)).parts == 2
+        line = graph_pair_line(one, sharded, cfg, mesh, batch, nodes)
+        emit("predictors_graph", model=name, mode="ori", nodes=nodes,
+             batch=batch, graph=graph, mesh=mesh.shape,
+             ranks=["cuda:0"] * 2, steps=PG_WARM + PG_STEPS, **line)
+        del one, sharded
+        torch.cuda.empty_cache()
+    cfg, one, sharded = predictors_graph_eval(mesh)
+    gathered = []
+    encode = G.GPTST.encode
+    G.GPTST.encode = lambda self, s: gathered.append(s.shape) or encode(
+        self, s)
+    try:
+        line = graph_pair_line(one, sharded, cfg, mesh, cfg.batch_size,
+                               cfg.num_nodes)
+    finally:
+        G.GPTST.encode = encode
+    # the one-device runs (f32, float64) gather their whole embedding
+    # (one rank), the sharded ones never: the shards stay on their ranks
+    assert len(gathered) == 2 * (PG_WARM + PG_STEPS), gathered
+    emit("predictors_graph", model="STGCN", mode="eval",
+         nodes=cfg.num_nodes, batch=cfg.batch_size, mesh=mesh.shape,
+         ranks=["cuda:0"] * 2, encoder="GPT-ST, PEMS08 widths, seed 0",
+         embedding_gathers={"one_device": len(gathered) // 2,
+                            "sharded": 0},
+         **line)
+    del one, sharded
+    torch.cuda.empty_cache()
+    predictors_graph_cards(rec)
+
+
+def predictors_graph_cards(rec: dict) -> None:
+    """With 2 or more cards: each model of the phase with its two ranks
+    on cuda:0 and cuda:1 against the one-device model on cuda:0, the
+    peak on each card against the one card's. On one card it prints
+    that it did not run."""
+    import torch
+
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("predictors_graph", case="cards", ran=False, cards=count)
+        return
+    mesh = make_mesh(devices=["cuda:0", "cuda:1"], graph_axis_size=2)
+    for name, one, sharded, cfg, batch, nodes, graph in \
+            predictors_graph_models(mesh):
+        line = graph_pair_line(one, sharded, cfg, mesh, batch, nodes)
+        one_peak = line["one_device"]["max_memory_allocated"]["cuda:0"]
+        emit("predictors_graph", case="cards", ran=True, cards=count,
+             model=name, nodes=nodes, batch=batch, mesh=mesh.shape,
+             ranks=["cuda:0", "cuda:1"], peak_per_card_over_one_card={
+                 k: v / one_peak for k, v in
+                 line["sharded"]["max_memory_allocated"].items()}, **line)
+        del one, sharded
+        torch.cuda.empty_cache()
 
 
 # the distributed phase: seconds a collective waits for a peer, and the

@@ -28,9 +28,10 @@ from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.graph.artifacts import random_sensor_graph
 from gptst_tpu_torch.models.api import ModelOutput
 from gptst_tpu_torch.ops.graph_conv import (
-    SparseSupport, make_support, use_sharding_mesh,
+    SparseSupport, make_support, sharding_mesh, use_sharding_mesh,
 )
-from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
+from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS, NodeShards, node_shards
+from gptst_tpu_torch.parallel.rows import current_row
 from gptst_tpu_torch.utils.device import resolve_device
 
 
@@ -243,10 +244,11 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
     (`parallel/spmd.py`), and with a graph axis above 1 the predictor's
     graph supports are built node-sharded on every data row's graph
     ranks (`ops/graph_conv.make_sharded_support`), and GPT-ST (pretrain,
-    and eval's frozen encoder) runs node-sharded on them when the graph
-    axis divides `num_nodes` (`models/gptst.py`). The predictors' node
-    tables and dense graph operands stay whole on each row's first
-    device, and so does a GPT-ST whose node count the graph axis does
+    and eval's frozen encoder), STGCN, GWN, MTGNN and CCRNN run
+    node-sharded on them when the graph axis divides `num_nodes`
+    (`models/gptst.py`, `GraphPredictor.mesh`). The other predictors'
+    node tables and dense graph operands stay whole on each row's first
+    device, and so does a model whose node count the graph axis does
     not divide: one WARNING says so (`warn_whole_node_tables`)."""
     if cfg.mode == "pretrain":
         model = build_pretrain(cfg, scaler_zeros, device, seed, mesh)
@@ -272,16 +274,20 @@ def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
     """One WARNING when a model under a graph axis above 1 keeps node
     tables (parameters whose first axis is `num_nodes`, which the JAX
     package shards over 'graph'), a GPT-ST, or a dense graph operand
-    whole on each data row's first device. GPT-ST runs node-sharded
-    when the graph axis divides `num_nodes`: then neither it nor its
-    tables count."""
+    whole on each data row's first device. GPT-ST, STGCN, GWN, MTGNN
+    and CCRNN run node-sharded when the graph axis divides `num_nodes`:
+    then neither they nor their tables and graphs count."""
     from gptst_tpu_torch.ops.graph_conv import ShardedSupport
     from gptst_tpu_torch.utils.logger import get_logger
 
-    gptst = (cfg.mode in ("pretrain", "eval")
-             and cfg.num_nodes % mesh.shape[GRAPH_AXIS] != 0)
+    divides = cfg.num_nodes % mesh.shape[GRAPH_AXIS] == 0
+    gptst = cfg.mode in ("pretrain", "eval") and not divides
+    preds = [m for m in model.modules() if isinstance(m, GraphPredictor)]
+    sharded = {id(p) for m in preds if m.mesh is not None and divides
+               for p in m.parameters()}
     tables = [k for k, p in model.named_parameters()
               if p.dim() and p.shape[0] == cfg.num_nodes
+              and id(p) not in sharded
               and (gptst or not k.startswith("gptst."))]
 
     def flat(graph):
@@ -291,16 +297,17 @@ def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
             elif g is not None:
                 yield g
 
-    dense = [g for m in model.modules() if isinstance(m, GraphPredictor)
+    dense = [g for m in preds if not (m.mesh is not None and divides)
              for g in flat(m.graph) if not isinstance(g, ShardedSupport)]
     if tables or dense or gptst:
         name = "GPT-ST" if cfg.mode == "pretrain" else cfg.model
         get_logger("build", debug=cfg.debug).warning(
             "%s under a graph axis of %d: %d node tables%s%s stay whole on "
-            "each data row's first device (the same math; the dense "
-            "predictors' node tables over 'graph' are ROADMAP.md Queue 1; "
-            "GPT-ST runs whole only where the graph axis does not divide "
-            "its node count)", name, mesh.shape[GRAPH_AXIS],
+            "each data row's first device (the same math; MSDR's, "
+            "ASTGCN's, STGODE's, ST_WA's and DMVSTNET's node tables over "
+            "'graph' are ROADMAP.md Queue 1; GPT-ST, STGCN, GWN, MTGNN and "
+            "CCRNN run whole only where the graph axis does not divide "
+            "their node count)", name, mesh.shape[GRAPH_AXIS],
             len(tables), ", the GPT-ST" if gptst else "",
             f", {len(dense)} graph operands" if dense else "")
 
@@ -314,24 +321,48 @@ class GraphPredictor(nn.Module):
     With `takes_generator` the trainer's generator reaches the network
     (dropout, ST_WA's latent draws); with
     `takes_targets` the labels, the step count and the generator do
-    (CCRNN's scheduled sampling)."""
+    (CCRNN's scheduled sampling).
+
+    `mesh` (STGCN, GWN, MTGNN and CCRNN under a mesh): the network runs
+    node-sharded over the graph ranks of the calling data row
+    (`shards`) where the graph axis is above 1 and divides N: its input
+    is cut into the ranks' node shards (or comes so, from eval's
+    node-sharded encoder) and its output gathered on the row's first
+    device, where the loss reads it. Else it runs whole there."""
 
     def __init__(self, net: nn.Module, *graph, takes_generator=False,
-                 takes_targets=False):
+                 takes_targets=False, mesh=None):
         super().__init__()
         self.net = net
         self.graph = graph
         self.takes_generator = takes_generator
         self.takes_targets = takes_targets
+        self.mesh = mesh
 
-    def forward(self, x_base: torch.Tensor, y=None, step=None,
+    def shards(self, device: torch.device) -> NodeShards | None:
+        """The calling data row's graph ranks when the network runs
+        node-sharded, else None."""
+        if self.mesh is None:
+            return None
+        sh = node_shards(self.mesh, self.net.cfg.num_nodes,
+                         current_row() or 0, device)
+        return sh if sh.parts > 1 else None
+
+    def forward(self, x_base, y=None, step=None,
                 generator: torch.Generator | None = None):
+        """x_base (B, T, N, C), or the list of the ranks' node shards of
+        it (`shards`); the prediction whole."""
+        kw = {}
         if self.takes_targets:
-            return self.net(x_base, *self.graph, y=y, step=step,
-                            generator=generator)
-        if self.takes_generator:
-            return self.net(x_base, *self.graph, generator=generator)
-        return self.net(x_base, *self.graph)
+            kw = dict(y=y, step=step, generator=generator)
+        elif self.takes_generator:
+            kw = dict(generator=generator)
+        split = isinstance(x_base, list)
+        shards = self.shards((x_base[0] if split else x_base).device)
+        if shards is None:
+            return self.net(x_base, *self.graph, **kw)
+        xs = x_base if split else shards.split(x_base)
+        return shards.gather(self.net(xs, *self.graph, shards=shards, **kw))
 
 
 # --- registrations ----------------------------------------------------------
@@ -349,7 +380,8 @@ def _build_stgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
                            dtype=torch.float32, device=device)
     net = STGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                 generator=generator).to(device)
-    return GraphPredictor(net, cheb, takes_generator=True)
+    return GraphPredictor(net, cheb, takes_generator=True,
+                          mesh=sharding_mesh())
 
 
 @register_model("TGCN")
@@ -427,7 +459,7 @@ def _build_ccrnn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = CCRNN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                 horizon=cfg.horizon, emb1_init=e1, emb2_init=e2,
                 generator=generator).to(device)
-    return GraphPredictor(net, takes_targets=True)
+    return GraphPredictor(net, takes_targets=True, mesh=sharding_mesh())
 
 
 @register_model("MTGNN")
@@ -443,7 +475,8 @@ def _build_mtgnn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     pre_adj = torch.as_tensor(
         np.asarray(adj - np.eye(cfg.num_nodes, dtype=adj.dtype), np.float32),
         device=device)
-    return GraphPredictor(net, pre_adj, takes_generator=True)
+    return GraphPredictor(net, pre_adj, takes_generator=True,
+                          mesh=sharding_mesh())
 
 
 def gwn_adj_mats(adjtype: str, adj: np.ndarray) -> list[np.ndarray]:
@@ -494,7 +527,8 @@ def _build_gwn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = GWN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
               horizon=cfg.horizon, num_supports=len(supports),
               nodevec_init=nodevec_init, generator=generator).to(device)
-    return GraphPredictor(net, supports, takes_generator=True)
+    return GraphPredictor(net, supports, takes_generator=True,
+                          mesh=sharding_mesh())
 
 
 # --- the graph-convolution predictors of the ninth slice --------------------

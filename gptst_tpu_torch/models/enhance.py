@@ -12,9 +12,14 @@ optimizer, the global-norm clip and `state_dict()` see `head.*` and
 `predictor.*` only, while `.to(device)` still moves the encoder. The
 encoder runs under `torch.no_grad()` (JAX's `stop_gradient`) and in
 f32 whatever the trainable tree's dtype (the bf16 cast of
-`train/step.py` reaches only the trainable parameters, as in JAX).
+`train/step.py` reaches only the trainable parameters, as in JAX;
+a model moved to float64 as a whole runs its encoder in float64).
 Under a mesh (`models/build.build_enhanced(mesh=...)`) the encoder runs
-node-sharded over the calling data row's graph ranks and gathers its
+node-sharded over the calling data row's graph ranks. Where the
+predictor runs node-sharded over the same ranks (STGCN, GWN, MTGNN,
+CCRNN: `models/build.GraphPredictor.shards`), the embedding stays on
+them: each rank runs the node-local head on its shard and hands the
+predictor its shard, with no gather. Else the encoder gathers its
 (B, T, N, hidden) embedding on the row's first device, where the head
 and the predictor (its aggregation through its own sharded support)
 read it.
@@ -34,6 +39,7 @@ from torch import nn
 
 from gptst_tpu_torch.models.api import ModelOutput
 from gptst_tpu_torch.ops.dtypes import linear
+from gptst_tpu_torch.parallel.mesh import module_on
 
 
 def torch_linear(din: int, dout: int,
@@ -110,13 +116,33 @@ class EnhancedModel(nn.Module):
         self.encoder.eval()
         return self
 
+    def _encoder_dtype(self) -> torch.dtype:
+        """The frozen encoder's own dtype: f32, unless the whole model
+        was moved to another (`.double()`)."""
+        return next(self.encoder.parameters()).dtype
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """The frozen embedding (B, T, N, hidden), f32 and detached."""
+        """The frozen embedding (B, T, N, hidden), in the encoder's dtype
+        (f32) and detached."""
         with torch.no_grad():
-            return self.encoder.encode(x.float())
+            return self.encoder.encode(x.to(self._encoder_dtype()))
+
+    def fused_shards(self, x: torch.Tensor) -> list | None:
+        """The head's output on each graph rank's node shard, from the
+        encoder's shards left on their ranks, where the predictor runs
+        node-sharded over the encoder's ranks; else None."""
+        shards = getattr(self.predictor, "shards", lambda _: None)(x.device)
+        if shards is None or self.encoder.shards(x) != shards:
+            return None
+        with torch.no_grad():
+            _, emb = self.encoder.encode_shards(x.to(self._encoder_dtype()))
+        return [module_on(self.head, e.device)(xg, e)
+                for xg, e in zip(shards.split(x), emb)]
 
     def forward(self, x: torch.Tensor, y=None, step=None,
                 generator: torch.Generator | None = None) -> ModelOutput:
-        fused = self.head(x, self.encode(x))
+        fused = self.fused_shards(x)
+        if fused is None:
+            fused = self.head(x, self.encode(x))
         return ModelOutput(pred=self.predictor(fused, y=y, step=step,
                                                generator=generator))

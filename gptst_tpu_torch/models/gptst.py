@@ -496,10 +496,17 @@ class GPTST(nn.Module):
     def encode(self, source: torch.Tensor) -> torch.Tensor:
         """The frozen-encoder embedding (B, T, N, hidden) of the
         unmasked input, on source's device."""
+        shards, out = self.encode_shards(source)
+        return shards.gather(out)
+
+    def encode_shards(self, source: torch.Tensor
+                      ) -> tuple[NodeShards, list[torch.Tensor]]:
+        """The node shards and each rank's shard of `encode(source)`, left
+        on its rank (for a node-sharded predictor)."""
         shards = self.shards(source)
         x_flow = [_linear(self.dim_in_flow, xg) for xg in
                   shards.split(source[..., : self.cfg.input_base_dim])]
-        return shards.gather(self.encoder(source, x_flow, shards)[0])
+        return shards, self.encoder(source, x_flow, shards)[0]
 
     def forward(self, source: torch.Tensor,
                 generator: torch.Generator | None = None,

@@ -16,6 +16,17 @@ of `csrc/` is on this path, as in the JAX package. The encoder and
 decoder are Python loops over time (the JAX package's `nn.scan`s), each
 step under `ops/recurrent.remat_cell`.
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh): x, the states and every activation are lists of the
+ranks' node shards. Rank g holds its rows of nodevec1 and so its rows
+of each graph (`NodeRows`; nodevec2 and the (n_dim, n_dim) maps read
+whole); each Chebyshev hop multiplies them by the all-gathered input;
+the attention over the gconv layers, a Dense over the flattened N·C,
+takes each rank's slice of its weight and sums the partials over the
+ranks before the softmax. The teacher-forcing coins are one draw for
+every rank and data row (`parallel/rows.shared_draw`).
+
 Teacher forcing needs the targets, a generator and the trainer's step
 count (`train/trainer.jax_step_counts`): one coin per horizon step,
 U[0, 1) < threshold, drawn from the generator on its device. Without
@@ -37,11 +48,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gptst_tpu_torch.ops.dtypes import linear, promoted
+from gptst_tpu_torch.ops.dtypes import linear, promoted, widened
+from gptst_tpu_torch.ops.graph_conv import NodeRows
 from gptst_tpu_torch.ops.recurrent import (
     remat_cell, resolve_remat, xavier_normal_,
 )
 from gptst_tpu_torch.ops.temporal import dense
+from gptst_tpu_torch.parallel.mesh import NodeShards, each, per_rank
 from gptst_tpu_torch.parallel.rows import shared_draw
 
 
@@ -85,10 +98,20 @@ def teacher_forcing_coins(horizon: int, step: int, cl_decay_steps: int,
                       device=generator.device) < thr.to(generator.device)
 
 
-def cheb_diffusion(z: torch.Tensor, support: torch.Tensor,
-                   k_hop: int) -> torch.Tensor:
+def cheb_diffusion(z, support, k_hop: int):
     """[z, S z, 2 S (S z) - z, ...] on channels (`CCRNN.py:198-233`).
-    z: (B, N, C); support: (N, N)."""
+    z: (B, N, C); support: (N, N). With `support` a `NodeRows`, z and
+    the result are lists of the ranks' node shards."""
+    if isinstance(support, NodeRows):
+        mats = [z]
+        if k_hop > 0:
+            h1, h0 = support.matmul(z), z
+            mats.append(h1)
+            for _ in range(2, k_hop + 1):
+                h2 = per_rank(lambda a, b: 2 * a - b, support.matmul(h1), h0)
+                mats.append(h2)
+                h1, h0 = h2, h1
+        return per_rank(lambda *m: torch.cat(m, dim=-1), *mats)
     mats = [z]
     if k_hop > 0:
         support, z = promoted(support, z)
@@ -121,18 +144,34 @@ class EvolutionCell(nn.Module):
             width = (cfg.k_hop + 1) * out_dim
         self.attlinear = dense(cfg.num_nodes * out_dim, 1, generator)
 
-    def forward(self, z: torch.Tensor, graphs: torch.Tensor) -> torch.Tensor:
+    def forward(self, z, graphs, shards: NodeShards | None = None):
+        """z (B, N, C) and `graphs` (G, N, N), or with `shards` the
+        ranks' node shards and a list of G `NodeRows`."""
         outs = []
         h = z
         for i in range(self.cfg.n_gconv_layers):
-            h = linear(getattr(self, f"gconv{i}"),
-                       cheb_diffusion(h, graphs[i], self.cfg.k_hop))
+            h = each(getattr(self, f"gconv{i}"),
+                     cheb_diffusion(h, graphs[i], self.cfg.k_hop), shards,
+                     linear)
             outs.append(h)
-        stack = torch.stack(outs, dim=1)                  # (B, G, N, F)
-        B, G, N, Fd = stack.shape
-        flat = stack.reshape(B, G, N * Fd)
-        w = torch.softmax(linear(self.attlinear, flat), dim=1)
-        return (flat * w).sum(dim=1).reshape(B, N, Fd)
+        # (B, G, N, F), flattened to (B, G, N * F)
+        stack = per_rank(lambda *o: torch.stack(o, dim=1), *outs)
+        flat = per_rank(lambda t: t.flatten(2), stack)
+        if shards is None:
+            w = torch.softmax(linear(self.attlinear, flat), dim=1)
+            return (flat * w).sum(dim=1).reshape(stack.shape[0], -1,
+                                                 stack.shape[-1])
+        # each rank's columns of the Dense over N * F, summed in f32
+        fd = stack[0].shape[-1]
+        dt = torch.promote_types(flat[0].dtype, self.attlinear.weight.dtype)
+        cols = shards.split(self.attlinear.weight.unflatten(
+            1, (shards.n, fd)), dim=1)
+        logits = shards.node_sum([widened(f) @ widened(wg.flatten(1)).T
+                                  for f, wg in zip(flat, cols)])
+        w = torch.softmax((logits + widened(self.attlinear.bias).to(
+            logits.device)).to(dt), dim=1)
+        return [(f * wg).sum(dim=1).reshape(f.shape[0], -1, fd)
+                for f, wg in zip(flat, shards.replicate(w))]
 
 
 class CCRNNGRUCell(nn.Module):
@@ -145,12 +184,19 @@ class CCRNNGRUCell(nn.Module):
         self.ru = EvolutionCell(cfg, in_dim + h, 2 * h, generator)
         self.cand = EvolutionCell(cfg, in_dim + h, h, generator)
 
-    def forward(self, state: torch.Tensor, x: torch.Tensor,
-                graphs: torch.Tensor) -> torch.Tensor:
-        ru = torch.sigmoid(self.ru(torch.cat([x, state], dim=-1), graphs))
-        r, u = ru.chunk(2, dim=-1)
-        c = torch.tanh(self.cand(torch.cat([x, r * state], dim=-1), graphs))
-        return u * state + (1.0 - u) * c
+    def forward(self, state, x, graphs, shards: NodeShards | None = None):
+        def cat(a, b):
+            return torch.cat([a, b], dim=-1)
+
+        ru = per_rank(torch.sigmoid,
+                      self.ru(per_rank(cat, x, state), graphs, shards))
+        r = per_rank(lambda t: t.chunk(2, dim=-1)[0], ru)
+        u = per_rank(lambda t: t.chunk(2, dim=-1)[1], ru)
+        c = per_rank(torch.tanh, self.cand(
+            per_rank(lambda a, r_, s: cat(a, r_ * s), x, r, state), graphs,
+            shards))
+        return per_rank(lambda u_, s, c_: u_ * s + (1.0 - u_) * c_, u, state,
+                        c)
 
 
 class _Stack(nn.Module):
@@ -167,13 +213,13 @@ class _Stack(nn.Module):
         if out_dim is not None:
             self.out = dense(cfg.hidden_size, out_dim, generator)
 
-    def forward(self, states: torch.Tensor, x: torch.Tensor,
-                graphs: torch.Tensor) -> torch.Tensor:
+    def forward(self, states, x, graphs, shards: NodeShards | None = None):
         out, new = x, []
         for layer in range(self.n_layers):
-            out = getattr(self, f"cell{layer}")(states[layer], out, graphs)
+            out = getattr(self, f"cell{layer}")(
+                per_rank(lambda s: s[layer], states), out, graphs, shards)
             new.append(out)
-        return torch.stack(new)                           # (L, B, N, H)
+        return per_rank(lambda *n: torch.stack(n), *new)  # (L, B, N, H)
 
 
 class CCRNN(nn.Module):
@@ -196,28 +242,47 @@ class CCRNN(nn.Module):
         self.encoder = _Stack(cfg, dim_in, None, generator)
         self.decoder = _Stack(cfg, dim_out, dim_out, generator)
 
-    def graphs(self) -> torch.Tensor:
-        """The three coupled graphs (3, N, N) (`CCRNN.py:170-186`)."""
-        e1, e2 = self.nodevec1, self.nodevec2
-        w1, w2, b1, b2 = self.w1, self.w2, self.b1, self.b2
+    def graphs(self, shards: NodeShards | None = None):
+        """The three coupled graphs (3, N, N) (`CCRNN.py:170-186`), or
+        with `shards` three `NodeRows`: rank g's rows from its rows of
+        nodevec1, the rest read whole."""
+        if shards is None:
+            return torch.stack(self._graphs(self.nodevec1, self.nodevec2,
+                                            self.w1, self.w2, self.b1,
+                                            self.b2))
+        # stacked as the whole graphs are: an unused graph's maps get a
+        # zero gradient, not none
+        ranks = [torch.stack(self._graphs(e1, *(p.to(e1.device) for p in (
+                    self.nodevec2, self.w1, self.w2, self.b1, self.b2))))
+                 for e1 in shards.split(self.nodevec1, dim=0)]
+        return [NodeRows(tuple(r[i] for r in ranks), shards)
+                for i in range(len(ranks[0]))]
+
+    @staticmethod
+    def _graphs(e1, e2, w1, w2, b1, b2) -> list:
         graphs = [F.leaky_relu(e1 @ e2)]
         v1, v2 = e1 @ w1 + b1, (e2.T @ w1 + b1).T
         graphs.append(F.leaky_relu(v1 @ v2))
         v1, v2 = v1 @ w2 + b2, (v2.T @ w2 + b2).T
         graphs.append(F.leaky_relu(v1 @ v2))
-        return torch.stack(graphs)
+        return graphs
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor | None = None,
+    def forward(self, x, y: torch.Tensor | None = None,
                 step: int | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards (the output likewise); y whole."""
         c = self.cfg
-        B, T, N, _ = x.shape
-        graphs = self.graphs()
-        rm = resolve_remat(c.remat, N)
+        B, T = (x if shards is None else x[0]).shape[:2]
+        graphs = self.graphs(shards)
+        rm = resolve_remat(c.remat, c.num_nodes)
         enc, dec = remat_cell(self.encoder, rm), remat_cell(self.decoder, rm)
-        states = x.new_zeros(c.n_rnn_layers, B, N, c.hidden_size)
+        states = per_rank(lambda t: t.new_zeros(
+            c.n_rnn_layers, B, t.shape[2], c.hidden_size), x)
         for t in range(T):
-            states = enc(states, x[:, t], graphs)
+            states = enc(states, per_rank(lambda a: a[:, t], x), graphs,
+                         shards)
 
         # scheduled sampling (`CCRNN.py:125-126, 194-195`)
         use_tf = None
@@ -225,14 +290,19 @@ class CCRNN(nn.Module):
             # one draw for the whole batch: in a data-parallel step
             # every data row reads the same coins
             use_tf = shared_draw(lambda: teacher_forcing_coins(
-                self.horizon, step, c.cl_decay_steps,
-                generator)).to(x.device)
-        inp = x.new_zeros(B, N, self.dim_out)
+                self.horizon, step, c.cl_decay_steps, generator))
+            if shards is not None:
+                y = shards.split(y)
+        inp = per_rank(lambda t: t.new_zeros(B, t.shape[2], self.dim_out), x)
         preds = []
         for t in range(self.horizon):
-            states = dec(states, inp, graphs)
-            pred = linear(self.decoder.out, states[-1])
+            states = dec(states, inp, graphs, shards)
+            pred = each(self.decoder.out, per_rank(lambda s: s[-1], states),
+                        shards, linear)
             preds.append(pred)
-            inp = pred if use_tf is None else torch.where(
-                use_tf[t], y[:, t, :, : self.dim_out].to(pred.dtype), pred)
-        return torch.stack(preds, dim=1)                  # (B, T_out, N, D)
+            inp = pred if use_tf is None else per_rank(
+                lambda p, yt: torch.where(
+                    use_tf[t].to(p.device),
+                    yt[:, t, :, : self.dim_out].to(p.dtype), p), pred, y)
+        # (B, T_out, N, D)
+        return per_rank(lambda *p: torch.stack(p, dim=1), *preds)

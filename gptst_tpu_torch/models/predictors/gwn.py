@@ -21,6 +21,18 @@ supports are transposed once per forward (`SparseSupport.T` swaps the
 structures, so the forward runs the transposed block-CSR or DIA band
 and the backward the original one).
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh), with the adaptive adjacency as the only support (the
+conf's aptonly; static supports under a graph axis raise, as in the
+JAX package: ROADMAP.md Queue 3, item 15): x and every activation are
+lists of the ranks' node shards. Rank g holds its rows of nodevec1 and
+so its rows of A (`ops/graph_conv.adaptive_rows`, no meeting); each
+diffusion hop by Aᵀ reduce-scatters the ranks' partial products
+(`NodeRows.matmul`), the BatchStatsNorms sum over the ranks' nodes and
+the data rows, and dropout's draw is the one-device draw. The gated
+dilated convolutions act along time, on each rank's nodes.
+
 Parameters, by the flax scope each one mirrors (`convert.py`):
   start_conv, end_conv_1, end_conv_2     nn.Linear (flax Dense)
   dilated.{j}    DilatedCausal_j's Conv_0 (`TimeConv`: weight
@@ -43,10 +55,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import linear
-from gptst_tpu_torch.ops.graph_conv import adaptive_adj, diffusion_conv
+from gptst_tpu_torch.ops.graph_conv import (
+    adaptive_adj, adaptive_rows, diffusion_conv,
+)
 from gptst_tpu_torch.ops.norm import BatchStatsNorm, dropout
 from gptst_tpu_torch.ops.recurrent import xavier_uniform_
 from gptst_tpu_torch.ops.temporal import TimeConv, dense
+from gptst_tpu_torch.parallel.mesh import NodeShards, each, per_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,38 +151,46 @@ class GWN(nn.Module):
         self.end_conv_1 = dense(c.skip_channels, c.end_channels, generator)
         self.end_conv_2 = dense(c.end_channels, horizon, generator)
 
-    def forward(self, x: torch.Tensor, supports: tuple = (),
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x, supports: tuple = (),
+                generator: torch.Generator | None = None,
+                shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards; the output likewise."""
         c = self.cfg
-        pad = max(1, c.receptive_field(self.dim_out) - x.shape[1])
-        x = F.pad(x, (0, 0, 0, 0, pad, 0))
+        steps = (x if shards is None else x[0]).shape[1]
+        pad = max(1, c.receptive_field(self.dim_out) - steps)
+        x = per_rank(lambda t: F.pad(t, (0, 0, 0, 0, pad, 0)), x)
         sup = [s.T for s in supports]
         if self.adaptive:
-            sup.append(adaptive_adj(self.nodevec1, self.nodevec2).T)
-        x = linear(self.start_conv, x)
+            sup.append(adaptive_adj(self.nodevec1, self.nodevec2).T
+                       if shards is None else
+                       adaptive_rows(self.nodevec1, self.nodevec2, shards).T)
+        x = each(self.start_conv, x, shards, linear)
         skip = None
         i = 0
         for b in range(c.blocks):
             for layer in range(c.layers):
                 residual = x
-                filt = torch.tanh(self.dilated[2 * i](residual))
-                gate = torch.sigmoid(self.dilated[2 * i + 1](residual))
-                x = filt * gate
+                x = per_rank(lambda f, g: torch.tanh(f) * torch.sigmoid(g),
+                             each(self.dilated[2 * i], residual, shards),
+                             each(self.dilated[2 * i + 1], residual, shards))
                 d = i if self.gconv else 2 * i
-                s = linear(self.dense[d], x)
-                skip = s if skip is None else s + skip[:, -s.shape[1]:]
+                s = each(self.dense[d], x, shards, linear)
+                skip = s if skip is None else per_rank(
+                    lambda a, k: a + k[:, -a.shape[1]:], s, skip)
                 if self.gconv:
                     x = diffusion_conv(
                         x, sup, getattr(self, f"gconv_w_{b}_{layer}"),
                         getattr(self, f"gconv_b_{b}_{layer}"), order=2)
-                    x = dropout(x, c.dropout, generator)
+                    x = dropout(x, c.dropout, generator, shards)
                 else:
-                    x = linear(self.dense[d + 1], x)
-                x = x + residual[:, -x.shape[1]:]
-                x = self.norm[i](x)
+                    x = each(self.dense[d + 1], x, shards, linear)
+                x = per_rank(lambda a, r: a + r[:, -a.shape[1]:], x,
+                             residual)
+                x = self.norm[i](x, shards)
                 i += 1
-        x = torch.relu(skip)
-        x = torch.relu(linear(self.end_conv_1, x))
-        x = linear(self.end_conv_2, x)
+        x = per_rank(torch.relu, skip)
+        x = per_rank(torch.relu, each(self.end_conv_1, x, shards, linear))
+        x = each(self.end_conv_2, x, shards, linear)
         # (B, t_rem = dim_out, N, horizon) -> (B, horizon, N, dim_out)
-        return x.permute(0, 3, 2, 1)
+        return per_rank(lambda t: t.permute(0, 3, 2, 1), x)

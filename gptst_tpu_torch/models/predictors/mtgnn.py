@@ -13,6 +13,20 @@ JAX package. Defaults follow `conf/MTGNN/*.conf` (layers 3, gcn_depth
 2, subgraph_size 20, node_dim 40, dilation_exponential 1, conv and
 residual 32, skip 64, end 128, propalpha 0.05, tanhalpha 3).
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh): x and every activation are lists of the ranks' node
+shards. Each rank maps its rows of the (N, node_dim) embeddings, the
+maps' tanh are all-gathered (small) and rank g keeps its rows of the
+learned graph, each row's top k being its own
+(`ops/graph_conv.mtgnn_graph_rows`); MixProp by A all-gathers
+each hop's input, by Aᵀ reduce-scatters each hop's partial products
+(Aᵀ's row sums are A's column sums, summed over the ranks); each
+LayerNorm sums over the ranks' nodes and each rank reads its nodes of
+the (T, N, C) scale and bias; dropout's draw is the one-device draw.
+The inception and skip convolutions act along time, on each rank's
+nodes.
+
 The input is front-padded to the receptive field (with
 dilation_exponential 1: layers * (7 - 1) + dim_out), so, as in GWN,
 the time left is dim_out and the final projection's channel axis
@@ -39,12 +53,15 @@ import torch
 from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import linear
-from gptst_tpu_torch.ops.graph_conv import mixprop, mtgnn_graph
-from gptst_tpu_torch.ops.norm import dropout
+from gptst_tpu_torch.ops.graph_conv import (
+    NodeRows, mixprop, mtgnn_graph, mtgnn_graph_rows,
+)
+from gptst_tpu_torch.ops.norm import dropout, node_moments
 from gptst_tpu_torch.ops.recurrent import xavier_uniform_
 from gptst_tpu_torch.ops.temporal import (
     INCEPTION_KERNELS, DilatedInception, TimeConv, dense,
 )
+from gptst_tpu_torch.parallel.mesh import NodeShards, each, per_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +101,21 @@ class NodeLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(shape))
         self.bias = nn.Parameter(torch.zeros(shape))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, N, C)
-        mean = x.mean(dim=(1, 2, 3), keepdim=True)
-        var = x.var(dim=(1, 2, 3), keepdim=True, correction=0)
-        return (x - mean) * torch.rsqrt(var + 1e-5) * self.weight + self.bias
+    def forward(self, x, shards: NodeShards | None = None):
+        """x (B, T, N, C); with `shards`, the list of the ranks' node
+        shards, each normalized by its sample's statistics over the row's
+        whole (T, N, C) slab (two sums over the ranks' nodes, in f32)."""
+        if shards is None:
+            mean = x.mean(dim=(1, 2, 3), keepdim=True)
+            var = x.var(dim=(1, 2, 3), keepdim=True, correction=0)
+            return (x - mean) * torch.rsqrt(var + 1e-5) * self.weight \
+                + self.bias
+        return [(xg - m.to(xg.dtype)) * torch.rsqrt(v.to(xg.dtype) + 1e-5)
+                * w + b
+                for xg, w, b, (m, v) in zip(
+                    x, shards.split(self.weight, dim=1),
+                    shards.split(self.bias, dim=1),
+                    node_moments(x, (1, 2, 3), shards))]
 
 
 class GraphConstructor(nn.Module):
@@ -105,9 +133,17 @@ class GraphConstructor(nn.Module):
         self.lin1 = dense(node_dim, node_dim, generator)
         self.lin2 = dense(node_dim, node_dim, generator)
 
-    def forward(self) -> torch.Tensor:
-        return mtgnn_graph(linear(self.lin1, self.emb1),
-                           linear(self.lin2, self.emb2), self.alpha, self.k)
+    def forward(self, shards: NodeShards | None = None):
+        """The (N, N) graph, or with `shards` its ranks' rows, each rank
+        mapping its rows of the embeddings."""
+        if shards is None:
+            return mtgnn_graph(linear(self.lin1, self.emb1),
+                               linear(self.lin2, self.emb2), self.alpha,
+                               self.k)
+        return mtgnn_graph_rows(
+            each(self.lin1, shards.split(self.emb1, dim=0), shards, linear),
+            each(self.lin2, shards.split(self.emb2, dim=0), shards, linear),
+            self.alpha, self.k, shards)
 
 
 class MTGNN(nn.Module):
@@ -159,43 +195,56 @@ class MTGNN(nn.Module):
         self.end_conv_1 = dense(c.skip_channels, c.end_channels, generator)
         self.end_conv_2 = dense(c.end_channels, horizon, generator)
 
-    def forward(self, x: torch.Tensor, predefined_adj=None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x, predefined_adj=None,
+                generator: torch.Generator | None = None,
+                shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards; the output likewise."""
         c = self.cfg
         rf = c.receptive_field(self.dim_out)
-        if x.shape[1] < rf:
-            x = torch.nn.functional.pad(x, (0, 0, 0, 0, rf - x.shape[1], 0))
+        steps = (x if shards is None else x[0]).shape[1]
+        if steps < rf:
+            x = per_rank(lambda t: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, rf - steps, 0)), x)
         adp = None
         if c.gcn_true:
-            adp = self.gc() if c.build_adj else predefined_adj
+            if c.build_adj:
+                adp = self.gc(shards)
+            elif shards is None:
+                adp = predefined_adj
+            else:
+                adp = NodeRows.of(predefined_adj, shards)
 
         def drop(h):
-            return dropout(h, c.dropout, generator)
+            return dropout(h, c.dropout, generator, shards)
 
-        h = linear(self.start_conv, x)
+        h = each(self.start_conv, x, shards, linear)
         # skip0: a conv over the whole (padded) time axis -> time 1
-        skip = self.skip0(drop(x))
+        skip = each(self.skip0, drop(x), shards)
         for i in range(c.layers):
             residual = h
-            filt = torch.tanh(self.inception[2 * i](h))
-            gate = torch.sigmoid(self.inception[2 * i + 1](h))
-            h = drop(filt * gate)
+            h = drop(per_rank(lambda f, g: torch.tanh(f) * torch.sigmoid(g),
+                              each(self.inception[2 * i], h, shards),
+                              each(self.inception[2 * i + 1], h, shards)))
             # each layer's skip collapses the remaining time axis to 1
-            skip = self.skips[i](h) + skip
+            skip = per_rank(torch.add, each(self.skips[i], h, shards), skip)
             if c.gcn_true:
-                h = (mixprop(h, adp, getattr(self, f"mixprop1_w_{i}"),
-                             c.gcn_depth, c.propalpha)
-                     + getattr(self, f"mixprop1_b_{i}")
-                     + mixprop(h, adp.T, getattr(self, f"mixprop2_w_{i}"),
-                               c.gcn_depth, c.propalpha)
-                     + getattr(self, f"mixprop2_b_{i}"))
+                b1 = getattr(self, f"mixprop1_b_{i}")
+                b2 = getattr(self, f"mixprop2_b_{i}")
+                h = per_rank(
+                    lambda m1, m2: m1 + b1.to(m1.device) + m2
+                    + b2.to(m2.device),
+                    mixprop(h, adp, getattr(self, f"mixprop1_w_{i}"),
+                            c.gcn_depth, c.propalpha),
+                    mixprop(h, adp.T, getattr(self, f"mixprop2_w_{i}"),
+                            c.gcn_depth, c.propalpha))
             else:
-                h = linear(self.dense[i], h)
-            h = h + residual[:, -h.shape[1]:]
-            h = self.norm[i](h)
-        skip = self.skipE(h) + skip
-        h = torch.relu(skip)
-        h = torch.relu(linear(self.end_conv_1, h))
-        h = linear(self.end_conv_2, h)
+                h = each(self.dense[i], h, shards, linear)
+            h = per_rank(lambda a, r: a + r[:, -a.shape[1]:], h, residual)
+            h = self.norm[i](h, shards)
+        skip = per_rank(torch.add, each(self.skipE, h, shards), skip)
+        h = per_rank(torch.relu, skip)
+        h = per_rank(torch.relu, each(self.end_conv_1, h, shards, linear))
+        h = each(self.end_conv_2, h, shards, linear)
         # (B, dim_out, N, horizon) -> (B, horizon, N, dim_out)
-        return h.permute(0, 3, 2, 1)
+        return per_rank(lambda t: t.permute(0, 3, 2, 1), h)

@@ -15,6 +15,16 @@ raw channels) and eval mode (the 64-wide fused embedding). The
 Chebyshev stack is dense: STGCN runs at the reference datasets' sizes
 (N <= 266).
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh): x and every activation are lists of the ranks' node
+shards. The temporal convolutions are node-local; the ranks meet at the
+Chebyshev products (each rank's rows of the stack times the
+all-gathered x, `ops/graph_conv.sharded_cheb_conv`) and at the
+LayerNorms over (N, C) (two sums over nodes), whose (N, C) scale and
+bias each rank reads by its rows. Dropout's draw is the one-device
+draw (`ops/norm.dropout`).
+
 Parameters, by the flax scope each one mirrors (`convert.py`):
   block0, block1        STConvBlock_0, STConvBlock_1
     .tconv0, .tconv1      TemporalConv_0, TemporalConv_1 (`kernel`,
@@ -36,9 +46,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gptst_tpu_torch.ops.dtypes import linear, promoted
-from gptst_tpu_torch.ops.graph_conv import cheb_conv
-from gptst_tpu_torch.ops.norm import dropout
+from gptst_tpu_torch.ops.dtypes import linear, promoted, widened
+from gptst_tpu_torch.ops.graph_conv import cheb_conv, sharded_cheb_conv
+from gptst_tpu_torch.ops.norm import dropout, node_moments
+from gptst_tpu_torch.parallel.mesh import NodeShards, each, per_rank
 from gptst_tpu_torch.ops.temporal import TemporalConv, align_channels, dense
 
 
@@ -62,9 +73,22 @@ class NodeLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_nodes, channels))
         self.bias = nn.Parameter(torch.zeros(num_nodes, channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = promoted(x, self.weight, self.bias)
-        return F.layer_norm(x, tuple(w.shape), w, b, eps=1e-6)
+    def forward(self, x, shards: NodeShards | None = None):
+        """x (..., N, C); with `shards`, the list of the ranks' node
+        shards, each normalized by the statistics of the row's whole
+        (N, C) slab (two sums over the ranks' nodes, in f32)."""
+        if shards is None:
+            x, w, b = promoted(x, self.weight, self.bias)
+            return F.layer_norm(x, tuple(w.shape), w, b, eps=1e-6)
+        out = []
+        for xg, ws, bs, (m, v) in zip(
+                x, shards.split(self.weight, dim=0),
+                shards.split(self.bias, dim=0),
+                node_moments(x, (-2, -1), shards)):
+            dt = torch.promote_types(xg.dtype, ws.dtype)
+            out.append(((widened(xg) - m) * torch.rsqrt(v + 1e-6)
+                        * widened(ws) + widened(bs)).to(dt))
+        return out
 
 
 class SpatioConvLayer(nn.Module):
@@ -83,9 +107,15 @@ class SpatioConvLayer(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c_out))
         self.proj = dense(c_in, c_out, generator) if c_in > c_out else None
 
-    def forward(self, x: torch.Tensor, cheb: torch.Tensor) -> torch.Tensor:
-        x_gc = cheb_conv(x, cheb, self.theta, self.bias)
-        return torch.relu(x_gc + align_channels(x, self.c_out, self.proj))
+    def forward(self, x, cheb: torch.Tensor,
+                shards: NodeShards | None = None):
+        if shards is None:
+            x_gc = cheb_conv(x, cheb, self.theta, self.bias)
+        else:
+            x_gc = sharded_cheb_conv(x, cheb, self.theta, self.bias, shards)
+        res = each(self.proj, x, shards,
+                   lambda p, t: align_channels(t, self.c_out, p))
+        return per_rank(lambda a, r: torch.relu(a + r), x_gc, res)
 
 
 class STConvBlock(nn.Module):
@@ -103,10 +133,11 @@ class STConvBlock(nn.Module):
         self.tconv1 = TemporalConv(kt, c[1], c[2], "relu", generator)
         self.norm = NodeLayerNorm(num_nodes, c[2])
 
-    def forward(self, x, cheb, generator: torch.Generator | None = None):
-        x = self.tconv1(self.sconv(self.tconv0(x), cheb))
-        x = self.norm(x)
-        return dropout(x, self.drop_prob, generator)
+    def forward(self, x, cheb, generator: torch.Generator | None = None,
+                shards: NodeShards | None = None):
+        x = self.sconv(each(self.tconv0, x, shards), cheb, shards)
+        x = self.norm(each(self.tconv1, x, shards), shards)
+        return dropout(x, self.drop_prob, generator, shards)
 
 
 class OutputLayer(nn.Module):
@@ -121,9 +152,9 @@ class OutputLayer(nn.Module):
         self.tconv1 = TemporalConv(1, c, c, "sigmoid", generator)
         self.dense = dense(c, dim_out, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.tconv1(self.norm(self.tconv0(x)))
-        return linear(self.dense, x)
+    def forward(self, x, shards: NodeShards | None = None):
+        x = self.norm(each(self.tconv0, x, shards), shards)
+        return each(self.dense, each(self.tconv1, x, shards), shards, linear)
 
 
 class STGCN(nn.Module):
@@ -145,8 +176,11 @@ class STGCN(nn.Module):
         self.output = OutputLayer(b1[2], cfg.outputl_ks, dim_out, n,
                                   generator)
 
-    def forward(self, x: torch.Tensor, cheb: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.block0(x, cheb, generator)
-        x = self.block1(x, cheb, generator)
-        return self.output(x)
+    def forward(self, x, cheb: torch.Tensor,
+                generator: torch.Generator | None = None,
+                shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards; the output likewise."""
+        x = self.block0(x, cheb, generator, shards)
+        x = self.block1(x, cheb, generator, shards)
+        return self.output(x, shards)

@@ -23,6 +23,12 @@ def promoted(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return tuple(t.to(dt) for t in ts)
 
 
+def widened(t: torch.Tensor) -> torch.Tensor:
+    """t in at least f32 (a bf16 t in f32; f32 and float64 as they are):
+    where partial sums over node shards accumulate before they meet."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """flax `Dense` semantics of `lin(x)`: x, weight and bias promoted."""
     x, w, b = promoted(x, lin.weight, lin.bias)

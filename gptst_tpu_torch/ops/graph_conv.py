@@ -13,6 +13,12 @@ the support representation:
   * `ShardedSupport` — node-sharded aggregation over a mesh's 'graph'
     axis (`parallel/halo.py`: the boundary halo exchange or the ring).
 
+A dense graph that a node-sharded predictor computes or reads (GWN's
+adaptive adjacency, MTGNN's and CCRNN's learned graphs, a predefined
+adjacency) is a `NodeRows`: rank g holds its rows, and the products
+(`NodeRows.matmul`, `mixprop`, `diffusion_conv`, `sharded_cheb_conv`)
+take and give lists of the ranks' node shards.
+
 `make_support` picks the representation from the node count, or the
 sharded one under a mesh, so model code is representation-agnostic.
 Layout: x is (..., N, C); supports act on the N axis.
@@ -31,8 +37,8 @@ from gptst_tpu_torch.kernels.spmm import (
     BlockCSR, COOTail, DIABand, coo_matmul, coo_split_mask, dia_matmul,
     dia_pair_from_coo, spmm, split_coo_hybrid,
 )
-from gptst_tpu_torch.ops.dtypes import promoted
-from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS
+from gptst_tpu_torch.ops.dtypes import promoted, widened
+from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS, NodeShards
 from gptst_tpu_torch.parallel.rows import current_row
 from gptst_tpu_torch.utils.device import resolve_device
 
@@ -121,6 +127,14 @@ class ShardedSupport:
     @property
     def shape(self) -> tuple[int, int]:
         return (self.n, self.n)
+
+    @property
+    def T(self):
+        raise AttributeError(
+            "a ShardedSupport has no transpose: GWN with static supports "
+            "(--aptonly False) under a graph axis raises here as in the "
+            "JAX package (ROADMAP.md Queue 3, item 15); run it with the "
+            "adaptive adjacency alone (aptonly) or without a graph axis")
 
     def fn_of_row(self, row: int | None):
         """The product on data row `row`'s graph ranks (row 0 for
@@ -307,14 +321,33 @@ def cheb_conv(x: torch.Tensor, cheb_stack: torch.Tensor,
     return out if bias is None else out + bias
 
 
-def diffusion_conv(x: torch.Tensor, supports, weight: torch.Tensor,
+def _project(hs, weight: torch.Tensor,
+             bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The channel concatenation of `hs` times `weight` (+ `bias`), read
+    on the shards' device, in the promoted dtype."""
+    h, w = promoted(torch.cat(hs, dim=-1), weight.to(hs[0].device))
+    out = h @ w
+    return out if bias is None else out + bias.to(out.device)
+
+
+def diffusion_conv(x, supports, weight: torch.Tensor,
                    bias: torch.Tensor | None = None, order: int = 2,
-                   include_self: bool = True) -> torch.Tensor:
+                   include_self: bool = True):
     """GWN's diffusion convolution (`model/GWN/GWN.py:77-98`): [x, A1 x,
     A1^2 x, ..., Ak x, Ak^2 x, ...] along channels, then one projection.
     x: (..., N, Ci); each support dense, `SparseSupport` (or its `.T`)
     or sharded, through `graph_matmul`; weight:
-    ((1 + order * len(supports)) * Ci, Co)."""
+    ((1 + order * len(supports)) * Ci, Co). With `NodeRows` supports, x
+    and the result are lists of the ranks' node shards (one meeting a
+    hop)."""
+    if supports and isinstance(supports[0], NodeRows):
+        feats = [x] if include_self else []
+        for a in supports:
+            h = x
+            for _ in range(order):
+                h = a.matmul(h)
+                feats.append(h)
+        return [_project(hs, weight, bias) for hs in zip(*feats)]
     feats = [x] if include_self else []
     for a in supports:
         h = x
@@ -326,12 +359,20 @@ def diffusion_conv(x: torch.Tensor, supports, weight: torch.Tensor,
     return out if bias is None else out + bias
 
 
-def mixprop(x: torch.Tensor, adj: torch.Tensor, weight: torch.Tensor,
-            gdep: int, alpha: float) -> torch.Tensor:
+def mixprop(x, adj, weight: torch.Tensor, gdep: int, alpha: float):
     """MTGNN's MixProp (`model/MTGNN/MTGNN.py:57-77`): with A the
     row-normalized (adj + I), h_k = alpha x + (1 - alpha) A h_{k-1};
     every hop concatenated on channels, then projected. x: (..., N, Ci);
-    weight: ((gdep + 1) * Ci, Co)."""
+    weight: ((gdep + 1) * Ci, Co). With `adj` a `NodeRows` (or its
+    `.T`), x and the result are lists of the ranks' node shards."""
+    if isinstance(adj, NodeRows):
+        a = _mixprop_rows(adj)
+        h, outs = x, [x]
+        for _ in range(gdep):
+            h = [alpha * xg + (1.0 - alpha) * ag
+                 for xg, ag in zip(x, a.matmul(h))]
+            outs.append(h)
+        return [_project(hs, weight) for hs in zip(*outs)]
     a = adj + torch.eye(adj.shape[0], dtype=adj.dtype, device=adj.device)
     a = a / a.sum(dim=1, keepdim=True)
     h = x
@@ -359,8 +400,110 @@ def mtgnn_graph(v1: torch.Tensor, v2: torch.Tensor, alpha: float,
     JAX package's `jax.lax.top_k` threshold keeps them)."""
     m1 = torch.tanh(alpha * v1)
     m2 = torch.tanh(alpha * v2)
-    a = torch.relu(torch.tanh(alpha * (m1 @ m2.T - m2 @ m1.T)))
-    if k >= a.shape[0]:
+    return _mtgnn_rows(m1, m2, m1, m2, alpha, k)
+
+
+def _mtgnn_rows(r1: torch.Tensor, r2: torch.Tensor, m1: torch.Tensor,
+                m2: torch.Tensor, alpha: float, k: int) -> torch.Tensor:
+    """`mtgnn_graph`'s rows of the nodes whose rows of m1 and m2 are
+    `r1` and `r2`."""
+    a = torch.relu(torch.tanh(alpha * (r1 @ m2.T - r2 @ m1.T)))
+    if k >= a.shape[1]:
         return a
     kth = torch.topk(a, k, dim=1).values[:, -1:]
     return torch.where(a >= kth, a, 0.0)
+
+
+# --- dense graphs over a data row's graph ranks ------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NodeRows:
+    """A dense (N, N) graph A over a data row's graph ranks: `rows[g]` is
+    rank g's rows `shards.node_range(g)` of A, (n_g, N) on its device;
+    `transposed` marks Aᵀ."""
+
+    rows: tuple
+    shards: NodeShards
+    transposed: bool = False
+
+    @staticmethod
+    def of(a: torch.Tensor, shards: NodeShards) -> "NodeRows":
+        """The ranks' rows of a whole (N, N) tensor."""
+        return NodeRows(tuple(shards.split(a, dim=0)), shards)
+
+    @property
+    def T(self) -> "NodeRows":
+        return dataclasses.replace(self, transposed=not self.transposed)
+
+    def matmul(self, xs: list) -> list:
+        """The ranks' shards of A @ x (or Aᵀ @ x), x (..., N, C) as the
+        ranks' shards `xs`. A @ x: each rank's rows times the
+        all-gathered x. Aᵀ @ x: each rank's partial product over its
+        nodes, (..., N, C) in at least f32, reduce-scattered, so the rows never
+        move. In the promoted dtype of A and x, as `graph_matmul`."""
+        sh = self.shards
+        if not self.transposed:
+            return [torch.einsum("nm,...mc->...nc", *promoted(a, h))
+                    for a, h in zip(self.rows, sh.all_gather(xs))]
+        dt = torch.promote_types(self.rows[0].dtype, xs[0].dtype)
+        parts = [torch.einsum("vw,...vc->...wc", widened(a), widened(h))
+                 for a, h in zip(self.rows, xs)]
+        return [p.to(dt) for p in sh.reduce_scatter(parts)]
+
+
+def _eye_rows(shards: NodeShards, g: int, like: torch.Tensor
+              ) -> torch.Tensor:
+    """Rank g's rows of the (N, N) identity, as `like`."""
+    lo, hi = shards.node_range(g)
+    eye = torch.zeros(hi - lo, shards.n, dtype=like.dtype, device=like.device)
+    idx = torch.arange(hi - lo, device=like.device)
+    eye[idx, idx + lo] = 1
+    return eye
+
+
+def sharded_cheb_conv(xs: list, cheb_stack: torch.Tensor,
+                      theta: torch.Tensor, bias: torch.Tensor | None,
+                      shards: NodeShards) -> list:
+    """`cheb_conv` on the ranks' node shards: rank g's rows of the
+    (K, N, N) stack (a constant, read where it lies) times the
+    all-gathered x."""
+    return [cheb_conv(x, c, theta.to(x.device),
+                      None if bias is None else bias.to(x.device))
+            for x, c in zip(shards.all_gather(xs),
+                            shards.split(cheb_stack, dim=1))]
+
+
+def adaptive_rows(e1: torch.Tensor, e2: torch.Tensor,
+                  shards: NodeShards) -> NodeRows:
+    """`adaptive_adj` as `NodeRows`: rank g's rows of E1 and the whole
+    E2 give its rows of the row softmax, with no meeting."""
+    return NodeRows(tuple(
+        adaptive_adj(r, e2.to(r.device))
+        for r in shards.split(e1, dim=0)), shards)
+
+
+def mtgnn_graph_rows(v1: list, v2: list, alpha: float, k: int,
+                     shards: NodeShards) -> NodeRows:
+    """`mtgnn_graph` as `NodeRows`, from the ranks' rows of v1 and v2:
+    m1 and m2 ((N, node_dim) each, small) all-gathered, rank g's rows
+    against them with the one-device contraction, each row's top k its
+    own."""
+    m1 = [torch.tanh(alpha * v) for v in v1]
+    m2 = [torch.tanh(alpha * v) for v in v2]
+    return NodeRows(tuple(
+        _mtgnn_rows(r1, r2, a1, a2, alpha, k) for r1, r2, a1, a2 in zip(
+            m1, m2, shards.all_gather(m1), shards.all_gather(m2))), shards)
+
+
+def _mixprop_rows(adj: NodeRows) -> NodeRows:
+    """MixProp's row-normalized (A + I) as `NodeRows`: of
+    A from its rows' own sums; of Aᵀ from A's column sums, summed over
+    the ranks, (A + I) / (colsum + 1) by columns, still transposed."""
+    sh = adj.shards
+    plus = [a + _eye_rows(sh, g, a) for g, a in enumerate(adj.rows)]
+    if not adj.transposed:
+        return NodeRows(tuple(a / a.sum(dim=1, keepdim=True) for a in plus),
+                        sh)
+    deg = sh.all_sum([a.sum(dim=0) for a in adj.rows])
+    return NodeRows(tuple(a / (d + 1.0) for a, d in zip(plus, deg)), sh,
+                    transposed=True)

@@ -38,17 +38,24 @@ global batch (a ragged batch runs whole on every process's first row).
 `shard_rows` / `gather_rows` stand in for placing a tensor with
 `NamedSharding(mesh, P('graph', None))` on one row and reading it back;
 `NodeShards` is a row's node axis over its graph ranks, with the
-differentiable sum over them (`node_sum`, GSPMD's all-reduce over
-'graph' of a sum over nodes).
+differentiable meetings over them, GSPMD's collectives over 'graph' in
+one process: `node_sum` (the all-reduce of a sum over nodes, on the
+row's first device) and `all_sum` (on every rank), `all_gather`,
+`reduce_scatter` and `split_draw` (one draw over the whole node axis,
+each rank taking its slice). A rank reads a parameter where it lies
+through `.to()` (`module_on` for a module), so the gradients meet
+there.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 DATA_AXIS = "data"
 GRAPH_AXIS = "graph"
@@ -287,6 +294,98 @@ class NodeShards:
         for p in partials[1:]:
             total = total + p.to(self.devices[0])
         return total
+
+    def all_sum(self, partials: Sequence[torch.Tensor]
+                ) -> list[torch.Tensor]:
+        """`node_sum` on every rank (a norm's statistics over nodes)."""
+        if self.parts == 1:
+            return list(partials)
+        return self.replicate(self.node_sum(partials))
+
+    def all_gather(self, shards: Sequence[torch.Tensor],
+                   dim: int = -2) -> list[torch.Tensor]:
+        """The whole node axis on every rank (where a rank's rows of a
+        graph multiply every node's features)."""
+        if self.parts == 1:
+            return list(shards)
+        return self.replicate(self.gather(shards, dim))
+
+    def reduce_scatter(self, partials: Sequence[torch.Tensor],
+                       dim: int = -2) -> list[torch.Tensor]:
+        """The sum of the ranks' partials, each over the whole node axis
+        on `dim`, rank g taking its nodes (a product by Aᵀ where rank g
+        holds rows of A)."""
+        if self.parts == 1:
+            return list(partials)
+        out = []
+        for g, dev in enumerate(self.devices):
+            lo, hi = self.node_range(g)
+            total = None
+            for p in partials:
+                part = p.narrow(dim, lo, hi - lo).to(dev)
+                total = part if total is None else total + part
+            out.append(total)
+        return out
+
+    def split_draw(self, draw: Callable[[tuple], torch.Tensor],
+                   shape: Sequence[int], dim: int = -2
+                   ) -> list[torch.Tensor]:
+        """`draw(shape)` of the row's whole node axis (on the device of
+        the draw's generator), made once and cut into the ranks' shards:
+        the one-device draw, whatever the ranks."""
+        return self.split(draw(tuple(shape)), dim)
+
+    def module_on(self, module: Optional[nn.Module],
+                  g: int) -> Optional[nn.Module]:
+        """`module` as rank g calls it (`module_on(module, devices[g])`)."""
+        return module_on(module, self.devices[g])
+
+
+def each(module: nn.Module, x, shards: Optional[NodeShards] = None,
+         fn: Optional[Callable] = None):
+    """`module(x)`, or `fn(module, x)`: a node-local layer on x, or with
+    `shards` on each rank's shard of the list x, the module as the rank
+    reads it (`module_on`)."""
+    if fn is None:
+        def fn(m, t):
+            return m(t)
+    if shards is None:
+        return fn(module, x)
+    return [fn(shards.module_on(module, g), t) for g, t in enumerate(x)]
+
+
+def per_rank(fn: Callable, *xs):
+    """`fn(*xs)`, or where xs[0] is a list of the ranks' node shards,
+    `fn` on each rank's (an elementwise step of a node-sharded
+    model)."""
+    if isinstance(xs[0], list):
+        return [fn(*a) for a in zip(*xs)]
+    return fn(*xs)
+
+
+def module_on(module: Optional[nn.Module],
+              device: torch.device) -> Optional[nn.Module]:
+    """`module` itself where its parameters lie on `device`; else a
+    shallow copy of its tree whose parameters and buffers are read
+    through `.to(device)` (differentiable: the gradients meet where the
+    parameters lie; None for None). Made per call, so two data rows never
+    share it."""
+    if module is None:
+        return None
+    first = next(module.parameters(), None)
+    if first is None or first.device == device:
+        return module
+    view = copy.copy(module)
+    view.__dict__["_parameters"] = {
+        k: None if v is None else v.to(device)
+        for k, v in module._parameters.items()}
+    view.__dict__["_buffers"] = {
+        k: None if v is None else v.to(device)
+        for k, v in module._buffers.items()}
+    view.__dict__["_modules"] = {
+        k: None if m is None else module_on(m, device)
+        for k, m in module._modules.items()}
+    return view
 
 
 def node_shards(mesh: Optional[Mesh], n: int, row: int,

@@ -271,11 +271,14 @@ def test_an_undivided_node_axis_runs_whole(build_warnings):
 
 @pytest.mark.parametrize("mode, model, warns", [
     ("pretrain", "STGCN", False), ("eval", "TGCN", False),
-    ("eval", "GWN", True), ("ori", "MTGNN", True)])
+    ("eval", "GWN", False), ("ori", "MTGNN", False), ("ori", "STGCN", False),
+    ("eval", "CCRNN", False), ("ori", "ASTGCN", True),
+    ("eval", "ST_WA", True)])
 def test_whole_node_table_warnings(mode, model, warns, build_warnings):
     """Under (1, 2) at 14 nodes (no width of the models) a GPT-ST
-    (pretrain, eval's encoder) logs nothing; GWN's nodevecs and MTGNN's
-    embeddings stay whole and are counted."""
+    (pretrain, eval's encoder) logs nothing, nor do STGCN, GWN, MTGNN
+    and CCRNN, which run node-sharded; ASTGCN's and ST_WA's node tables
+    stay whole and are counted."""
     kw = dict(GPTST_SMALL) if mode != "ori" else {}
     cfg = default_config("PEMS08", mode=mode, model=model, num_nodes=14,
                          predictor_overrides=(("nhid", "4"),)
