@@ -3,6 +3,7 @@
     python3 chip_phases.py build bsr dia dia_model data_parallel
     python3 chip_phases.py build ring gptst_graph
     python3 chip_phases.py build predictors_graph
+    python3 chip_phases.py last_predictors_graph
     python3 chip_phases.py build distributed
     python3 chip_phases.py build cards      # with 2+ cards
 
@@ -10,7 +11,9 @@ Each name is a phase of `chip_smoke.PHASES`, run in the order given,
 or `cards`: the several-card parts of `data_parallel` (one data row per
 card and the CLI graph's mesh), of `gptst_graph` (GPT-ST's two graph
 ranks on two cards), of `predictors_graph` (STGCN, GWN, MTGNN and
-CCRNN on two cards) and of `distributed` (NCCL, one process per card).
+CCRNN on two cards), of `last_predictors_graph` (MSDR, ASTGCN, STGODE,
+ST_WA and DMVSTNET on two cards) and of `distributed` (NCCL, one
+process per card).
 The state that earlier phases leave for later ones is made up front:
 the CLI graph's adjacency, its sym-normalized form and `bsr_spmm`
 support, and empty `bsr_spmm`/`dia_spmm` records.
@@ -41,7 +44,8 @@ def main(names: list[str]) -> int:
                                                  device="cuda")
     for name in names:
         runs = ((c.data_parallel_cards, c.gptst_graph_cards,
-                 c.predictors_graph_cards, c.distributed_cards)
+                 c.predictors_graph_cards, c.last_predictors_graph_cards,
+                 c.distributed_cards)
                 if name == "cards" else (getattr(c, f"phase_{name}"),))
         t0 = time.perf_counter()
         for run in runs:

@@ -140,6 +140,17 @@ Phases, one JSON line each; any failure exits non-zero:
              sharded. No kernel of `csrc/` is on this path. With 2 or
              more cards, the same over cuda:0 and cuda:1, the peak per
              card against one card.
+  last_predictors_graph
+             MSDR, ASTGCN, STGODE, ST_WA and DMVSTNET node-sharded as
+             in predictors_graph (`graph_pair_line`), built under the
+             mesh (MSDR's static supports the halo exchange, taking the
+             ranks' shards), at conf widths, 2,048 nodes of a random
+             sensor graph (STGODE's semantic graph another one): MSDR,
+             ASTGCN, STGODE at batch 16, ST_WA at batch 8, DMVSTNET at
+             batch 16; float64 step-locked at the same batch, ST_WA's at
+             batch 2 (its f32 step at batch 8 holds ~42 GB). Prints each
+             rank's share of ST_WA's spatial attention maps. With 2 or
+             more cards, the five over cuda:0 and cuda:1 too.
   gptst_model
              GPT-ST `-mode pretrain` train steps through the library at
              16,384 nodes, PEMS08's published widths, batch 8, f32: one
@@ -259,6 +270,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
           "data_parallel", "gptst_graph", "predictors_graph",
+          "last_predictors_graph",
           "distributed", "gptst_model",
           "gptst_cli", "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
@@ -1956,6 +1968,8 @@ def gptst_graph_cards(rec: dict) -> None:
 # --- STGCN, GWN, MTGNN and CCRNN over the graph axis -----------------------
 
 PG_WARM, PG_STEPS = 1, 3
+# the largest parameter difference a float64 step-locked run may show
+F64_LOCKED_ATOL = 1e-12
 PG_STEP0 = 1711          # CCRNN's teacher-forcing coins are fair here
 
 
@@ -2064,15 +2078,22 @@ def graph_steps(model, cfg, mesh, x, y) -> dict:
 
 def params_close(got: dict, want: dict) -> dict:
     """Every parameter at rtol 1e-4 with an atol of 1e-5 of its largest
-    entry; returns the largest error."""
+    entry; a tensor whose largest entry is at most 1e-5 of the model's
+    largest (zero in exact arithmetic, as MSDR's att_b, whose gradient
+    a softmax's shift cancels) at 1e-5 of the latter, as the CPU tests
+    hold gradients (`tests/torch_parity.py`). Returns the largest
+    error."""
     import torch
 
     err = 0.0
+    top = max(float(w.abs().max()) for w in want.values())
     for k, w in want.items():
         err = max(err, float((got[k] - w).abs().max()))
-        torch.testing.assert_close(got[k], w, rtol=1e-4,
-                                   atol=1e-5 * float(w.abs().max()),
-                                   msg=lambda m: f"{k}: {m}")
+        scale = float(w.abs().max())
+        torch.testing.assert_close(
+            got[k], w, rtol=1e-4,
+            atol=1e-5 * (scale if scale > 1e-5 * top else top),
+            msg=lambda m: f"{k}: {m}")
     return dict(max_param_err=err)
 
 
@@ -2136,7 +2157,7 @@ def locked_steps(one, sharded, cfg, mesh, x, y) -> dict:
 
 
 def graph_pair_line(one, sharded, cfg, mesh, batch: int, nodes: int,
-                    seed: int = 0) -> dict:
+                    seed: int = 0, f64_batch: int | None = None) -> dict:
     """The one-device model and its sharded copy on the same random
     (x, y) from `seed`, from the same initial weights, neither launching
     a kernel of `csrc/`: in f32 each runs `graph_steps` free (ms per
@@ -2145,8 +2166,9 @@ def graph_pair_line(one, sharded, cfg, mesh, batch: int, nodes: int,
     f32 rounding of 0 flips its gradient when the sums run in another
     order, one-device f32 runs flip against float64 too, and Adam
     turns a flipped gradient entry into a step of up to lr); in float64
-    (the graph operands stay f32) they run `locked_steps`, where both
-    sides compute the same math to ~1e-13."""
+    (the graph operands stay f32) they run `locked_steps` on the first
+    `f64_batch` samples (all by default), where both sides compute the
+    same math to ~1e-13."""
     import copy
 
     import numpy as np
@@ -2171,12 +2193,15 @@ def graph_pair_line(one, sharded, cfg, mesh, batch: int, nodes: int,
     rel = (np.abs(np.subtract(sh32["losses"], one32["losses"]))
            / np.abs(one32["losses"]))
     t0 = time.perf_counter()
+    b64 = f64_batch or batch
     f64 = locked_steps(copy.deepcopy(one).double(),
                        copy.deepcopy(sharded).double(), cfg, mesh,
-                       x.double(), y.double())
+                       x[:b64].double(), y[:b64].double())
+    # the same math in another order: float64 rounding alone
+    assert f64["max_param_err"] <= F64_LOCKED_ATOL, f64
     torch.cuda.empty_cache()
     return dict(float64_step_locked=dict(
-                    **f64, seconds=time.perf_counter() - t0),
+                    **f64, batch=b64, seconds=time.perf_counter() - t0),
                 f32=dict(**f32, loss_rel_err=[float(v) for v in rel]),
                 one_device=one32, sharded=sh32,
                 ms_ratio=sh32["ms_per_step"] / one32["ms_per_step"])
@@ -2274,6 +2299,126 @@ def predictors_graph_cards(rec: dict) -> None:
                  line["sharded"]["max_memory_allocated"].items()}, **line)
         del one, sharded
         torch.cuda.empty_cache()
+
+
+# --- MSDR, ASTGCN, STGODE, ST_WA and DMVSTNET over the graph axis ----------
+
+def last_graph_models() -> tuple:
+    """(model, dataset, f32 batch, float64 batch) of the phase: the
+    batches of `graph_predictors_model` and `last_predictors_model`;
+    ST_WA's float64 at batch 2, since its f32 step at batch 8 holds
+    ~42 GB (PERF.md), which float64 would double past the card."""
+    b = GRAPH_MODEL_BATCH
+    return (("MSDR", "PEMS08", b, b), ("ASTGCN", "PEMS08", b, b),
+            ("STGODE", "PEMS08", b, b),
+            ("ST_WA", "PEMS08", LAST_MODEL_BATCH["ST_WA"], 2),
+            ("DMVSTNET", "NYC_BIKE", LAST_MODEL_BATCH["DMVSTNET"],
+             LAST_MODEL_BATCH["DMVSTNET"]))
+
+
+def last_predictors_graph_models(mesh):
+    """(name, one-device model, the same weights built under `mesh`,
+    cfg, batch, float64 batch) of the phase, one at a time: each built
+    by `graph_predictor` at 2,048 nodes and conf widths, once on the card
+    and once inside `use_sharding_mesh(mesh)` (what `build_model(mesh=)`
+    does: MSDR's static supports become the halo exchange, every
+    `GraphPredictor.mesh` is set), the one-device weights loaded into
+    the sharded copy."""
+    import torch
+
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.models.build import predictor_forward
+    from gptst_tpu_torch.ops.graph_conv import use_sharding_mesh
+
+    n = GRAPH_MODEL_NODES
+    for name, dataset, batch, b64 in last_graph_models():
+        cfg = default_config(dataset, mode="ori", model=name, num_nodes=n,
+                             batch_size=batch, lr_decay=False)
+        one = predictor_forward(cfg, graph_predictor(name, dataset, n,
+                                                     "cuda"))
+        with use_sharding_mesh(mesh):
+            sharded = predictor_forward(cfg, graph_predictor(
+                name, dataset, n, "cuda"))
+        sharded.load_state_dict(one.state_dict())
+        assert sharded.predictor.shards(torch.device("cuda", 0)).parts == 2
+        yield name, one, sharded, cfg, batch, b64
+        del one, sharded
+        torch.cuda.empty_cache()
+
+
+def stwa_map_shares(run):
+    """`run()` with ST_WA's spatial attention maps recorded: returns its
+    value and, per call, each rank's share n / N of the (B, heads, P, N,
+    N) maps of one device (its (B, heads, P, n, N) maps)."""
+    from gptst_tpu_torch.models.predictors import stwa
+
+    attend = stwa.SpatialAttention._attend
+    shares = set()
+
+    def record(m, x, key, value):
+        shares.add(x.shape[-2] / key.shape[-2])
+        return attend(m, x, key, value)
+
+    stwa.SpatialAttention._attend = staticmethod(record)
+    try:
+        return run(), sorted(shares)
+    finally:
+        stwa.SpatialAttention._attend = staticmethod(attend)
+
+
+def phase_last_predictors_graph(rec: dict) -> None:
+    """MSDR, ASTGCN, STGODE, ST_WA and DMVSTNET node-sharded on (1, 2)
+    of cuda:0 beside one device (`graph_pair_line`); ST_WA's spatial
+    maps per rank; with 2 or more cards, `last_predictors_graph_cards`."""
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * 2, graph_axis_size=2)
+    for name, one, sharded, cfg, batch, b64 in \
+            last_predictors_graph_models(mesh):
+        line, shares = stwa_map_shares(lambda: graph_pair_line(
+            one, sharded, cfg, mesh, batch, cfg.num_nodes, f64_batch=b64))
+        extra = {}
+        if name == "ST_WA":
+            # the one-device runs see whole maps (1.0), the sharded ones
+            # each rank's rows (0.5)
+            assert shares == [0.5, 1.0], shares
+            extra["spatial_map_share_per_rank"] = 0.5
+        if name == "MSDR":
+            extra["static_supports"] = [
+                s.kind for s in sharded.predictor.graph[0]]
+        emit("last_predictors_graph", model=name, mode="ori",
+             nodes=cfg.num_nodes, batch=batch, float64_batch=b64,
+             graph="random_sensor_graph(2048, 6, seed 0; series graph "
+                   "seed 1)", mesh=mesh.shape, ranks=["cuda:0"] * 2,
+             steps=PG_WARM + PG_STEPS, **extra, **line)
+    last_predictors_graph_cards(rec)
+
+
+def last_predictors_graph_cards(rec: dict) -> None:
+    """With 2 or more cards: each model of the phase with its two ranks
+    on cuda:0 and cuda:1 against the one-device model on cuda:0, the
+    peak on each card against the one card's. On one card it prints
+    that it did not run."""
+    import torch
+
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("last_predictors_graph", case="cards", ran=False, cards=count)
+        return
+    mesh = make_mesh(devices=["cuda:0", "cuda:1"], graph_axis_size=2)
+    for name, one, sharded, cfg, batch, b64 in \
+            last_predictors_graph_models(mesh):
+        line = graph_pair_line(one, sharded, cfg, mesh, batch,
+                               cfg.num_nodes, f64_batch=b64)
+        one_peak = line["one_device"]["max_memory_allocated"]["cuda:0"]
+        emit("last_predictors_graph", case="cards", ran=True, cards=count,
+             model=name, nodes=cfg.num_nodes, batch=batch,
+             float64_batch=b64, mesh=mesh.shape, ranks=["cuda:0", "cuda:1"],
+             peak_per_card_over_one_card={
+                 k: v / one_peak for k, v in
+                 line["sharded"]["max_memory_allocated"].items()}, **line)
 
 
 # the distributed phase: seconds a collective waits for a peer, and the

@@ -244,12 +244,13 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
     (`parallel/spmd.py`), and with a graph axis above 1 the predictor's
     graph supports are built node-sharded on every data row's graph
     ranks (`ops/graph_conv.make_sharded_support`), and GPT-ST (pretrain,
-    and eval's frozen encoder), STGCN, GWN, MTGNN and CCRNN run
-    node-sharded on them when the graph axis divides `num_nodes`
-    (`models/gptst.py`, `GraphPredictor.mesh`). The other predictors'
-    node tables and dense graph operands stay whole on each row's first
-    device, and so does a model whose node count the graph axis does
-    not divide: one WARNING says so (`warn_whole_node_tables`)."""
+    and eval's frozen encoder) and every predictor but STMGCN, STSGCN
+    and STFGNN run node-sharded on them when the graph axis divides
+    `num_nodes` (`models/gptst.py`, `GraphPredictor.mesh`; TGCN through
+    its sharded support). STMGCN's, STSGCN's and STFGNN's dense graph
+    operands stay whole on each row's first device, and so does a model
+    whose node count the graph axis does not divide: one WARNING says so
+    (`warn_whole_node_tables`)."""
     if cfg.mode == "pretrain":
         model = build_pretrain(cfg, scaler_zeros, device, seed, mesh)
     else:
@@ -274,9 +275,11 @@ def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
     """One WARNING when a model under a graph axis above 1 keeps node
     tables (parameters whose first axis is `num_nodes`, which the JAX
     package shards over 'graph'), a GPT-ST, or a dense graph operand
-    whole on each data row's first device. GPT-ST, STGCN, GWN, MTGNN
-    and CCRNN run node-sharded when the graph axis divides `num_nodes`:
-    then neither they nor their tables and graphs count."""
+    whole on each data row's first device. GPT-ST and the predictors
+    with a `GraphPredictor.mesh` run node-sharded when the graph axis
+    divides `num_nodes`: then neither they nor their tables and graphs
+    count, and what is left is STMGCN's, STSGCN's and STFGNN's dense
+    graph operands."""
     from gptst_tpu_torch.ops.graph_conv import ShardedSupport
     from gptst_tpu_torch.utils.logger import get_logger
 
@@ -303,11 +306,11 @@ def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
         name = "GPT-ST" if cfg.mode == "pretrain" else cfg.model
         get_logger("build", debug=cfg.debug).warning(
             "%s under a graph axis of %d: %d node tables%s%s stay whole on "
-            "each data row's first device (the same math; MSDR's, "
-            "ASTGCN's, STGODE's, ST_WA's and DMVSTNET's node tables over "
-            "'graph' are ROADMAP.md Queue 1; GPT-ST, STGCN, GWN, MTGNN and "
-            "CCRNN run whole only where the graph axis does not divide "
-            "their node count)", name, mesh.shape[GRAPH_AXIS],
+            "each data row's first device (the same math; STMGCN's, "
+            "STSGCN's and STFGNN's dense graph operands over 'graph' are "
+            "ROADMAP.md Queue 1; GPT-ST and the other predictors run "
+            "whole only where the graph axis does not divide their node "
+            "count)", name, mesh.shape[GRAPH_AXIS],
             len(tables), ", the GPT-ST" if gptst else "",
             f", {len(dense)} graph operands" if dense else "")
 
@@ -323,7 +326,8 @@ class GraphPredictor(nn.Module):
     `takes_targets` the labels, the step count and the generator do
     (CCRNN's scheduled sampling).
 
-    `mesh` (STGCN, GWN, MTGNN and CCRNN under a mesh): the network runs
+    `mesh` (under a mesh, every predictor's but TGCN's, whose support
+    is sharded, and STMGCN's, STSGCN's and STFGNN's): the network runs
     node-sharded over the graph ranks of the calling data row
     (`shards`) where the graph axis is above 1 and divides N: its input
     is cut into the ranks' node shards (or comes so, from eval's
@@ -429,14 +433,15 @@ def _build_msdr(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     # above the dense threshold the learned adjacency cannot be dense
     # (softmax(relu(E1 E2)) is O(N^2) memory): it is restricted to the
     # static graph's block pattern through the SDDMM path. Under a mesh
-    # the static supports are node-sharded and the learned adjacency
-    # stays one dense product, as in the JAX package.
+    # the static supports are node-sharded and the learned adjacency is
+    # dense, as in the JAX package (by rows where the network runs
+    # node-sharded).
     pattern = None
     if isinstance(supports[0], SparseSupport):
         pattern = msdr_adapt_pattern(mats[0], cfg.num_nodes, device)
     net = MSDR(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                num_supports=len(supports), generator=generator).to(device)
-    return GraphPredictor(net, supports, pattern)
+    return GraphPredictor(net, supports, pattern, mesh=sharding_mesh())
 
 
 @register_model("CCRNN")
@@ -602,7 +607,7 @@ def _build_astgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = ASTGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                  horizon=cfg.horizon, lag=cfg.lag,
                  generator=generator).to(device)
-    return GraphPredictor(net, cheb)
+    return GraphPredictor(net, cheb, mesh=sharding_mesh())
 
 
 @register_model("STSGCN")
@@ -716,7 +721,7 @@ def _build_stgode(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = STGODE(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                  horizon=cfg.horizon, lag=cfg.lag,
                  generator=generator).to(device)
-    return GraphPredictor(net, adj_sp, adj_se)
+    return GraphPredictor(net, adj_sp, adj_se, mesh=sharding_mesh())
 
 
 # --- the last two predictors ------------------------------------------------
@@ -731,7 +736,7 @@ def _build_stwa(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = STWA(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                horizon=cfg.horizon, lag=cfg.lag,
                generator=generator).to(device)
-    return GraphPredictor(net, takes_generator=True)
+    return GraphPredictor(net, takes_generator=True, mesh=sharding_mesh())
 
 
 @register_model("DMVSTNET")
@@ -746,4 +751,5 @@ def _build_dmvstnet(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     net = DMVSTNet(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                    generator=generator).to(device)
     # the raw adjacency, not row-normalized, as the JAX builder passes it
-    return GraphPredictor(net, _dense_graph(adj, device))
+    return GraphPredictor(net, _dense_graph(adj, device),
+                          mesh=sharding_mesh())

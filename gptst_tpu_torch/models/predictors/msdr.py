@@ -18,6 +18,16 @@ layer. Each layer's learned adjacency is built once per forward, from
 its own node-embedding pair: dense `softmax(relu(E1 E2))` without a
 pattern, `kernels/sddmm.adaptive_support` on an `SDDMMPattern` (the
 path above the dense threshold). Defaults follow `conf/MSDR/*.conf`.
+
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh): the carry, x and every activation are lists of the
+ranks' node shards. The static supports are `ShardedSupport`s that take
+and give the shards (`ShardedSupport.on_shards`: the halo exchange, no
+gather); each learned adjacency is a `NodeRows`, rank g's rows from its
+rows of E1 and the whole E2; the attention logits sum over nodes, the
+ranks' partial sums meeting (`all_sum`); rank g reads its rows of b, R
+and att_w.
 """
 
 from __future__ import annotations
@@ -32,11 +42,12 @@ from torch.nn import functional as F
 from gptst_tpu_torch.graph.artifacts import asym_adj
 from gptst_tpu_torch.kernels.sddmm import adaptive_support
 from gptst_tpu_torch.ops.graph_conv import (
-    graph_matmul, refuse_promoting_dense_support,
+    adaptive_rows, graph_matmul, refuse_promoting_dense_support,
 )
 from gptst_tpu_torch.ops.recurrent import (
     remat_cell, resolve_remat, variance_scaling_, xavier_normal_,
 )
+from gptst_tpu_torch.parallel.mesh import NodeShards, each, per_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,52 +99,83 @@ class GMSDRCell(nn.Module):
         self.att_w = nn.Parameter(torch.zeros(c.num_nodes * u, 1))
         self.att_b = nn.Parameter(torch.zeros(1))
 
-    def forward(self, hx_k: torch.Tensor, x: torch.Tensor, supports,
-                adp) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, hx_k, x, supports, adp,
+                shards: NodeShards | None = None) -> tuple:
         # hx_k: (B, K, N, U); x: (B, N, Din); supports: the static
-        # supports; adp: this layer's learned adjacency
+        # supports; adp: this layer's learned adjacency. With `shards`,
+        # hx_k and x are the lists of the ranks' node shards, the
+        # supports `ShardedSupport`s and adp a `NodeRows`, and so are
+        # the step's outputs
         c = self.cfg
-        B, K, N, U = hx_k.shape
-        pre_h = hx_k[:, -c.pre_v:].movedim(1, 2).reshape(B, N, c.pre_v * U)
-        z = torch.cat([x, pre_h], dim=-1)                 # (B, N, Z)
 
+        def window(h, xg):
+            b, _, n, u = h.shape
+            pre_h = h[:, -c.pre_v:].movedim(1, 2).reshape(b, n, c.pre_v * u)
+            return torch.cat([xg, pre_h], dim=-1)             # (B, N, Z)
+
+        z = per_rank(window, hx_k, x)
         mats = [z]
         for sup in supports:
             h1 = graph_matmul(sup, z)
             mats.append(h1)
             h0 = z
             for _ in range(2, c.max_diffusion_step + 1):
-                h2 = 2 * graph_matmul(sup, h1) - h0
+                h2 = per_rank(lambda a, b: 2 * a - b, graph_matmul(sup, h1),
+                              h0)
                 mats.append(h2)
                 h1, h0 = h2, h1
         h1 = graph_matmul(adp, z)
         mats.append(h1)
         h0 = z
         for _ in range(2, c.max_diffusion_step + 1):
-            h2 = graph_matmul(adp, h1) - h0
+            h2 = per_rank(torch.sub, graph_matmul(adp, h1), h0)
             mats.append(h2)
             h1, h0 = h2, h1
-        # gconv as a sum of per-matrix products, not `concat @ W`: each
-        # diffusion output is read once and no (B, N, num_mats * Z)
-        # concatenation is stored
-        zdim = z.shape[-1]
-        pre = self.gconv_b
-        for i, m in enumerate(mats):
-            pre = pre + m @ self.gconv_w[i * zdim:(i + 1) * zdim]
-        conv = F.leaky_relu(pre, 0.01)
+        conv = per_rank(lambda *ms: self._gconv(ms), *mats)
 
         # pre_k attention with the logits and the weighted sum split
         # into the hx_k term and the constant R term, so (hx_k + R) is
-        # never stored
-        aw = self.att_w.reshape(N, U)
-        r_dot = torch.einsum("knu,nu->k", self.R, aw)     # (K,)
-        logits = (torch.einsum("bknu,nu->bk", hx_k, aw) + r_dot[None]
-                  + self.att_b)
-        weight = torch.softmax(logits, dim=1)             # (B, K)
-        att = (torch.einsum("bk,bknu->bnu", weight, hx_k)
-               + torch.einsum("bk,knu->bnu", weight, self.R))
+        # never stored; the logits sum over nodes, so the ranks meet
+        u = c.rnn_units
+        aw = self.att_w.reshape(-1, u)
+        if shards is None:
+            return self._attend(conv, hx_k, self.R, self.b,
+                                self._logits(hx_k, aw, self.R))
+        parts = list(zip(hx_k, shards.split(aw, dim=0),
+                         shards.split(self.R, dim=1),
+                         shards.split(self.b, dim=0)))
+        logits = shards.all_sum([self._logits(h, a, r)
+                                 for h, a, r, _ in parts])
+        return tuple(map(list, zip(*(
+            self._attend(cg, h, r, b, lg)
+            for cg, (h, _, r, b), lg in zip(conv, parts, logits)))))
 
-        output = conv @ self.W + self.b[None] + att
+    def _gconv(self, mats) -> torch.Tensor:
+        # gconv as a sum of per-matrix products, not `concat @ W`: each
+        # diffusion output is read once and no (B, N, num_mats * Z)
+        # concatenation is stored
+        zdim = mats[0].shape[-1]
+        w = self.gconv_w.to(mats[0].device)
+        pre = self.gconv_b.to(mats[0].device)
+        for i, m in enumerate(mats):
+            pre = pre + m @ w[i * zdim:(i + 1) * zdim]
+        return F.leaky_relu(pre, 0.01)
+
+    @staticmethod
+    def _logits(hx_k, aw, r) -> torch.Tensor:
+        """The attention logits' sum over the nodes of hx_k (B, K, n, U),
+        aw (n, U) and R (K, n, U): (B, K)."""
+        return (torch.einsum("bknu,nu->bk", hx_k, aw)
+                + torch.einsum("knu,nu->k", r, aw)[None])
+
+    def _attend(self, conv, hx_k, r, b, logits) -> tuple:
+        """The step's output and the shifted window, from the summed
+        logits, on the nodes of hx_k, R and b."""
+        dev = conv.device
+        weight = torch.softmax(logits + self.att_b.to(dev), dim=1)  # (B, K)
+        att = (torch.einsum("bk,bknu->bnu", weight, hx_k)
+               + torch.einsum("bk,knu->bnu", weight, r))
+        output = conv @ self.W.to(dev) + b[None] + att
         hx_k = torch.cat([hx_k[:, 1:], output[:, None]], dim=1)
         return hx_k, output
 
@@ -177,40 +219,53 @@ class MSDR(nn.Module):
             for _ in range(c.num_rnn_layers))
         self.projection = _linear(u, dim_out, generator)
 
-    def _adjacency(self, tag: str, layer: int, adapt_pattern):
+    def _adjacency(self, tag: str, layer: int, adapt_pattern,
+                   shards: NodeShards | None):
         e1 = getattr(self, f"nodevec1_{tag}{layer}")
         e2 = getattr(self, f"nodevec2_{tag}{layer}")
+        if shards is not None:
+            # row-local: rank g's rows of E1 against the whole E2
+            return adaptive_rows(e1, e2, shards)
         if adapt_pattern is None:
             return torch.softmax(torch.relu(e1 @ e2), dim=1)
         return adaptive_support(adapt_pattern, e1, e2)
 
-    def forward(self, x: torch.Tensor, supports,
-                adapt_pattern=None) -> torch.Tensor:
-        # adapt_pattern: None -> each layer's learned adjacency is the
-        # reference's dense softmax(relu(E1 E2)), O(N^2) memory; an
-        # SDDMMPattern -> the same graph restricted to the pattern
-        refuse_promoting_dense_support("MSDR", supports, x)
+    def forward(self, x, supports, adapt_pattern=None,
+                shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards; the output likewise. adapt_pattern: None -> each
+        layer's learned adjacency is the reference's dense
+        softmax(relu(E1 E2)), O(N^2) memory (by rows under `shards`);
+        an SDDMMPattern -> the same graph restricted to the pattern."""
+        split = shards is not None
+        refuse_promoting_dense_support("MSDR", supports,
+                                       x[0] if split else x)
         c = self.cfg
-        B, T, N, _ = x.shape
+        B, T = (x[0] if split else x).shape[:2]
         L = c.num_rnn_layers
-        enc_adps = [self._adjacency("enc", i, adapt_pattern) for i in range(L)]
-        dec_adps = [self._adjacency("dec", i, adapt_pattern) for i in range(L)]
-        rm = resolve_remat(c.remat, N, threshold=32768)
-        x = self.enc_mlp(x)                               # (B, T, N, U)
-        h0 = tuple(x.new_zeros(B, c.pre_k, N, c.rnn_units) for _ in range(L))
+        enc_adps = [self._adjacency("enc", i, adapt_pattern, shards)
+                    for i in range(L)]
+        dec_adps = [self._adjacency("dec", i, adapt_pattern, shards)
+                    for i in range(L)]
+        rm = resolve_remat(c.remat, c.num_nodes, threshold=32768)
+        x = each(self.enc_mlp, x, shards)                 # (B, T, N, U)
+        h0 = tuple(per_rank(lambda t: t.new_zeros(
+            B, c.pre_k, t.shape[2], c.rnn_units), x) for _ in range(L))
 
         def run(cells, adps, carry, xs):
             def segment(carry, xs_seg):
                 outs = []
-                for t in range(xs_seg.shape[1]):
-                    out, new = xs_seg[:, t], []
+                steps = (xs_seg[0] if split else xs_seg).shape[1]
+                for t in range(steps):
+                    out, new = per_rank(lambda a: a[:, t], xs_seg), []
                     for layer, cell in enumerate(cells):
                         hx, out = cell(carry[layer], out, supports,
-                                       adps[layer])
+                                       adps[layer], shards)
                         new.append(hx)
                     carry = tuple(new)
                     outs.append(out)
-                return carry, torch.stack(outs, dim=1)
+                return carry, (torch.stack(outs, dim=1) if not split else
+                               [torch.stack(o, dim=1) for o in zip(*outs)])
 
             if rm == "none":
                 return segment(carry, xs)
@@ -221,10 +276,12 @@ class MSDR(nn.Module):
             # of `remat_cell`)
             seg, chunk, ys = remat_cell(segment, rm), _pick_chunk(T), []
             for s in range(0, T, chunk):
-                carry, y = seg(carry, xs[:, s:s + chunk])
+                carry, y = seg(carry, per_rank(
+                    lambda a: a[:, s:s + chunk], xs))
                 ys.append(y)
-            return carry, torch.cat(ys, dim=1)
+            return carry, (torch.cat(ys, dim=1) if not split else
+                           [torch.cat(y, dim=1) for y in zip(*ys)])
 
         hx_k, enc_out = run(self.encoder, enc_adps, h0, x)
         _, dec_out = run(self.decoder, dec_adps, hx_k, enc_out)
-        return self.projection(dec_out)
+        return each(self.projection, dec_out, shards)

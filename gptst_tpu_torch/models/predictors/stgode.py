@@ -28,6 +28,15 @@ get no gradient (None here, zero in the JAX package). At dim_in 64
 
 No kernel of `csrc/` is on this path: the graph products are dense.
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh): x and every activation are lists of the ranks' node
+shards. The ranks meet only at the ODE's graph products, rank g's rows
+of each graph times the gathered x (`ops/graph_conv.NodeRows`). alpha,
+`NodeBatchNorm` (each node's statistics over (B, T, C); over every data
+row's batch in a data-parallel step), the TCNs, the max merge and the
+head are node-local; rank g reads its entries of alpha, scale and bias.
+
 Parameters, by the flax scope each one mirrors (`convert.py`):
   blocks.{sp|se}_{i}_{j}   {sp|se}_{i}_{j} (STGODEBlock)
     .tcn.{0,1}             TemporalConvNet_{0,1}: `conv.{k}` = Conv_{k}
@@ -47,9 +56,11 @@ import torch
 from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import linear, promoted
+from gptst_tpu_torch.ops.graph_conv import NodeRows
 from gptst_tpu_torch.ops.norm import batch_moments
 from gptst_tpu_torch.ops.recurrent import xavier_uniform_
 from gptst_tpu_torch.ops.temporal import TimeConv
+from gptst_tpu_torch.parallel.mesh import NodeShards, each, per_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,12 +125,24 @@ class ODEG(nn.Module):
         self.w2 = nn.Parameter(torch.eye(temporal_dim))
         self.d2 = nn.Parameter(torch.ones(temporal_dim))
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        x, adj, alpha, w, d, w2, d2 = promoted(
-            x, adj, self.alpha, self.w, self.d, self.w2, self.d2)
+    def forward(self, x, adj, shards: NodeShards | None = None):
+        """x (B, T, N, C) and adj (N, N); with `shards`, x the ranks'
+        node shards and adj a `NodeRows` (its rows times the gathered
+        x), the rest node-local."""
+        if shards is None:
+            return self._step(x, torch.einsum(
+                "nm,btmc->btnc", *promoted(adj, x)), self.alpha)
+        return [self._step(xg, xa, al) for xg, xa, al in zip(
+            x, adj.matmul(x), shards.split(self.alpha, dim=0))]
+
+    def _step(self, x: torch.Tensor, xa: torch.Tensor,
+              alpha: torch.Tensor) -> torch.Tensor:
+        dev = x.device
+        x, xa, alpha, w, d, w2, d2 = promoted(
+            x, xa, alpha, self.w.to(dev), self.d.to(dev), self.w2.to(dev),
+            self.d2.to(dev))
         x0 = x.detach()
         a = torch.sigmoid(alpha)[None, None, :, None]
-        xa = torch.einsum("nm,btmc->btnc", adj, x)
         xw = x @ ((w * _clip01(d)) @ w.T)
         w2c = (w2 * _clip01(d2)) @ w2.T
         xw2 = torch.einsum("btnc,ts->bsnc", x, w2c)
@@ -139,8 +162,17 @@ class NodeBatchNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(num_nodes))
         self.bias = nn.Parameter(torch.zeros(num_nodes))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, N, C)
-        x, scale, bias = promoted(x, self.scale, self.bias)
+    def forward(self, x, shards: NodeShards | None = None):
+        """x (B, T, N, C), or with `shards` the ranks' node shards, each
+        normalized by its own nodes' statistics."""
+        if shards is None:
+            return self._norm(x, self.scale, self.bias)
+        return [self._norm(xg, sc, b) for xg, sc, b in zip(
+            x, shards.split(self.scale, dim=0),
+            shards.split(self.bias, dim=0))]
+
+    def _norm(self, x, scale, bias) -> torch.Tensor:
+        x, scale, bias = promoted(x, scale, bias)
         mean, var = batch_moments(x, (0, 1, 3))
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * scale[:, None] + bias[:, None]
@@ -156,9 +188,10 @@ class STGODEBlock(nn.Module):
         self.odeg = ODEG(ch[-1], lag, cfg.num_nodes)
         self.norm = NodeBatchNorm(cfg.num_nodes)
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        h = self.odeg(self.tcn[0](x), adj)
-        return self.norm(self.tcn[1](torch.relu(h)))
+    def forward(self, x, adj, shards: NodeShards | None = None):
+        h = self.odeg(each(self.tcn[0], x, shards), adj, shards)
+        return self.norm(each(self.tcn[1], per_rank(torch.relu, h), shards),
+                         shards)
 
 
 class STGODE(nn.Module):
@@ -186,17 +219,23 @@ class STGODE(nn.Module):
             xavier_uniform_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, x: torch.Tensor, adj_sp: torch.Tensor,
-                adj_se: torch.Tensor) -> torch.Tensor:
-        b, t, n, _ = x.shape
+    def forward(self, x, adj_sp: torch.Tensor, adj_se: torch.Tensor,
+                shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards; the output likewise."""
         outs = []
         for tag, adj in (("sp", adj_sp), ("se", adj_se)):
+            if shards is not None:
+                adj = NodeRows.of(adj, shards)
             for i in range(self.cfg.n_layers):
-                h = self.blocks[f"{tag}_{i}_0"](x, adj)
-                outs.append(self.blocks[f"{tag}_{i}_1"](h, adj))
-        h = torch.stack(outs).amax(dim=0)                      # (B, T, N, C)
+                h = self.blocks[f"{tag}_{i}_0"](x, adj, shards)
+                outs.append(self.blocks[f"{tag}_{i}_1"](h, adj, shards))
+        h = per_rank(lambda *hs: torch.stack(hs).amax(dim=0), *outs)
+        return each(self.dense, h, shards, self._head)
+
+    def _head(self, dense: nn.ModuleList, h: torch.Tensor) -> torch.Tensor:
+        b, _, n, _ = h.shape                                   # (B, T, N, C)
         flat = h.transpose(1, 2).reshape(b, n, -1)
-        h = torch.relu(linear(self.dense[0], flat))
-        out = linear(self.dense[1], h).reshape(b, n, self.horizon,
-                                               self.dim_out)
+        h = torch.relu(linear(dense[0], flat))
+        out = linear(dense[1], h).reshape(b, n, self.horizon, self.dim_out)
         return out.transpose(1, 2)

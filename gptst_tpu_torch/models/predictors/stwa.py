@@ -28,6 +28,16 @@ static branch draws nothing.
 No kernel of `csrc/` is on this path: the attention products are
 `torch.einsum`s, as they are `jnp.einsum`s in the JAX package.
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh): x and every activation are lists of the ranks' node
+shards, and the draws the one-device draws cut into them. The ranks
+meet only in the spatial attention: rank g keeps its query rows against
+the gathered keys and values, so it holds its (B, heads, P, N / G, N)
+share of the maps. Rank g reads its rows of the proxies and memories;
+the latent MLPs, the parameter generators, the temporal attention, the
+gate, the pooling, the skips and the head are node-local.
+
 Parameters, by the flax scope each one mirrors (`convert.py`). Every
 Dense is an `nn.Linear` with `variance_scaling(1/3, fan_in, uniform)`
 weights (torch's own law) and a zero bias; `proxies`, `mu` and `logvar`
@@ -56,6 +66,9 @@ from torch import nn
 
 from gptst_tpu_torch.ops.dtypes import linear
 from gptst_tpu_torch.ops.recurrent import fan_in_uniform_
+from gptst_tpu_torch.parallel.mesh import (
+    NodeShards, each, module_on, per_rank,
+)
 from gptst_tpu_torch.parallel.rows import batch_draw, shared_draw
 
 
@@ -182,17 +195,32 @@ class SpatialAttention(nn.Module):
         self.projection1 = torch_dense(c, c, generator)
         self.projection2 = torch_dense(c, c, generator)
 
-    def forward(self, x: torch.Tensor, params) -> torch.Tensor:
-        key = custom_linear(x, params[0])
-        value = custom_linear(x, params[1])
-        q = split_heads(x, self.heads)            # (B, K, P, N, hs)
-        kk = split_heads(key, self.heads)
-        vv = split_heads(value, self.heads)
+    def forward(self, x, params, shards: NodeShards | None = None):
+        """x (B, P, N, C) and the generated (key, value) params; with
+        `shards`, the ranks' node shards of x and params: rank g keeps
+        its query rows against the gathered keys and values, so it holds
+        its (B, K, P, N / G, N) share of the maps."""
+        if shards is None:
+            kv = custom_linear(x, params[0]), custom_linear(x, params[1])
+            return self._attend(self, x, *kv)
+        c = x[0].shape[-1]
+        kv = shards.all_gather([torch.cat([
+            custom_linear(xg, pg[0]), custom_linear(xg, pg[1])], dim=-1)
+            for xg, pg in zip(x, params)])
+        return [self._attend(shards.module_on(self, g), xg, t[..., :c],
+                             t[..., c:])
+                for g, (xg, t) in enumerate(zip(x, kv))]
+
+    @staticmethod
+    def _attend(m: "SpatialAttention", x, key, value) -> torch.Tensor:
+        q = split_heads(x, m.heads)               # (B, K, P, n, hs)
+        kk = split_heads(key, m.heads)            # (B, K, P, N, hs)
+        vv = split_heads(value, m.heads)
         att = torch.einsum("bkpnh,bkpmh->bkpnm", q, kk) / q.shape[-1] ** 0.5
         att = torch.softmax(att, dim=-1)
         out = merge_heads(torch.einsum("bkpnm,bkpmh->bkpnh", att, vv))
-        out = torch.relu(linear(self.projection1, out))
-        return linear(self.projection2, out)
+        out = torch.relu(linear(m.projection1, out))
+        return linear(m.projection2, out)
 
 
 class WindowLayer(nn.Module):
@@ -219,28 +247,56 @@ class WindowLayer(nn.Module):
         self.spatial_att = SpatialAttention(cfg, generator)
         self.aggregator = MLP(c, (c, c), torch.relu, generator)
 
-    def forward(self, x: torch.Tensor, z_data,
-                eps: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x, z_data, eps, shards: NodeShards | None = None):
+        """x (B, T, N, C), z_data (B, N, M) (0.0 when static) and eps
+        (N, M) (None when static) -> (B, cuts, N, C); with `shards`,
+        lists of the ranks' node shards. Rank g reads its rows of the
+        proxies and memories; the ranks meet only in the spatial
+        attention."""
         c = self.cfg
-        p = c.no_proxies
+        p, size = c.no_proxies, self.cut_size
+        split = shards is not None
+        xs = x if split else [x]
+        # the generators, the temporal attention and the aggregator as
+        # each rank reads them (not the layer's node tables)
+        ms = [tuple(module_on(m, xg.device) for m in (
+            self.tpg, self.spg, self.temporal_att, self.aggregator))
+            for xg in xs]
+
+        def rows(t, dim):
+            return shards.split(t, dim) if split else [t]
+
+        zs = z_data if split else [z_data]
         if c.dynamic:
             # the layer's memory, reparameterised
-            z_data = z_data + (self.mu + eps * torch.exp(0.5 * self.logvar))
-        t_params = [g(z_data) for g in self.tpg]
-        s_params = [g(z_data) for g in self.spg]
-        out = x.new_zeros(x.shape[0], p, c.num_nodes, c.channels)
-        pieces = []
+            zs = [z + (mu + e * torch.exp(0.5 * lv)) for z, e, mu, lv in zip(
+                zs, eps if split else [eps], rows(self.mu, 0),
+                rows(self.logvar, 0))]
+        t_params = [[g(z) for g in tpg] for (tpg, *_), z in zip(ms, zs)]
+        s_params = [[g(z) for g in spg] for (_, spg, *_), z in zip(ms, zs)]
+        proxies = rows(self.proxies, -2)
+        outs = [xg.new_zeros(xg.shape[0], p, xg.shape[2], c.channels)
+                for xg in xs]
+        pieces = [[] for _ in xs]
         for i in range(self.cuts):
-            t = x[:, i * self.cut_size:(i + 1) * self.cut_size]
-            prox = self.proxies[:, i * p:(i + 1) * p] + out
-            t = torch.cat([prox, t], dim=1)
-            out = self.temporal_att(t[:, :p], t, t, t_params)
-            out = self.spatial_att(out, s_params)
-            gate = torch.sigmoid(self.aggregator(out))
-            pooled = (gate * out).sum(dim=1, keepdim=True)
-            pieces.append(pooled)
-            out = pooled.expand(out.shape)
-        return torch.cat(pieces, dim=1)
+            att = []
+            for (*_, t_att, _), xg, prox, out, tp in zip(
+                    ms, xs, proxies, outs, t_params):
+                t = torch.cat([prox[:, i * p:(i + 1) * p] + out,
+                               xg[:, i * size:(i + 1) * size]], dim=1)
+                att.append(t_att(t[:, :p], t, t, tp))
+            if split:
+                att = self.spatial_att(att, s_params, shards)
+            else:
+                att = [self.spatial_att(att[0], s_params[0])]
+            outs = []
+            for (*_, agg), out, piece in zip(ms, att, pieces):
+                gate = torch.sigmoid(agg(out))
+                pooled = (gate * out).sum(dim=1, keepdim=True)
+                piece.append(pooled)
+                outs.append(pooled.expand(out.shape))
+        out = [torch.cat(piece, dim=1) for piece in pieces]
+        return out if split else out[0]
 
 
 class STWA(nn.Module):
@@ -287,29 +343,43 @@ class STWA(nn.Module):
             shared_draw(lambda: normal(layer), x.device)
             for _ in self.layers]
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None,
-                draws: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
+    def forward(self, x, generator: torch.Generator | None = None,
+                draws: Sequence[torch.Tensor] | None = None,
+                shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards; the output likewise. The draws are the one-device
+        draws, cut into the ranks' shards."""
         c = self.cfg
-        b = x.shape[0]
-        z_data, layer_eps = 0.0, [None] * len(self.layers)
+        split = shards is not None
+        x0 = x[0] if split else x
+        z_data = [0.0] * shards.parts if split else 0.0
+        layer_eps = [None] * len(self.layers)
         if c.dynamic:
-            eps, *layer_eps = (self.draw(x, generator) if draws is None
+            eps, *layer_eps = (self.draw(x0, generator) if draws is None
                                else draws)
-            x_dm = x if self.eval_dimin is None else linear(
-                self.eval_dimin, x)
-            series = x_dm[..., 0].transpose(1, 2)          # (B, N, T)
-            mu = self.mu_est(series)
-            logvar = self.logvar_est(series)
-            z_data = mu + eps * torch.exp(0.5 * logvar)
-        h = linear(self.start_fc, x)
-        skip = 0.0
+            if split:
+                eps = shards.split(eps)
+                layer_eps = [shards.split(e, dim=0) for e in layer_eps]
+            x_dm = x if self.eval_dimin is None else each(
+                self.eval_dimin, x, shards, linear)
+            series = per_rank(lambda t: t[..., 0].transpose(1, 2), x_dm)
+            mu = each(self.mu_est, series, shards)          # (B, N, M)
+            logvar = each(self.logvar_est, series, shards)
+            z_data = per_rank(lambda m, e, lv: m + e * torch.exp(0.5 * lv),
+                              mu, eps, logvar)
+        h = each(self.start_fc, x, shards, linear)
+        skip = [0.0] * shards.parts if split else 0.0
         for layer, proj, e in zip(self.layers, self.skip, layer_eps):
-            h = layer(h, z_data, e)
-            skip = skip + linear(proj, h.transpose(1, 2).reshape(
-                b, c.num_nodes, -1))
+            h = layer(h, z_data, e, shards)
+            skip = per_rank(lambda s_, hg: s_ + linear(
+                module_on(proj, hg.device), hg.transpose(1, 2).reshape(
+                    hg.shape[0], hg.shape[2], -1)), skip, h)
+        return per_rank(self._head, skip)
+
+    def _head(self, skip: torch.Tensor) -> torch.Tensor:
+        b, n = skip.shape[:2]
         h = torch.relu(skip)
-        h = torch.relu(linear(self.proj1, h))
-        out = linear(self.proj2, h).reshape(b, c.num_nodes, self.horizon,
-                                            self.dim_out)
+        h = torch.relu(linear(module_on(self.proj1, h.device), h))
+        out = linear(module_on(self.proj2, h.device), h).reshape(
+            b, n, self.horizon, self.dim_out)
         return out.transpose(1, 2)

@@ -116,13 +116,17 @@ class ShardedSupport:
     the graph ranks of data rows 1, 2, ... (the same function where a
     row's ranks are row 0's devices). `graph_matmul` pads x's node axis
     to `n_pad`, runs the product of the data row it is called from
-    (`parallel/rows.current_row`) and slices back."""
+    (`parallel/rows.current_row`) and slices back. Given the list of a
+    node-sharded model's node shards it runs `on_shards`: the ranks'
+    shards in, the ranks' shards out, no gather."""
 
-    fn: object                # callable (..., n_pad, C) -> (..., n_pad, C)
+    fn: object                # `parallel/halo.ShardProduct`
     n: int
     n_pad: int
     kind: str                 # 'halo' | 'ring'
     row_fns: tuple = ()
+    # the partition keeps the dataset's node order (`reorder=False`)
+    in_node_order: bool = True
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -145,6 +149,21 @@ class ShardedSupport:
             raise ValueError(f"data row {row}: the support was built for "
                              f"{1 + len(self.row_fns)} data rows")
         return self.row_fns[row - 1]
+
+    def on_shards(self, xs: list) -> list:
+        """A @ x with x the calling data row's node shards, rank g's
+        (..., N / G, C) on its device (`parallel/mesh.NodeShards`): the
+        partition's rank ranges are those shards' when it keeps the node
+        order and G divides N (then `n_pad` is N), which is asserted."""
+        n_loc = self.n_pad // len(xs)
+        if not (self.in_node_order and self.n_pad == self.n
+                and all(x.shape[-2] == n_loc for x in xs)):
+            raise ValueError(
+                f"node shards of {[x.shape[-2] for x in xs]} rows do not "
+                f"match the partition of {self.n} nodes into "
+                f"{len(xs)} x {n_loc} (padded to {self.n_pad}, node order "
+                f"kept: {self.in_node_order})")
+        return self.fn_of_row(current_row()).on_shards(xs)
 
 
 def make_sharded_support(adj: np.ndarray | None, mesh,
@@ -178,8 +197,9 @@ def make_sharded_support(adj: np.ndarray | None, mesh,
                                    if kind == "halo"
                                    else make_ring_spmm(mesh, adj, row))
         fns.append(built[ranks])
-    return ShardedSupport(fn=fns[0], n=part.n, n_pad=n_pad, kind=kind,
-                          row_fns=tuple(fns[1:]))
+    return ShardedSupport(
+        fn=fns[0], n=part.n, n_pad=n_pad, kind=kind, row_fns=tuple(fns[1:]),
+        in_node_order=bool(np.array_equal(part.perm, np.arange(part.n))))
 
 
 def make_support(adj: np.ndarray, *, dense_threshold: int = DENSE_THRESHOLD,
@@ -250,14 +270,19 @@ def graph_matmul(support, x: torch.Tensor) -> torch.Tensor:
     """support @ x over the node axis.
 
     support: (N, N) tensor, `SparseSupport` or `ShardedSupport`; x:
-    (..., N, C). Dense: one matmul in the promoted dtype of the support
-    and x, as `jnp.einsum` promotes in the JAX package (a bf16 x on the
-    f32 support gives an f32 product). Sparse: the DIA or block-CSR
+    (..., N, C), or for a `ShardedSupport` or `NodeRows` the list of a
+    data row's node shards (then the result is too). Dense: one matmul
+    in the promoted dtype of the support and x, as `jnp.einsum` promotes
+    in the JAX package (a bf16 x on the f32 support gives an f32
+    product). Sparse: the DIA or block-CSR
     kernel (leading dims fold into the feature axis inside the call)
     plus the COO tail, inside the RCM permutation. Sharded: x
     zero-padded to the support's node count, the sharded product, the
-    padding sliced off.
+    padding sliced off; on node shards, the shards' product.
     """
+    if isinstance(x, list):
+        return (support.matmul(x) if isinstance(support, NodeRows)
+                else support.on_shards(x))
     if isinstance(support, ShardedSupport):
         n = x.shape[-2]
         if n != support.n_pad:

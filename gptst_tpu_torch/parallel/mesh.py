@@ -23,8 +23,9 @@ with partition specs written as tuples of axis names:
     over 'graph', everything else replicated. In this port every
     parameter stays whole on `mesh.root` (`shard_params`); what is
     node-sharded is the activations: graph aggregation
-    (`ops/graph_conv.ShardedSupport`) and GPT-ST's trunks, whose ranks
-    read the rows of a node table they need through `.to()`.
+    (`ops/graph_conv.ShardedSupport`), GPT-ST's trunks and the
+    node-sharded predictors, whose ranks read the rows of a node table
+    they need through `.to()`.
 
 With one process per card or host (`core/distributed.global_mesh`) a
 `Mesh` holds this process's rows of a global 'data' axis that spans
@@ -40,9 +41,10 @@ global batch (a ragged batch runs whole on every process's first row).
 `NodeShards` is a row's node axis over its graph ranks, with the
 differentiable meetings over them, GSPMD's collectives over 'graph' in
 one process: `node_sum` (the all-reduce of a sum over nodes, on the
-row's first device) and `all_sum` (on every rank), `all_gather`,
-`reduce_scatter` and `split_draw` (one draw over the whole node axis,
-each rank taking its slice). A rank reads a parameter where it lies
+row's first device) and `all_sum` (on every rank), `softmax` (over
+the node axis: maxima, then sums), `all_gather`, `reduce_scatter` and
+`split_draw` (one draw over the whole node axis, each rank taking its
+slice). A rank reads a parameter where it lies
 through `.to()` (`module_on` for a module), so the gradients meet
 there.
 """
@@ -301,6 +303,22 @@ class NodeShards:
         if self.parts == 1:
             return list(partials)
         return self.replicate(self.node_sum(partials))
+
+    def softmax(self, xs: Sequence[torch.Tensor], dim: int
+                ) -> list[torch.Tensor]:
+        """`torch.softmax` over the node axis `dim` of the ranks' shards
+        `xs`: the ranks' maxima meet (detached: the shift, which the
+        softmax's value and gradient do not see), then the sums of the
+        exponentials (`all_sum`)."""
+        if self.parts == 1:
+            return [torch.softmax(xs[0], dim=dim)]
+        top = None
+        for x in xs:
+            m = x.detach().amax(dim=dim, keepdim=True).to(self.devices[0])
+            top = m if top is None else torch.maximum(top, m)
+        es = [torch.exp(x - m) for x, m in zip(xs, self.replicate(top))]
+        sums = self.all_sum([e.sum(dim=dim, keepdim=True) for e in es])
+        return [e / s for e, s in zip(es, sums)]
 
     def all_gather(self, shards: Sequence[torch.Tensor],
                    dim: int = -2) -> list[torch.Tensor]:

@@ -272,13 +272,15 @@ def test_an_undivided_node_axis_runs_whole(build_warnings):
 @pytest.mark.parametrize("mode, model, warns", [
     ("pretrain", "STGCN", False), ("eval", "TGCN", False),
     ("eval", "GWN", False), ("ori", "MTGNN", False), ("ori", "STGCN", False),
-    ("eval", "CCRNN", False), ("ori", "ASTGCN", True),
-    ("eval", "ST_WA", True)])
+    ("eval", "CCRNN", False), ("ori", "ASTGCN", False),
+    ("eval", "ST_WA", False), ("ori", "STSGCN", True),
+    ("eval", "STMGCN", True)])
 def test_whole_node_table_warnings(mode, model, warns, build_warnings):
     """Under (1, 2) at 14 nodes (no width of the models) a GPT-ST
-    (pretrain, eval's encoder) logs nothing, nor do STGCN, GWN, MTGNN
-    and CCRNN, which run node-sharded; ASTGCN's and ST_WA's node tables
-    stay whole and are counted."""
+    (pretrain, eval's encoder) logs nothing, nor do the predictors that
+    run node-sharded (here STGCN, GWN, MTGNN, CCRNN, ASTGCN and ST_WA);
+    STSGCN's and STMGCN's dense graph operands stay whole and are
+    counted, with their node tables (none)."""
     kw = dict(GPTST_SMALL) if mode != "ori" else {}
     cfg = default_config("PEMS08", mode=mode, model=model, num_nodes=14,
                          predictor_overrides=(("nhid", "4"),)
@@ -292,8 +294,9 @@ def test_whole_node_table_warnings(mode, model, warns, build_warnings):
     assert len(build_warnings) == int(warns), build_warnings
     if warns:
         tables = [k for k, p in built.named_parameters()
-                  if p.shape[0] == 14]
-        assert tables and f"{len(tables)} node tables" in build_warnings[0]
+                  if p.shape[0] == 14 and not k.startswith("encoder.")]
+        assert f"{len(tables)} node tables" in build_warnings[0]
+        assert "1 graph operands" in build_warnings[0]
         assert "GPT-ST" not in build_warnings[0].split(":")[0]
     if mode == "eval":
         assert built.encoder.mesh is not None
