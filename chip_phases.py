@@ -4,6 +4,7 @@
     python3 chip_phases.py build ring gptst_graph
     python3 chip_phases.py build predictors_graph
     python3 chip_phases.py last_predictors_graph
+    python3 chip_phases.py final_predictors_graph
     python3 chip_phases.py build distributed
     python3 chip_phases.py build cards      # with 2+ cards
 
@@ -12,7 +13,8 @@ or `cards`: the several-card parts of `data_parallel` (one data row per
 card and the CLI graph's mesh), of `gptst_graph` (GPT-ST's two graph
 ranks on two cards), of `predictors_graph` (STGCN, GWN, MTGNN and
 CCRNN on two cards), of `last_predictors_graph` (MSDR, ASTGCN, STGODE,
-ST_WA and DMVSTNET on two cards) and of `distributed` (NCCL, one
+ST_WA and DMVSTNET on two cards), of `final_predictors_graph` (TGCN,
+STMGCN, STSGCN and STFGNN on two cards) and of `distributed` (NCCL, one
 process per card).
 The state that earlier phases leave for later ones is made up front:
 the CLI graph's adjacency, its sym-normalized form and `bsr_spmm`
@@ -45,7 +47,7 @@ def main(names: list[str]) -> int:
     for name in names:
         runs = ((c.data_parallel_cards, c.gptst_graph_cards,
                  c.predictors_graph_cards, c.last_predictors_graph_cards,
-                 c.distributed_cards)
+                 c.final_predictors_graph_cards, c.distributed_cards)
                 if name == "cards" else (getattr(c, f"phase_{name}"),))
         t0 = time.perf_counter()
         for run in runs:

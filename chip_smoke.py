@@ -270,7 +270,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "cli", "dia_model", "msdr_cli", "msdr_model", "sharded_model",
           "data_parallel", "gptst_graph", "predictors_graph",
-          "last_predictors_graph",
+          "last_predictors_graph", "final_predictors_graph",
           "distributed", "gptst_model",
           "gptst_cli", "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
@@ -338,19 +338,25 @@ def road_graph_edges(n: int, degree: int, band: int = 48,
     return key // n, key % n
 
 
-def road_support(n: int, band: int, device):
-    """sym-normalized (A + I) of the road graph as an edge list, built
-    without a dense (N, N) as the bench builds it."""
+def road_coo(n: int, band: int = 48):
+    """sym-normalized (A + I) of the road graph as an edge list (rows,
+    cols, values), built without a dense (N, N) as the bench builds
+    it."""
     import numpy as np
-
-    from gptst_tpu_torch.ops.graph_conv import make_support_coo
 
     rows, cols = road_graph_edges(n, 16, band)
     r = np.concatenate([rows, np.arange(n)])
     c = np.concatenate([cols, np.arange(n)])
     deg = np.bincount(r, minlength=n).astype(np.float64)
-    vals = (1.0 / np.sqrt(deg[r] * deg[c])).astype(np.float32)
-    return make_support_coo(r, c, vals, n, reorder=False, device=device)
+    return r, c, (1.0 / np.sqrt(deg[r] * deg[c])).astype(np.float32)
+
+
+def road_support(n: int, band: int, device):
+    """`road_coo`'s matrix as the one-device support."""
+    from gptst_tpu_torch.ops.graph_conv import make_support_coo
+
+    return make_support_coo(*road_coo(n, band), n, reorder=False,
+                            device=device)
 
 
 def msdr_cli_graph(n: int, device, seed: int = 0):
@@ -1403,13 +1409,14 @@ def phase_msdr_model(rec: dict) -> None:
 
 
 def phase_sharded_model(rec: dict) -> None:
-    """TGCN train steps with node-sharded aggregation on 4 ranks of
-    cuda:0: the CLI graph through `build_model(cfg, mesh=...)`, the road
-    graph through a `partition_graph_coo` partition. Both take the
-    boundary halo exchange. On the road graph the same weights, data and
-    optimizer as `dia_model` (one card, the `dia_spmm` support of the
-    same matrix) must give its losses: rtol 2e-5, as the CPU tests hold
-    loss trajectories."""
+    """TGCN train steps node-sharded on 4 ranks of cuda:0 (the network on
+    the ranks' node shards, `GraphPredictor.mesh`): the CLI graph
+    through `build_model(cfg, mesh=...)`, the road graph through a
+    `partition_graph_coo` partition. Both take the boundary halo
+    exchange. On the road graph the same weights, data and optimizer as
+    `dia_model` (one card, the `dia_spmm` support of the same matrix)
+    must give its losses: rtol 2e-5, as the CPU tests hold loss
+    trajectories."""
     import numpy as np
     import torch
 
@@ -1434,21 +1441,18 @@ def phase_sharded_model(rec: dict) -> None:
     finally:
         P.partition_stats = stats_fn
     cli_build = time.perf_counter() - t0
-    rows, cols = road_graph_edges(N_BIG, 16, 48)
-    r = np.concatenate([rows, np.arange(N_BIG)])
-    c = np.concatenate([cols, np.arange(N_BIG)])
-    deg = np.bincount(r, minlength=N_BIG).astype(np.float64)
-    vals = (1.0 / np.sqrt(deg[r] * deg[c])).astype(np.float32)
     t0 = time.perf_counter()
-    part = P.partition_graph_coo(r, c, vals, N_BIG, 4)
+    part = P.partition_graph_coo(*road_coo(N_BIG), N_BIG, 4)
     road_sup = make_sharded_support(None, mesh, part=part)
     road_build = time.perf_counter() - t0
     (cli_stats,) = seen
+    road = bind("TGCN", tgcn_net(), (road_sup,))
+    road.predictor.mesh = mesh
     runs = [("cli_graph", cli, cli_build, cli_stats),
-            ("road_graph", bind("TGCN", tgcn_net(), (road_sup,)), road_build,
-             P.partition_stats(part))]
+            ("road_graph", road, road_build, P.partition_stats(part))]
     for name, model, build_s, stats in runs:
         (sup,) = model.predictor.graph
+        assert model.predictor.shards(torch.device("cuda", 0)).parts == 4
         assert isinstance(sup, ShardedSupport) and sup.kind == "halo", sup
         torch.cuda.reset_peak_memory_stats()
         warm, steps = 1, 2
@@ -2109,7 +2113,7 @@ def param_gaps(got: dict, want: dict) -> dict:
     return dict(max_param_err=err, entries_off=off, entries=size)
 
 
-def locked_steps(one, sharded, cfg, mesh, x, y) -> dict:
+def locked_steps(one, sharded, cfg, mesh, x, y, x_sharded=None) -> dict:
     """`PG_WARM` + `PG_STEPS` Adam steps of `one` and of `sharded` (over
     `mesh`), the sharded model set to the one-device model's parameters
     and optimizer state before each step, each with its own generator
@@ -2118,7 +2122,8 @@ def locked_steps(one, sharded, cfg, mesh, x, y) -> dict:
     entry (`params_close`). Step by step, since a trajectory need not
     be well conditioned (CCRNN's from these weights moves by 1% at its
     third step for a 1e-14 nudge of x, in float64, on one device).
-    Returns the largest errors."""
+    `x_sharded` (default x) is the second side's input. Returns the
+    largest errors."""
     import numpy as np
     import torch
 
@@ -2137,14 +2142,15 @@ def locked_steps(one, sharded, cfg, mesh, x, y) -> dict:
                             else model_forwards(model, cfg, m)[1]),
             torch.Generator(device="cuda").manual_seed(0))
     errs = dict(max_param_err=0.0, loss_rel_err=0.0)
+    xs = (x, x if x_sharded is None else x_sharded)
     for i in range(1, PG_WARM + PG_STEPS + 1):
         with torch.no_grad():
             for p, q in zip(sharded.parameters(), one.parameters()):
                 p.copy_(q)
         side["sharded"][1].load_state_dict(side["one"][1].state_dict())
-        losses = [float(train_step(terms, opt, x, y, PG_STEP0 + i,
+        losses = [float(train_step(terms, opt, xi, y, PG_STEP0 + i,
                                    generator=gen)[0])
-                  for _, opt, terms, gen in side.values()]
+                  for xi, (_, opt, terms, gen) in zip(xs, side.values())]
         np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
         check = params_close(
             {k: p.detach().cpu() for k, p in sharded.named_parameters()},
@@ -2154,6 +2160,17 @@ def locked_steps(one, sharded, cfg, mesh, x, y) -> dict:
         errs["loss_rel_err"] = max(errs["loss_rel_err"],
                                    abs(losses[1] - losses[0]) / abs(losses[0]))
     return errs
+
+
+def pair_inputs(cfg, batch: int, nodes: int, seed: int = 0):
+    """Random f32 (x, y) of `graph_pair_line` on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (batch, cfg.lag, nodes, cfg.input_base_dim + 2)
+    return tuple(torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 .cuda() for _ in range(2))
 
 
 def graph_pair_line(one, sharded, cfg, mesh, batch: int, nodes: int,
@@ -2174,10 +2191,7 @@ def graph_pair_line(one, sharded, cfg, mesh, batch: int, nodes: int,
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(seed)
-    shape = (batch, cfg.lag, nodes, cfg.input_base_dim + 2)
-    x, y = (torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
-            for _ in range(2))
+    x, y = pair_inputs(cfg, batch, nodes, seed)
     runs = {}
     for side, model, m in (("one_device", one, None),
                            ("sharded", sharded, mesh)):
@@ -2316,12 +2330,14 @@ def last_graph_models() -> tuple:
              LAST_MODEL_BATCH["DMVSTNET"]))
 
 
-def last_predictors_graph_models(mesh):
+def last_predictors_graph_models(mesh, models=None):
     """(name, one-device model, the same weights built under `mesh`,
-    cfg, batch, float64 batch) of the phase, one at a time: each built
-    by `graph_predictor` at 2,048 nodes and conf widths, once on the card
+    cfg, batch, float64 batch) of each of `models` (by default
+    `last_graph_models()`), one at a time: each built by
+    `graph_predictor` at 2,048 nodes and conf widths, once on the card
     and once inside `use_sharding_mesh(mesh)` (what `build_model(mesh=)`
-    does: MSDR's static supports become the halo exchange, every
+    does: MSDR's and TGCN's supports become the halo exchange, dense
+    graphs that only rows read are cut into the ranks' rows, every
     `GraphPredictor.mesh` is set), the one-device weights loaded into
     the sharded copy."""
     import torch
@@ -2331,7 +2347,7 @@ def last_predictors_graph_models(mesh):
     from gptst_tpu_torch.ops.graph_conv import use_sharding_mesh
 
     n = GRAPH_MODEL_NODES
-    for name, dataset, batch, b64 in last_graph_models():
+    for name, dataset, batch, b64 in models or last_graph_models():
         cfg = default_config(dataset, mode="ori", model=name, num_nodes=n,
                              batch_size=batch, lr_decay=False)
         one = predictor_forward(cfg, graph_predictor(name, dataset, n,
@@ -2419,6 +2435,235 @@ def last_predictors_graph_cards(rec: dict) -> None:
              peak_per_card_over_one_card={
                  k: v / one_peak for k, v in
                  line["sharded"]["max_memory_allocated"].items()}, **line)
+
+
+# --- TGCN, STMGCN, STSGCN and STFGNN over the graph axis -------------------
+
+def final_graph_models() -> tuple:
+    """(model, dataset, f32 batch, float64 batch) of the phase at 2,048
+    nodes."""
+    b = GRAPH_MODEL_BATCH
+    return tuple((m, d, b, b) for m, d in (
+        ("TGCN", "PEMS08"), ("STMGCN", "NYC_BIKE"), ("STSGCN", "PEMS08"),
+        ("STFGNN", "PEMS08")))
+
+
+def final_graph_pairs(mesh):
+    """`last_predictors_graph_models` of `final_graph_models()`."""
+    return last_predictors_graph_models(mesh, final_graph_models())
+
+
+# the window steps of STSGCN's and STFGNN's synchronous graphs
+SYNC_GRAPH_STEPS = {"STSGCN": 3, "STFGNN": 4}
+
+
+def row_normalize_sync_graph(one, sharded, mesh) -> None:
+    """STSGCN's or STFGNN's synchronous graph divided by its row sums on
+    both sides (the sharded side cut anew into its ranks' strided
+    rows), as the CPU parity tests feed it: on the raw graphs of
+    `random_sensor_graph(2048)` both models' f32 losses grow by three
+    orders of magnitude in three steps, and float64 rounding grows with
+    them (`raw_graph_gaps`)."""
+    import functools
+
+    from gptst_tpu_torch.ops.graph_conv import MeshRows, strided_rows
+
+    (a,) = one.predictor.graph
+    a = a / a.sum(dim=1, keepdim=True)
+    one.predictor.graph = (a,)
+    sharded.predictor.graph = (MeshRows.cut(
+        a.cpu(), mesh, one.predictor.net.cfg.num_nodes, functools.partial(
+            strided_rows, steps=SYNC_GRAPH_STEPS[
+                type(one.predictor.net).__name__])),)
+
+
+def raw_graph_gaps(one, sharded, cfg, mesh, batch: int) -> dict:
+    """On the raw synchronous graph, in float64 (not asserted): the
+    step-locked gap of the sharded model to one device, and the rounding
+    floor beside it: the one-device model locked to itself with x times
+    1 + 2^-52 (each entry moved by one or two ulps) on one side."""
+    import copy
+
+    x, y = (t.double() for t in pair_inputs(cfg, batch, cfg.num_nodes))
+    one64 = copy.deepcopy(one).double()
+    gaps = dict(sharded=locked_steps(one64, copy.deepcopy(sharded).double(),
+                                     cfg, mesh, x, y))
+    gaps["one_ulp_of_x"] = locked_steps(
+        one64, copy.deepcopy(one64), cfg, None, x, y,
+        x_sharded=x * (1.0 + 2.0 ** -52))
+    return gaps
+
+
+def graph_rows_line(model) -> dict:
+    """What the sharded `model`'s ranks hold of its graph operand: the
+    support's kind, or each rank's rows (`MeshRows`) and their bytes."""
+    import torch
+
+    (graph,) = model.predictor.graph
+    if not hasattr(graph, "of"):
+        return dict(support=graph.kind)
+    rows = graph.of(model.predictor.shards(torch.device("cuda", 0)))
+    return dict(graph_rows_per_rank=[list(r.shape) for r in rows],
+                graph_bytes_per_rank=[r.numel() * r.element_size()
+                                      for r in rows])
+
+
+def tgcn_big_pairs(rec: dict, mesh):
+    """TGCN at 16,384 nodes, batch 16, published widths, one device
+    beside node-sharded on `mesh`'s graph ranks (`GraphPredictor.mesh`),
+    the same seed-0 weights: on the road graph (one device: its
+    `dia_spmm` support; sharded: a `partition_graph_coo` halo of the
+    same matrix, a band's edges), on the CLI graph (`bsr_spmm` against
+    its 2-rank halo, nearly dense) and in eval mode on the CLI graph
+    with the encoder's node shards handed to the predictor. Yields
+    (case, one, sharded, halo build seconds)."""
+    from gptst_tpu_torch.graph import partition as P
+    from gptst_tpu_torch.ops.graph_conv import make_sharded_support
+
+    import numpy as np
+
+    sym = rec["_cli_sym"]
+    rows, cols = np.nonzero(sym)
+    coo = {"road_graph": road_coo(N_BIG),
+           "cli_graph": (rows, cols, sym[rows, cols])}
+    del rows, cols
+    if "road_graph" not in rec["_supports"]:
+        rec["_supports"]["road_graph"] = road_support(N_BIG, 48, "cuda")
+    for case, graph in (("road_graph", "road_graph"),
+                        ("cli_graph", "cli_graph"),
+                        ("eval_cli_graph", "cli_graph")):
+        t0 = time.perf_counter()
+        halo = make_sharded_support(None, mesh, part=P.partition_graph_coo(
+            *coo[graph], N_BIG, mesh.shape["graph"]))
+        build_s = time.perf_counter() - t0
+        one_sup = rec["_supports"][graph]
+        if case.startswith("eval"):
+            one = eval_net(one_sup).to("cuda")
+            sharded = eval_net(halo).to("cuda")
+            sharded.encoder.mesh = mesh
+        else:
+            one = bind("TGCN", tgcn_net(), (one_sup,))
+            sharded = bind("TGCN", tgcn_net(), (halo,))
+        sharded.predictor.mesh = mesh
+        yield case, one, sharded, halo, build_s
+        del one, sharded, halo
+
+
+def tgcn_big_line(one, sharded, mesh, rtol: float) -> dict:
+    """`graph_steps` of both (f32, 1 warm + 3 timed): the losses at
+    `rtol` (the one-device kernels and the halo's dense products sum in
+    another order), no `csrc/` launch sharded."""
+    import numpy as np
+
+    from gptst_tpu_torch.config.config import default_config
+
+    cfg = default_config("PEMS08", mode="ori", model="TGCN",
+                         num_nodes=N_BIG, batch_size=BATCH, lr_decay=False)
+    x, y = pair_inputs(cfg, BATCH, N_BIG)
+    runs = {side: graph_steps(model, cfg, m, x, y)
+            for side, model, m in (("one_device", one, None),
+                                   ("sharded", sharded, mesh))}
+    for run in runs.values():
+        run.pop("params")
+    np.testing.assert_allclose(runs["sharded"]["losses"],
+                               runs["one_device"]["losses"], rtol=rtol)
+    assert any(runs["one_device"]["launches"].values()), runs
+    assert not any(runs["sharded"]["launches"].values()), runs
+    return dict(**runs, ms_ratio=runs["sharded"]["ms_per_step"]
+                / runs["one_device"]["ms_per_step"])
+
+
+def phase_final_predictors_graph(rec: dict) -> None:
+    """TGCN, STMGCN, STSGCN and STFGNN node-sharded on (1, 2) of cuda:0
+    beside one device: each at 2,048 nodes built as under the mesh
+    (`final_graph_pairs`; STSGCN's and STFGNN's synchronous graphs
+    row-normalized, STFGNN's raw-graph float64 gaps recorded first;
+    `graph_pair_line`: f32 ms and peak memory, float64 step-locked),
+    then TGCN at 16,384 nodes on the road
+    graph, the CLI graph and in eval mode (`tgcn_big_pairs`: f32 ms and
+    peak; the losses at rtol 2e-5 as `sharded_model`'s, eval's at 1e-4
+    as `gptst_graph` (c)'s, where the encoder's embedding is gathered
+    for TGCN); with 2 or more cards, `final_predictors_graph_cards`."""
+    import torch
+
+    from gptst_tpu_torch.models import gptst as G
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * 2, graph_axis_size=2)
+    for name, one, sharded, cfg, batch, b64 in final_graph_pairs(mesh):
+        extra = {}
+        if name == "STFGNN":
+            extra["raw_fusion_graph_float64"] = raw_graph_gaps(
+                one, sharded, cfg, mesh, batch)
+        graph = "random_sensor_graph(2048, 6, seed 0; series graph seed 1)"
+        if name in SYNC_GRAPH_STEPS:
+            row_normalize_sync_graph(one, sharded, mesh)
+            graph += ", synchronous graph row-normalized"
+        line = graph_pair_line(one, sharded, cfg, mesh, batch,
+                               cfg.num_nodes, f64_batch=b64)
+        emit("final_predictors_graph", model=name, mode="ori",
+             nodes=cfg.num_nodes, batch=batch, float64_batch=b64,
+             graph=graph, mesh=mesh.shape, ranks=["cuda:0"] * 2,
+             steps=PG_WARM + PG_STEPS, **graph_rows_line(sharded), **extra,
+             **line)
+    encode = G.GPTST.encode
+    for case, one, sharded, halo, build_s in tgcn_big_pairs(rec, mesh):
+        gathered = []
+        G.GPTST.encode = lambda self, s: gathered.append(s.shape) or encode(
+            self, s)
+        try:
+            line = tgcn_big_line(one, sharded, mesh,
+                                 1e-4 if case.startswith("eval") else 2e-5)
+        finally:
+            G.GPTST.encode = encode
+        if case.startswith("eval"):
+            # the one-device steps encode whole, the sharded ones never
+            assert len(gathered) == PG_WARM + PG_STEPS, gathered
+        emit("final_predictors_graph", model="TGCN", case=case,
+             mode="eval" if case.startswith("eval") else "ori",
+             nodes=N_BIG, batch=BATCH, rnn_units=UNITS, mesh=mesh.shape,
+             ranks=["cuda:0"] * 2, kind=halo.kind, halo_build_s=build_s,
+             steps=PG_WARM + PG_STEPS, **line)
+        torch.cuda.empty_cache()
+    final_predictors_graph_cards(rec)
+
+
+def final_predictors_graph_cards(rec: dict) -> None:
+    """With 2 or more cards: the four at 2,048 nodes and TGCN at 16,384
+    on the road graph with their two ranks on cuda:0 and cuda:1 against
+    one device on cuda:0, the peak on each card against the one card's.
+    On one card it prints that it did not run."""
+    import torch
+
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("final_predictors_graph", case="cards", ran=False, cards=count)
+        return
+    mesh = make_mesh(devices=["cuda:0", "cuda:1"], graph_axis_size=2)
+
+    def per_card(line):
+        one_peak = line["one_device"]["max_memory_allocated"]["cuda:0"]
+        return {k: v / one_peak for k, v in
+                line["sharded"]["max_memory_allocated"].items()}
+
+    for name, one, sharded, cfg, batch, b64 in final_graph_pairs(mesh):
+        if name in SYNC_GRAPH_STEPS:
+            row_normalize_sync_graph(one, sharded, mesh)
+        line = graph_pair_line(one, sharded, cfg, mesh, batch,
+                               cfg.num_nodes, f64_batch=b64)
+        emit("final_predictors_graph", case="cards", ran=True, cards=count,
+             model=name, nodes=cfg.num_nodes, batch=batch,
+             float64_batch=b64, mesh=mesh.shape, ranks=["cuda:0", "cuda:1"],
+             peak_per_card_over_one_card=per_card(line), **line)
+    for case, one, sharded, halo, build_s in tgcn_big_pairs(rec, mesh):
+        line = tgcn_big_line(one, sharded, mesh, 2e-5)
+        emit("final_predictors_graph", case="cards", ran=True, cards=count,
+             model="TGCN", graph=case, nodes=N_BIG, batch=BATCH,
+             mesh=mesh.shape, ranks=["cuda:0", "cuda:1"], kind=halo.kind,
+             peak_per_card_over_one_card=per_card(line), **line)
+        break                                   # the road graph only
 
 
 # the distributed phase: seconds a collective waits for a peer, and the

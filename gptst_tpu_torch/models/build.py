@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -28,7 +29,8 @@ from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.graph.artifacts import random_sensor_graph
 from gptst_tpu_torch.models.api import ModelOutput
 from gptst_tpu_torch.ops.graph_conv import (
-    SparseSupport, make_support, sharding_mesh, use_sharding_mesh,
+    MeshRows, SparseSupport, make_support, sharding_mesh, strided_rows,
+    use_sharding_mesh,
 )
 from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS, NodeShards, node_shards
 from gptst_tpu_torch.parallel.rows import current_row
@@ -244,13 +246,11 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
     (`parallel/spmd.py`), and with a graph axis above 1 the predictor's
     graph supports are built node-sharded on every data row's graph
     ranks (`ops/graph_conv.make_sharded_support`), and GPT-ST (pretrain,
-    and eval's frozen encoder) and every predictor but STMGCN, STSGCN
-    and STFGNN run node-sharded on them when the graph axis divides
-    `num_nodes` (`models/gptst.py`, `GraphPredictor.mesh`; TGCN through
-    its sharded support). STMGCN's, STSGCN's and STFGNN's dense graph
-    operands stay whole on each row's first device, and so does a model
-    whose node count the graph axis does not divide: one WARNING says so
-    (`warn_whole_node_tables`)."""
+    and eval's frozen encoder) and every predictor run node-sharded on
+    them when the graph axis divides `num_nodes` (`models/gptst.py`,
+    `GraphPredictor.mesh`). A model whose node count the graph axis does
+    not divide runs whole on each row's first device: one WARNING says
+    so (`warn_whole_node_tables`)."""
     if cfg.mode == "pretrain":
         model = build_pretrain(cfg, scaler_zeros, device, seed, mesh)
     else:
@@ -272,26 +272,19 @@ def build_model(cfg: FrameworkConfig, adj: np.ndarray | None = None,
 
 def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
                            mesh) -> None:
-    """One WARNING when a model under a graph axis above 1 keeps node
-    tables (parameters whose first axis is `num_nodes`, which the JAX
-    package shards over 'graph'), a GPT-ST, or a dense graph operand
-    whole on each data row's first device. GPT-ST and the predictors
-    with a `GraphPredictor.mesh` run node-sharded when the graph axis
-    divides `num_nodes`: then neither they nor their tables and graphs
-    count, and what is left is STMGCN's, STSGCN's and STFGNN's dense
-    graph operands."""
+    """One WARNING when a model under a graph axis above 1 runs whole on
+    each data row's first device: where the graph axis does not divide
+    `num_nodes` (GPT-ST and every predictor run node-sharded where it
+    does). It counts the node tables (parameters whose first axis is
+    `num_nodes`, which the JAX package shards over 'graph'), the GPT-ST
+    and the dense graph operands that then stay whole."""
     from gptst_tpu_torch.ops.graph_conv import ShardedSupport
     from gptst_tpu_torch.utils.logger import get_logger
 
-    divides = cfg.num_nodes % mesh.shape[GRAPH_AXIS] == 0
-    gptst = cfg.mode in ("pretrain", "eval") and not divides
-    preds = [m for m in model.modules() if isinstance(m, GraphPredictor)]
-    sharded = {id(p) for m in preds if m.mesh is not None and divides
-               for p in m.parameters()}
+    if cfg.num_nodes % mesh.shape[GRAPH_AXIS] == 0:
+        return
     tables = [k for k, p in model.named_parameters()
-              if p.dim() and p.shape[0] == cfg.num_nodes
-              and id(p) not in sharded
-              and (gptst or not k.startswith("gptst."))]
+              if p.dim() and p.shape[0] == cfg.num_nodes]
 
     def flat(graph):
         for g in graph:
@@ -300,19 +293,17 @@ def warn_whole_node_tables(cfg: FrameworkConfig, model: nn.Module,
             elif g is not None:
                 yield g
 
-    dense = [g for m in preds if not (m.mesh is not None and divides)
+    dense = [g for m in model.modules() if isinstance(m, GraphPredictor)
              for g in flat(m.graph) if not isinstance(g, ShardedSupport)]
-    if tables or dense or gptst:
-        name = "GPT-ST" if cfg.mode == "pretrain" else cfg.model
-        get_logger("build", debug=cfg.debug).warning(
-            "%s under a graph axis of %d: %d node tables%s%s stay whole on "
-            "each data row's first device (the same math; STMGCN's, "
-            "STSGCN's and STFGNN's dense graph operands over 'graph' are "
-            "ROADMAP.md Queue 1; GPT-ST and the other predictors run "
-            "whole only where the graph axis does not divide their node "
-            "count)", name, mesh.shape[GRAPH_AXIS],
-            len(tables), ", the GPT-ST" if gptst else "",
-            f", {len(dense)} graph operands" if dense else "")
+    gptst = cfg.mode in ("pretrain", "eval")
+    get_logger("build", debug=cfg.debug).warning(
+        "%s under a graph axis of %d, which does not divide its %d nodes, "
+        "runs whole on each data row's first device (the same math): %d "
+        "node tables%s%s stay whole there",
+        "GPT-ST" if cfg.mode == "pretrain" else cfg.model,
+        mesh.shape[GRAPH_AXIS], cfg.num_nodes, len(tables),
+        ", the GPT-ST" if gptst else "",
+        f", {len(dense)} graph operands" if dense else "")
 
 
 class GraphPredictor(nn.Module):
@@ -326,13 +317,14 @@ class GraphPredictor(nn.Module):
     `takes_targets` the labels, the step count and the generator do
     (CCRNN's scheduled sampling).
 
-    `mesh` (under a mesh, every predictor's but TGCN's, whose support
-    is sharded, and STMGCN's, STSGCN's and STFGNN's): the network runs
+    `mesh` (under a mesh, every predictor's): the network runs
     node-sharded over the graph ranks of the calling data row
     (`shards`) where the graph axis is above 1 and divides N: its input
     is cut into the ranks' node shards (or comes so, from eval's
     node-sharded encoder) and its output gathered on the row's first
-    device, where the loss reads it. Else it runs whole there."""
+    device, where the loss reads it. Else it runs whole there. A
+    constant graph that the sharded network reads only by rows is then
+    a `MeshRows` (`sharded_graph`)."""
 
     def __init__(self, net: nn.Module, *graph, takes_generator=False,
                  takes_targets=False, mesh=None):
@@ -398,7 +390,7 @@ def _build_tgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     support = make_support(sym_adj(adj), device=device)
     net = TGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                horizon=cfg.horizon, generator=generator).to(device)
-    return GraphPredictor(net, support)
+    return GraphPredictor(net, support, mesh=sharding_mesh())
 
 
 def msdr_adapt_pattern(mat0: np.ndarray, num_nodes: int, device="cuda"):
@@ -549,6 +541,19 @@ def _dense_graph(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
+def sharded_graph(a: np.ndarray, cfg: FrameworkConfig, device, rows=None):
+    """A constant dense f32 graph operand: whole on `device`, or, under a
+    sharding mesh (`use_sharding_mesh`) whose graph axis above 1 divides
+    `num_nodes`, where the network runs node-sharded, cut into its graph
+    ranks' rows (`MeshRows.cut`, with `rows`)."""
+    mesh = sharding_mesh()
+    g = 1 if mesh is None else mesh.shape[GRAPH_AXIS]
+    if g == 1 or cfg.num_nodes % g:
+        return _dense_graph(a, device)
+    return MeshRows.cut(torch.as_tensor(np.asarray(a, np.float32)), mesh,
+                        cfg.num_nodes, rows)
+
+
 def stmgcn_support_stacks(cfg: FrameworkConfig, adj: np.ndarray,
                           cheb_k: int,
                           series_graph: np.ndarray | None = None
@@ -586,11 +591,12 @@ def _build_stmgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     from gptst_tpu_torch.models.predictors.stmgcn import STMGCN, STMGCNConfig
 
     pcfg = make_predictor_config(STMGCNConfig, cfg, num_nodes=cfg.num_nodes)
-    stacks = _dense_graph(
-        stmgcn_support_stacks(cfg, adj, pcfg.cheb_k, series_graph), device)
+    stacks = sharded_graph(
+        stmgcn_support_stacks(cfg, adj, pcfg.cheb_k, series_graph), cfg,
+        device)
     net = STMGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                  seq_len=cfg.lag, generator=generator).to(device)
-    return GraphPredictor(net, stacks)
+    return GraphPredictor(net, stacks, mesh=sharding_mesh())
 
 
 @register_model("ASTGCN")
@@ -618,11 +624,13 @@ def _build_stsgcn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     )
 
     pcfg = make_predictor_config(STSGCNConfig, cfg, num_nodes=cfg.num_nodes)
-    sync_adj = _dense_graph(construct_sync_adj(adj, pcfg.steps), device)
+    sync_adj = sharded_graph(
+        construct_sync_adj(adj, pcfg.steps), cfg, device,
+        functools.partial(strided_rows, steps=pcfg.steps))
     net = STSGCN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                  horizon=cfg.horizon, lag=cfg.lag,
                  generator=generator).to(device)
-    return GraphPredictor(net, sync_adj)
+    return GraphPredictor(net, sync_adj, mesh=sharding_mesh())
 
 
 def _steps_per_day(dataset: str) -> int:
@@ -668,12 +676,13 @@ def _build_stfgnn(cfg: FrameworkConfig, dim_in: int, adj: np.ndarray,
     from gptst_tpu_torch.models.predictors.stfgnn import STFGNN, STFGNNConfig
 
     pcfg = make_predictor_config(STFGNNConfig, cfg, num_nodes=cfg.num_nodes)
-    fusion = _dense_graph(
-        stfgnn_fusion_graph(cfg, adj, pcfg.strides, series_graph), device)
+    fusion = sharded_graph(
+        stfgnn_fusion_graph(cfg, adj, pcfg.strides, series_graph), cfg,
+        device, functools.partial(strided_rows, steps=pcfg.strides))
     net = STFGNN(pcfg, dim_in=dim_in, dim_out=cfg.output_dim,
                  horizon=cfg.horizon, lag=cfg.lag,
                  generator=generator).to(device)
-    return GraphPredictor(net, fusion)
+    return GraphPredictor(net, fusion, mesh=sharding_mesh())
 
 
 def stgode_graphs(cfg: FrameworkConfig, adj: np.ndarray,

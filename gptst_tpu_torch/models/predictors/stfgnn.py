@@ -14,6 +14,12 @@ Windows are batched into (B, W, 4N, C) and the per-window weights into
 (W, C, F) stacks (`stsgcn.glu_graph_layers`). No kernel of `csrc/` is
 on this path.
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`) as STSGCN: the fusion graph is a `MeshRows`
+of rank g's 4 N / G rows (`ops/graph_conv.strided_rows` at 4 steps),
+`spatial_emb` is read by the rank's nodes, and the gated dilated convs
+(over time), `first_fc` and the heads are node-local.
+
 Init: position embeddings N(0, 3e-4^2) (`STFGNN.py:155-161`),
 per-window weights U(+-1/sqrt(C * W)), zero biases, convs and Dense
 layers lecun normal with zero biases.
@@ -35,11 +41,12 @@ import torch
 from torch import nn
 
 from gptst_tpu_torch.models.predictors.stsgcn import (
-    glu_graph_layers, horizon_heads, window_stack,
+    embed_positions, glu_graph_layers, horizon_heads, window_stack,
 )
 from gptst_tpu_torch.ops.dtypes import linear
 from gptst_tpu_torch.ops.recurrent import fan_in_uniform_
 from gptst_tpu_torch.ops.temporal import TimeConv, dense
+from gptst_tpu_torch.parallel.mesh import NodeShards, each
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,18 +114,25 @@ class FusionLayer(nn.Module):
                 f"b{li}", nn.Parameter(torch.zeros(w_cnt, 1, 2 * f)))
             feat = f
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        if hasattr(self, "temporal_emb"):
-            x = x + self.temporal_emb
-        if hasattr(self, "spatial_emb"):
-            x = x + self.spatial_emb
-        # gated dual dilated conv over time: kernel 2, dilation 3 -> T - 3
-        data_res = torch.sigmoid(self.conv1(x)) * torch.tanh(self.conv2(x))
+    def forward(self, x, adj, shards: NodeShards | None = None):
+        """x (B, T, N, C) and the fusion graph, or with `shards` the
+        ranks' node shards and `strided_rows`."""
+        x = embed_positions(self, x, shards)
         ws = [getattr(self, f"w{li}") for li in range(self.n_sub)]
         bs = [getattr(self, f"b{li}") for li in range(self.n_sub)]
-        mid = glu_graph_layers(window_stack(x, self.strides), adj, ws, bs,
-                               x.shape[2])
-        return mid + data_res
+        if shards is None:
+            mid = glu_graph_layers(window_stack(x, self.strides), adj, ws,
+                                   bs, x.shape[2])
+            return mid + self._data_res(x)
+        mid = glu_graph_layers([window_stack(xg, self.strides) for xg in x],
+                               adj, ws, bs, x[0].shape[2], shards=shards)
+        return [m + shards.module_on(self, g)._data_res(xg)
+                for g, (m, xg) in enumerate(zip(mid, x))]
+
+    def _data_res(self, x: torch.Tensor) -> torch.Tensor:
+        """The gated dual dilated conv over time: kernel 2, dilation 3 ->
+        T - 3 steps."""
+        return torch.sigmoid(self.conv1(x)) * torch.tanh(self.conv2(x))
 
 
 class STFGNN(nn.Module):
@@ -129,7 +143,7 @@ class STFGNN(nn.Module):
                  horizon: int, lag: int,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.horizon = horizon
+        self.cfg, self.horizon = cfg, horizon
         feat = cfg.first_layer_embedding_size
         self.first_fc = dense(dim_in, feat, generator)
         t, layers = lag, []
@@ -144,8 +158,14 @@ class STFGNN(nn.Module):
                       dense(cfg.out_layer_dim, dim_out, generator)]
         self.dense = nn.ModuleList(heads)
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(linear(self.first_fc, x))
+    def forward(self, x, adj, shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards (then `adj` is a `MeshRows` of `strided_rows`); the
+        output likewise."""
+        if shards is not None:
+            adj = adj.of(shards)
+        x = each(self.first_fc, x, shards,
+                 lambda m, t: torch.relu(linear(m, t)))
         for layer in self.fusion_layers:
-            x = layer(x, adj)
-        return horizon_heads(self.dense, x, self.horizon)
+            x = layer(x, adj, shards)
+        return horizon_heads(list(self.dense), x, self.horizon, shards)

@@ -15,6 +15,16 @@ tensor and the per-window weights into a (W, C, F) stack: one dense
 product with the adjacency and one batched einsum per sub-layer. No
 kernel of `csrc/` is on this path.
 
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh): x and every activation are lists of the ranks' node
+shards, and the synchronous graph a `MeshRows` of rank g's 3 N / G
+rows (`ops/graph_conv.strided_rows`: node v of rank g at each of the 3
+window steps), whose columns follow the ranks' window stacks
+all-gathered. Each sub-layer's product is rank g's rows times the
+gathered windows, its crop the rank's middle step; `spatial_emb` is
+read by the rank's nodes, and the rest is node-local.
+
 Init: the per-window weights U(+-1/sqrt(fan_in)) with flax's fan_in =
 C * W (`ops/recurrent.fan_in_uniform_`), zero biases, zero position
 embeddings (`:15-18`), Dense layers lecun normal with zero biases.
@@ -37,6 +47,7 @@ from torch import nn
 from gptst_tpu_torch.ops.dtypes import linear, promoted
 from gptst_tpu_torch.ops.recurrent import fan_in_uniform_
 from gptst_tpu_torch.ops.temporal import dense
+from gptst_tpu_torch.parallel.mesh import NodeShards, each
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,24 +86,39 @@ def window_stack(x: torch.Tensor, width: int) -> torch.Tensor:
     return wins.reshape(b, t - width + 1, width * n, c)
 
 
-def glu_graph_layers(h: torch.Tensor, adj: torch.Tensor, ws, bs,
-                     n: int, glu: bool = True) -> torch.Tensor:
+def glu_graph_layers(h, adj, ws, bs, n: int, glu: bool = True,
+                     shards: NodeShards | None = None):
     """Sub-layers A h -> GLU (or relu) of h W_w + b_w on the windows
     h (B, W, sN, C), each cropped to the rows [N, 2N) (the windows'
     second step); the max over the sub-layers' crops (B, W, N, F)
-    (`STSGCN.py:29-82`)."""
+    (`STSGCN.py:29-82`). With `shards`, h is the list of the ranks'
+    window stacks (B, W, s n, C), `adj` the ranks' `strided_rows` and n
+    a rank's nodes; the result is the ranks' crops."""
+    if shards is None:
+        crops = []
+        for w, b in zip(ws, bs):
+            h = _sub_layer(h, adj, w, b, glu)
+            crops.append(h[:, :, n:2 * n])
+        return torch.stack(crops).amax(dim=0)
     crops = []
     for w, b in zip(ws, bs):
-        h, adj_, w, b = promoted(h, adj, w, b)
-        h = torch.einsum("mn,bwnc->bwmc", adj_, h)
-        z = torch.einsum("bwnc,wcf->bwnf", h, w) + b
-        if glu:
-            lhs, rhs = z.chunk(2, dim=-1)
-            h = lhs * torch.sigmoid(rhs)
-        else:
-            h = torch.relu(z)
-        crops.append(h[:, :, n:2 * n])
-    return torch.stack(crops).amax(dim=0)
+        h = [_sub_layer(whole, a, w.to(a.device), b.to(a.device), glu)
+             for a, whole in zip(adj, shards.all_gather(h))]
+        crops.append([hg[:, :, n:2 * n] for hg in h])
+    return [torch.stack(c).amax(dim=0) for c in zip(*crops)]
+
+
+def _sub_layer(h: torch.Tensor, adj: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor, glu: bool) -> torch.Tensor:
+    """One sub-layer on the windows h (B, W, sN, C): A h (A's rows, all
+    or some), then GLU (or relu) of h W_w + b_w."""
+    h, adj, w, b = promoted(h, adj, w, b)
+    h = torch.einsum("mn,bwnc->bwmc", adj, h)
+    z = torch.einsum("bwnc,wcf->bwnf", h, w) + b
+    if glu:
+        lhs, rhs = z.chunk(2, dim=-1)
+        return lhs * torch.sigmoid(rhs)
+    return torch.relu(z)
 
 
 class SyncLayer(nn.Module):
@@ -121,22 +147,47 @@ class SyncLayer(nn.Module):
                 f"b{li}", nn.Parameter(torch.zeros(w_cnt, 1, width)))
             feat = f
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        if hasattr(self, "temporal_emb"):
-            x = x + self.temporal_emb
-        if hasattr(self, "spatial_emb"):
-            x = x + self.spatial_emb
+    def forward(self, x, adj, shards: NodeShards | None = None):
+        """x (B, T, N, C) and the (3N, 3N) graph, or with `shards` the
+        ranks' node shards and `strided_rows`."""
+        x = embed_positions(self, x, shards)
         ws = [getattr(self, f"w{li}") for li in range(self.n_sub)]
         bs = [getattr(self, f"b{li}") for li in range(self.n_sub)]
-        return glu_graph_layers(window_stack(x, 3), adj, ws, bs,
-                                x.shape[2], self.glu)
+        if shards is None:
+            return glu_graph_layers(window_stack(x, 3), adj, ws, bs,
+                                    x.shape[2], self.glu)
+        return glu_graph_layers([window_stack(xg, 3) for xg in x], adj, ws,
+                                bs, x[0].shape[2], self.glu, shards)
 
 
-def horizon_heads(dense_layers, x: torch.Tensor,
-                  horizon: int) -> torch.Tensor:
+def embed_positions(layer: nn.Module, x, shards: NodeShards | None = None):
+    """x plus the layer's `temporal_emb` (1, T, 1, C) and `spatial_emb`
+    (1, 1, N, C) where it has them; with `shards`, on each rank's node
+    shard, the rank reading its nodes of `spatial_emb`."""
+    temporal = getattr(layer, "temporal_emb", None)
+    spatial = getattr(layer, "spatial_emb", None)
+
+    def add(xg, sp):
+        if temporal is not None:
+            xg = xg + temporal.to(xg.device)
+        return xg if sp is None else xg + sp
+
+    if shards is None:
+        return add(x, spatial)
+    return [add(xg, sp) for xg, sp in zip(x, [None] * shards.parts
+                                          if spatial is None
+                                          else shards.split(spatial, dim=2))]
+
+
+def horizon_heads(dense_layers, x, horizon: int,
+                  shards: NodeShards | None = None):
     """Per-horizon heads (`STSGCN.py:310-313`): head k, the linear pair
     `dense_layers[2k]`, `[2k + 1]`, maps each node's flattened (T, C) to
-    step k. x (B, T, N, C) -> (B, horizon, N, D)."""
+    step k. x (B, T, N, C) -> (B, horizon, N, D); with `shards`, on each
+    rank's node shard, the layers read there."""
+    if shards is not None:
+        return [horizon_heads([shards.module_on(d, g) for d in dense_layers],
+                              xg, horizon) for g, xg in enumerate(x)]
     b, t, n, c = x.shape
     flat = x.transpose(1, 2).reshape(b, n, t * c)
     return torch.stack([linear(dense_layers[2 * k + 1],
@@ -170,12 +221,20 @@ class STSGCN(nn.Module):
                        dense(128, dim_out, generator)]
         self.dense = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    def forward(self, x, adj, shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards (then `adj` is a `MeshRows` of `strided_rows`); the
+        output likewise."""
         cfg = self.cfg
-        x = x[..., :cfg.feature_dim]
         heads = list(self.dense)
+        if shards is None:
+            x = x[..., :cfg.feature_dim]
+        else:
+            x = [xg[..., :cfg.feature_dim] for xg in x]
+            adj = adj.of(shards)
         if cfg.first_layer_embedding_size:
-            x = torch.relu(linear(heads.pop(0), x))
+            x = each(heads.pop(0), x, shards,
+                     lambda m, t: torch.relu(linear(m, t)))
         for layer in self.sync_layers:
-            x = layer(x, adj)
-        return horizon_heads(heads, x, self.horizon)
+            x = layer(x, adj, shards)
+        return horizon_heads(heads, x, self.horizon, shards)

@@ -7,6 +7,15 @@ all horizons from the final state. The time loop is a Python loop over
 the node-major cell (`ops/recurrent.GraphGRUCellNM`), or over the
 batch-major cell with a node-sharded support. Defaults follow
 `conf/TGCN/*.conf` (rnn_units=100).
+
+Node-sharded over a data row's graph ranks (`forward(..., shards=)`,
+`parallel/mesh.NodeShards`; `models/build.GraphPredictor` passes them
+under a mesh whose graph axis divides N): x, the state and the readout
+are lists of the ranks' node shards. The ranks meet only at the cell's
+two aggregations a step, the `ShardedSupport`'s halo exchange or ring
+on the shards (`ShardedSupport.on_shards`, which refuses a partition
+that reorders the nodes); the gates and the `Dense` readout are
+node-local.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from gptst_tpu_torch.ops.recurrent import (
     GraphGRUCell, GraphGRUCellNM, remat_cell, resolve_remat, scan_over_time,
     variance_scaling_,
 )
+from gptst_tpu_torch.parallel.mesh import NodeShards, each
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +67,20 @@ class TGCN(nn.Module):
         variance_scaling_(self.dense.weight, u, generator)
         nn.init.zeros_(self.dense.bias)
 
-    def forward(self, x: torch.Tensor, support) -> torch.Tensor:
+    def forward(self, x, support, shards: NodeShards | None = None):
+        """x (B, T, N, dim_in), or with `shards` the list of the ranks'
+        node shards (then `support` is a `ShardedSupport`); the output
+        likewise."""
+        if shards is not None:
+            # the batch-major cell on the ranks' shards, remat off as on
+            # the padded sharded path below
+            hs = [xg.new_zeros(xg.shape[0], xg.shape[2], self.cfg.rnn_units)
+                  for xg in x]
+            for t in range(x[0].shape[1]):
+                hs = GraphGRUCell.forward(self.cell, hs,
+                                          [xg[:, t] for xg in x], support,
+                                          shards)
+            return each(self.dense, hs, shards, self._readout)
         B, T, N, _ = x.shape
         refuse_promoting_dense_support("TGCN", (support,), x)
         if isinstance(support, ShardedSupport):
@@ -76,6 +99,11 @@ class TGCN(nn.Module):
             for t in range(T):
                 h = step(h, xt[t], support)
             h = h.transpose(0, 1)                         # (B, N, U)
-        out = linear(self.dense, h)                       # (B, N, T_out*D)
-        out = out.reshape(B, N, self.horizon, self.dim_out)
+        return self._readout(self.dense, h)
+
+    def _readout(self, dense: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+        """Every horizon from the final state h (B, N, U) of h's nodes:
+        (B, horizon, N, dim_out)."""
+        b, n, _ = h.shape
+        out = linear(dense, h).reshape(b, n, self.horizon, self.dim_out)
         return out.permute(0, 2, 1, 3)

@@ -17,7 +17,10 @@ A dense graph that a node-sharded predictor computes or reads (GWN's
 adaptive adjacency, MTGNN's and CCRNN's learned graphs, a predefined
 adjacency) is a `NodeRows`: rank g holds its rows, and the products
 (`NodeRows.matmul`, `mixprop`, `diffusion_conv`, `sharded_cheb_conv`)
-take and give lists of the ranks' node shards.
+take and give lists of the ranks' node shards. A constant graph that
+only rows ever read (STMGCN's support stacks, STSGCN's and STFGNN's
+synchronous graphs, `strided_rows`) is cut into them once, at build
+(`MeshRows`).
 
 `make_support` picks the representation from the node count, or the
 sharded one under a mesh, so model code is representation-agnostic.
@@ -532,3 +535,57 @@ def _mixprop_rows(adj: NodeRows) -> NodeRows:
     deg = sh.all_sum([a.sum(dim=0) for a in adj.rows])
     return NodeRows(tuple(a / (d + 1.0) for a, d in zip(plus, deg)), sh,
                     transposed=True)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshRows:
+    """A constant dense graph operand of a node-sharded predictor, cut
+    once, at build, into the rows its graph ranks read: for the graph
+    ranks of each data row of a mesh (once per distinct set of ranks),
+    rank g's rows on its device. No device keeps the whole operand (on
+    CPU ranks the rows may be views of the host tensor)."""
+
+    by_ranks: dict            # tuple of the ranks' devices -> their rows
+
+    @staticmethod
+    def cut(a: torch.Tensor, mesh, n: int, rows=None) -> "MeshRows":
+        """`a` cut on the graph ranks of `mesh`'s data rows for an
+        n-node model: `rows(a, shards)` gives the ranks' rows, by default
+        `shards.split(a, dim=-2)` (a stack of (N, N) graphs by its rows).
+        Build `a` on the host: each rank's rows are copied to its
+        device."""
+        from gptst_tpu_torch.parallel.mesh import node_shards
+
+        by: dict = {}
+        for row in range(mesh.local_rows):
+            sh = node_shards(mesh, n, row, mesh.row_devices[row])
+            if sh.devices not in by:
+                by[sh.devices] = tuple(sh.split(a, dim=-2) if rows is None
+                                       else rows(a, sh))
+        return MeshRows(by)
+
+    def of(self, shards: NodeShards) -> tuple:
+        """The rows of the calling data row's graph ranks."""
+        return self.by_ranks[tuple(shards.devices)]
+
+
+def strided_rows(a: torch.Tensor, shards: NodeShards,
+                 steps: int) -> list:
+    """The ranks' rows of an (S N, S N) graph whose row s N + v is node v
+    at window step s (STSGCN's synchronous graph, STFGNN's fusion
+    graph): rank g's rows {s N + v : s < S, v in node_range(g)}, step
+    by step, as `window_stack` lays out rank g's (B, T, N / G, C) shard,
+    with the columns in the order of the ranks' window stacks
+    all-gathered (rank, then step, then node), on rank g's device. Rank
+    g's rows times the gathered windows are then its rows of the whole
+    product, with no permutation per step."""
+    n, parts = shards.n, shards.parts
+    n_loc = n // parts
+    node = torch.arange(n_loc, device=a.device)
+    step = torch.arange(steps, device=a.device)[:, None] * n
+    cols = (step[None] + n_loc * torch.arange(parts, device=a.device)[
+        :, None, None] + node).reshape(-1)
+    return [a.index_select(0, (step + lo + node).reshape(-1))
+            .index_select(1, cols).to(dev)
+            for dev, (lo, _) in zip(
+                shards.devices, map(shards.node_range, range(parts)))]

@@ -89,7 +89,10 @@ class GraphGRUCell(nn.Module):
 
     h: (B, N, U), x: (B, N, D): two aggregations per step, each of the
     (B, N, D+U) concatenation. The node-sharded path runs this layout
-    (`ShardedSupport.fn` takes (..., N, C)). Weights keep flax's
+    (`ShardedSupport.fn` takes (..., N, C)); with `shards`, h and x are
+    the lists of the ranks' (B, N/G, ·) node shards, the aggregations
+    take and give shards (`ShardedSupport.on_shards`) and the rest runs
+    on each rank with the weights read there. Weights keep flax's
     (in, out) layout and names; `GraphGRUCellNM` has the same
     parameters, as both cells are `ScanGraphGRUCell_0` in flax.
     """
@@ -106,16 +109,33 @@ class GraphGRUCell(nn.Module):
         xavier_normal_(self.weights_0, generator)
         xavier_normal_(self.weights_1, generator)
 
-    def forward(self, h: torch.Tensor, x: torch.Tensor,
-                support) -> torch.Tensor:
-        def gc(inp, state, w, b):
-            z = torch.cat([inp, state], dim=-1)
-            az, w = promoted(graph_matmul(support, z), w)
-            return az @ w + b
+    def forward(self, h, x, support, shards=None):
+        def cat(inp, state):
+            return [torch.cat(p, dim=-1) for p in zip(inp, state)]
 
-        gates = torch.sigmoid(gc(x, h, self.weights_0, self.bias_0))
-        r, u = gates.chunk(2, dim=-1)
-        c = torch.tanh(gc(x, r * h, self.weights_1, self.bias_1))
+        if shards is None:
+            rh, u = self._gates(graph_matmul(support, torch.cat([x, h], -1)),
+                                h)
+            return self._update(
+                graph_matmul(support, torch.cat([x, rh], -1)), h, u)
+        cells = [shards.module_on(self, g) for g in range(shards.parts)]
+        ru = [c._gates(a, hg) for c, a, hg in zip(
+            cells, graph_matmul(support, cat(x, h)), h)]
+        return [c._update(a, hg, u) for c, a, hg, (_, u) in zip(
+            cells, graph_matmul(support, cat(x, [rh for rh, _ in ru])), h,
+            ru)]
+
+    def _gates(self, az: torch.Tensor, h: torch.Tensor):
+        """r * h and u, from A [x ‖ h] on h's nodes."""
+        az, w = promoted(az, self.weights_0)
+        r, u = torch.sigmoid(az @ w + self.bias_0).chunk(2, dim=-1)
+        return r * h, u
+
+    def _update(self, az: torch.Tensor, h: torch.Tensor,
+                u: torch.Tensor) -> torch.Tensor:
+        """The new state from A [x ‖ r h] on h's nodes."""
+        az, w = promoted(az, self.weights_1)
+        c = torch.tanh(az @ w + self.bias_1)
         return u * h + (1.0 - u) * c
 
 
