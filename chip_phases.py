@@ -6,10 +6,14 @@
     python3 chip_phases.py last_predictors_graph
     python3 chip_phases.py final_predictors_graph
     python3 chip_phases.py build distributed
+    python3 chip_phases.py build device_data_abba
     python3 chip_phases.py build cards      # with 2+ cards
 
 Each name is a phase of `chip_smoke.PHASES`, run in the order given,
-or `cards`: the several-card parts of `data_parallel` (one data row per
+or `device_data_abba`: `device_data` with fresh runs of each model in
+the order host, resident, resident, host (the gaps within each path
+beside the gap between them), or
+`cards`: the several-card parts of `data_parallel` (one data row per
 card and the CLI graph's mesh), of `gptst_graph` (GPT-ST's two graph
 ranks on two cards), of `predictors_graph` (STGCN, GWN, MTGNN and
 CCRNN on two cards), of `last_predictors_graph` (MSDR, ASTGCN, STGODE,
@@ -48,7 +52,10 @@ def main(names: list[str]) -> int:
         runs = ((c.data_parallel_cards, c.gptst_graph_cards,
                  c.predictors_graph_cards, c.last_predictors_graph_cards,
                  c.final_predictors_graph_cards, c.distributed_cards)
-                if name == "cards" else (getattr(c, f"phase_{name}"),))
+                if name == "cards" else
+                (lambda rec: c.phase_device_data(rec, abba=True),)
+                if name == "device_data_abba"
+                else (getattr(c, f"phase_{name}"),))
         t0 = time.perf_counter()
         for run in runs:
             run(rec)
@@ -62,9 +69,11 @@ def main(names: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    unknown = [n for n in sys.argv[1:] if n not in c.PHASES + ("cards",)]
+    extra = ("cards", "device_data_abba")
+    unknown = [n for n in sys.argv[1:] if n not in c.PHASES + extra]
     if unknown or len(sys.argv) < 2:
-        print(f"usage: chip_phases.py PHASE... (of {c.PHASES} and cards); "
+        print(f"usage: chip_phases.py PHASE... (of {c.PHASES} and "
+              f"{extra}); "
               f"unknown: {unknown}", file=sys.stderr)
         sys.exit(2)
     sys.exit(main(sys.argv[1:]))

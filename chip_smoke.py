@@ -164,6 +164,21 @@ Phases, one JSON line each; any failure exits non-zero:
              PEMS08.npz the phase writes; the pretrain checkpoint must
              load strictly into a fresh GPT-ST whose `encode` equals the
              trained model's.
+  device_data
+             the trainer's device-resident train split (the default:
+             `device_data` True, `scan_steps` 0) against the host path
+             (`-device_data False`): `cli`'s TGCN run (16,384 nodes,
+             batch 16, 600 time steps, 2 epochs) and `gptst_cli`'s
+             pretrain run (170 nodes, batch 64), each run again on the
+             host path. For both paths: ms per step by epoch, the peak
+             over what the run found allocated, the split's bytes on the
+             card, and the host-to-device copies inside the train steps
+             (`HostCopies`), which must be 0 batch copies on the
+             resident path and two a step on the host path. The paths'
+             train losses, best loss and test (GPT-ST: train split)
+             averages must agree within `DEVICE_DATA_RTOL`.
+             `chip_phases.py device_data_abba` runs each model's paths
+             afresh in the order host, resident, resident, host.
   eval_cli   the main path: `run.main` at 16,384 nodes from a 600-step
              PEMS08.npz, `-mode pretrain` (batch 8, 1 epoch), then
              `-mode eval -model TGCN` (frozen encoder, Fusion head,
@@ -272,7 +287,7 @@ PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "data_parallel", "gptst_graph", "predictors_graph",
           "last_predictors_graph", "final_predictors_graph",
           "distributed", "gptst_model",
-          "gptst_cli", "eval_cli",
+          "gptst_cli", "device_data", "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
           "predictors_cli", "graph_predictors_cli", "graph_predictors_model",
           "last_predictors_cli", "last_predictors_model", "profile",
@@ -1170,12 +1185,129 @@ def phase_ring(rec: dict) -> None:
                                 "of_bound_fp32")})
 
 
-def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
+class HostCopies:
+    """Counts the host-to-device copies made while `active`: the
+    results on a CUDA device of `Tensor.to`, `Tensor.cuda`, `Tensor.
+    copy_`, `torch.as_tensor` and `torch.tensor` from host memory (a CPU
+    tensor, a numpy array, a Python value); `batch_copies` are those of
+    4-d (B, T, N, D) tensors. A context manager: patches on enter,
+    restores on exit."""
+
+    def __init__(self):
+        self.active = False
+        self.copies = self.batch_copies = self.bytes = 0
+
+    def _count(self, from_host: bool, out) -> None:
+        import torch
+
+        if (self.active and from_host and isinstance(out, torch.Tensor)
+                and out.is_cuda):
+            self.copies += 1
+            self.bytes += out.nbytes
+            self.batch_copies += out.dim() == 4
+
+    def __enter__(self):
+        import torch
+
+        def on_host(a) -> bool:
+            return not (isinstance(a, torch.Tensor) and a.is_cuda)
+
+        T = torch.Tensor
+        self._saved = [(T, "to", T.to), (T, "cuda", T.cuda),
+                       (T, "copy_", T.copy_),
+                       (torch, "as_tensor", torch.as_tensor),
+                       (torch, "tensor", torch.tensor)]
+        to, cuda, copy_, as_tensor, tensor = (f for *_, f in self._saved)
+
+        def counted(fn, src):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                self._count(on_host(src(args, kw)), out)
+                return out
+            return call
+
+        def first(args, kw):
+            return args[0] if args else kw.get("data")
+
+        T.to, T.cuda = counted(to, first), counted(cuda, first)
+        T.copy_ = counted(copy_, lambda args, kw: (
+            args[1] if len(args) > 1 else kw["src"]))
+        torch.as_tensor = counted(as_tensor, first)
+        torch.tensor = counted(tensor, first)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+class TrainProbe:
+    """Watches `Trainer`'s train steps while entered: the kernels'
+    launches inside them (`in_steps`), the host-to-device copies inside
+    them (`copies`, a `HostCopies`) and the bytes of each trainer's
+    resident train split (`split_bytes`, 0 on the host path). With
+    `keep` it also keeps each trainer (`trainers`); without, the split
+    is freed with the run."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.trainers: list = []
+
+    def __enter__(self):
+        from gptst_tpu_torch.kernels.spmm import LAUNCHES
+        from gptst_tpu_torch.train.trainer import Trainer
+
+        self.in_steps = dict.fromkeys(LAUNCHES, 0)
+        self.split_bytes: list[int] = []
+        self.copies = HostCopies().__enter__()
+        self._saved = (Trainer._train_batch, Trainer.train)
+        train_batch, train = self._saved
+
+        def counted(tr, *args):
+            before = dict(LAUNCHES)
+            self.copies.active = True
+            try:
+                return train_batch(tr, *args)
+            finally:
+                self.copies.active = False
+                for k in self.in_steps:
+                    self.in_steps[k] += LAUNCHES[k] - before[k]
+
+        def keep(tr, *args, **kw):
+            self.split_bytes.append(sum(
+                t.nbytes for t in tr.train_split or ()))
+            if self.keep:
+                self.trainers.append(tr)
+            return train(tr, *args, **kw)
+
+        Trainer._train_batch, Trainer.train = counted, keep
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from gptst_tpu_torch.train.trainer import Trainer
+
+        Trainer._train_batch, Trainer.train = self._saved
+        self.copies.__exit__(*exc)
+
+    def line(self, steps: int) -> dict:
+        """The probe's fields of a phase line, `steps` train steps."""
+        (split,) = self.split_bytes
+        return dict(resident_split_bytes=split,
+                    h2d_copies_in_train_steps=self.copies.copies,
+                    h2d_batch_copies_in_train_steps=self.copies.batch_copies,
+                    h2d_bytes_in_train_steps=self.copies.bytes,
+                    launches_per_train_step={
+                        k: v / steps for k, v in self.in_steps.items()})
+
+
+def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2,
+            extra: tuple = ()) -> dict:
     """`gptst_tpu_torch.run.main` with `-mode ori -model <model>` at
     16,384 nodes from a PEMS08.npz of that size and `num_steps` time
-    steps. Checks the losses and metrics are finite and returns what
-    the phase line reports, with the launches of the whole run and of
-    its train steps alone."""
+    steps, and the arguments `extra`. Checks the losses and metrics are
+    finite and returns what the phase line reports, with the launches
+    of the whole run and of its train steps alone, and `TrainProbe`'s
+    fields."""
     import numpy as np
     import torch
 
@@ -1183,36 +1315,24 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
         LAUNCHES, dense_block_counts, reset_launch_counts,
     )
     from gptst_tpu_torch.run import main
-    from gptst_tpu_torch.train.trainer import Trainer
-
-    in_steps = dict.fromkeys(LAUNCHES, 0)
-    train_batch = Trainer._train_batch
-
-    def counted(self, *args):
-        before = dict(LAUNCHES)
-        out = train_batch(self, *args)
-        for k in in_steps:
-            in_steps[k] += LAUNCHES[k] - before[k]
-        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         data = write_pems08(tmp, N_BIG, num_steps)
         metrics = os.path.join(tmp, "metrics.json")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        Trainer._train_batch = counted
         reset_launch_counts()
         t0 = time.perf_counter()
-        try:
+        with TrainProbe() as probe:
             main(["-dataset", "PEMS08", "-mode", "ori", "-model", model,
                   "-num_nodes", str(N_BIG), "-data_root", data,
                   "-batch_size", str(batch),
                   "-epochs", str(epochs), "-lr_decay", "False",
                   "-early_stop", "False", "-log_dir",
                   os.path.join(tmp, "save"), "-log_step", "1000",
-                  "-metrics_out", metrics])
+                  "-metrics_out", metrics, *extra])
             torch.cuda.synchronize()
-        finally:
-            Trainer._train_batch = train_batch
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         dense = dense_block_counts()
@@ -1223,17 +1343,17 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2) -> dict:
     # the training steps (and evaluation) gathered entries only
     assert not any(dense.values()), dense
     steps = rep["steps_per_epoch"]
+    peak = torch.cuda.max_memory_allocated()
     return dict(
         nodes=N_BIG, batch=batch, epochs=epochs, time_steps=num_steps,
-        steps_per_epoch=steps,
+        extra_args=list(extra), steps_per_epoch=steps,
         ms_per_step_by_epoch=[s / steps * 1e3 for s in rep["epoch_seconds"]],
         samples_per_s_last_epoch=steps * batch / rep["epoch_seconds"][-1],
-        train_loss_by_epoch=rep["history"], test_average=rep["average"],
-        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        train_loss_by_epoch=rep["history"], best_loss=rep["best_loss"],
+        test_average=rep["average"], max_memory_allocated=peak,
+        held_before=held, peak_over_held=peak - held,
         launches=launches, dense_blocks=dense,
-        launches_per_train_step={k: v / (epochs * steps)
-                                 for k, v in in_steps.items()},
-        wall_s=wall)
+        **probe.line(epochs * steps), wall_s=wall)
 
 
 def phase_cli(rec: dict) -> None:
@@ -1242,6 +1362,7 @@ def phase_cli(rec: dict) -> None:
     assert launches["bsr_spmm"] > 0 and launches["dia_spmm"] == 0, launches
     rec["bsr_spmm"]["launches"] = launches["bsr_spmm"]
     rec["bsr_spmm"]["launches_by_path"]["cli"] = launches["bsr_spmm"]
+    rec["_cli_run"] = line
     emit("cli", model="TGCN", rnn_units=UNITS, **line)
 
 
@@ -3024,78 +3145,174 @@ def phase_gptst_model(rec: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_gptst_cli(rec: dict) -> None:
-    """`run.main` in pretrain mode; the trained model is taken from the
-    Trainer, and the checkpoint must give a fresh GPT-ST the same
-    `encode` (rtol 1e-6, atol 1e-6: the same weights on the same card
-    repeat the same products)."""
+def run_gptst_cli(tmp: str, extra: tuple = ()):
+    """`run.main` in pretrain mode at PEMS08's 170 nodes, batch 64, 2
+    epochs across `change_epoch` 1, under `tmp`, with the arguments
+    `extra`; returns its phase line's fields (finite losses and
+    metrics, no `csrc/` launch) and the trainer."""
     import numpy as np
     import torch
 
     from gptst_tpu_torch.config.datasets import get_dataset_spec
     from gptst_tpu_torch.kernels.spmm import LAUNCHES, reset_launch_counts
-    from gptst_tpu_torch.models.gptst import GPTST, GPTSTConfig
     from gptst_tpu_torch.run import main
-    from gptst_tpu_torch.train.trainer import Trainer
-
-    trainers = []
-    train = Trainer.train
-
-    def keep(self, *args, **kw):
-        trainers.append(self)
-        return train(self, *args, **kw)
 
     epochs, num_steps = 2, 2000
+    assert get_dataset_spec("PEMS08").num_nodes == GPTST_CLI_NODES
+    data = write_pems08(tmp, GPTST_CLI_NODES, num_steps)
+    metrics = os.path.join(tmp, "metrics.json")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with TrainProbe(keep=True) as probe:
+        main(["-dataset", "PEMS08", "-mode", "pretrain", "-data_root",
+              data, "-batch_size", str(GPTST_CLI_BATCH),
+              "-epochs", str(epochs),
+              "-change_epoch", "1", "-lr_decay", "False", "-log_dir",
+              os.path.join(tmp, "save"), "-log_step", "1000",
+              "-metrics_out", metrics, *extra])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    with open(metrics) as f:
+        rep = json.load(f)
+    assert not any(launches.values()), launches   # dense einsums only
+    vals = np.asarray(rep["per_horizon"] + [rep["average"]], np.float64)
+    assert np.isfinite(vals).all() and np.isfinite(rep["history"]).all()
+    steps = rep["steps_per_epoch"]
+    peak = torch.cuda.max_memory_allocated()
+    (tr,) = probe.trainers
+    return dict(
+        nodes=GPTST_CLI_NODES, batch=GPTST_CLI_BATCH, epochs=epochs,
+        change_epoch=1, time_steps=num_steps, extra_args=list(extra),
+        steps_per_epoch=steps,
+        ms_per_step_by_epoch=[s / steps * 1e3 for s in rep["epoch_seconds"]],
+        samples_per_s_last_epoch=steps * GPTST_CLI_BATCH
+        / rep["epoch_seconds"][-1],
+        train_loss_by_epoch=rep["history"], best_loss=rep["best_loss"],
+        test_average=rep["average"], max_memory_allocated=peak,
+        held_before=held, peak_over_held=peak - held,
+        **probe.line(epochs * steps), wall_s=wall), tr
+
+
+def phase_gptst_cli(rec: dict) -> None:
+    """`run.main` in pretrain mode (`run_gptst_cli`); the trained model
+    is taken from the Trainer, and the checkpoint must give a fresh
+    GPT-ST the same `encode` (rtol 1e-6, atol 1e-6: the same weights
+    on the same card repeat the same products). `test_average` is the
+    report on the train split."""
+    import torch
+
+    from gptst_tpu_torch.models.gptst import GPTST, GPTSTConfig
+
     with tempfile.TemporaryDirectory() as tmp:
-        assert get_dataset_spec("PEMS08").num_nodes == GPTST_CLI_NODES
-        data = write_pems08(tmp, GPTST_CLI_NODES, num_steps)
-        metrics = os.path.join(tmp, "metrics.json")
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        Trainer.train = keep
-        t0 = time.perf_counter()
-        try:
-            main(["-dataset", "PEMS08", "-mode", "pretrain", "-data_root",
-                  data, "-batch_size", str(GPTST_CLI_BATCH),
-                  "-epochs", str(epochs),
-                  "-change_epoch", "1", "-lr_decay", "False", "-log_dir",
-                  os.path.join(tmp, "save"), "-log_step", "1000",
-                  "-metrics_out", metrics])
-            torch.cuda.synchronize()
-        finally:
-            Trainer.train = train
-        wall = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
-        (tr,) = trainers
+        line, tr = run_gptst_cli(tmp)
         ckpt = os.path.join(tmp, "save", "PEMS08", tr.cfg.save_pretrain_path)
         assert os.path.isfile(ckpt), ckpt
         fresh = GPTST(GPTSTConfig.from_framework(
             tr.cfg, tr.dataset.scaler_zeros)).cuda()
         fresh.load_state_dict(torch.load(ckpt, map_location="cuda",
                                          weights_only=True), strict=True)
-        with open(metrics) as f:
-            rep = json.load(f)
     x = torch.from_numpy(tr.dataset.x_train[:GPTST_CLI_BATCH]).cuda()
     with torch.no_grad():
         want = tr.model(x).pred
         got = fresh.encode(x)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-    assert not any(launches.values()), launches   # dense einsums only
-    vals = np.asarray(rep["per_horizon"] + [rep["average"]], np.float64)
-    assert np.isfinite(vals).all() and np.isfinite(rep["history"]).all()
-    steps = rep["steps_per_epoch"]
+    rec["_gptst_cli_run"] = line
     emit("gptst_cli", mode="pretrain", model_flag="STGCN (default, unread)",
-         nodes=GPTST_CLI_NODES, batch=GPTST_CLI_BATCH, epochs=epochs,
-         change_epoch=1, time_steps=num_steps, steps_per_epoch=steps,
-         ms_per_step_by_epoch=[s / steps * 1e3 for s in rep["epoch_seconds"]],
-         samples_per_s_last_epoch=steps * GPTST_CLI_BATCH
-         / rep["epoch_seconds"][-1],
-         train_flow_loss_by_epoch=rep["history"],
-         best_loss=rep["best_loss"], train_split_average=rep["average"],
-         checkpoint_keys=len(fresh.state_dict()),
-         encode_max_abs_err=float((got - want).abs().max()),
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         wall_s=wall)
+         **line, checkpoint_keys=len(fresh.state_dict()),
+         encode_max_abs_err=float((got - want).abs().max()))
+
+
+# the resident and the host path feed the same batch values; the runs
+# differ only by the order of atomic sums (`index_add_` of the COO tail
+# and of the gathers' backward), amplified through Adam: in `cli`'s
+# TGCN two host runs were up to 4.5e-6 apart, two resident runs 3.0e-6,
+# the paths 6.8e-6 (PERF.md, section 6); GPT-ST at 170 nodes was bitwise
+DEVICE_DATA_RTOL = 1e-4
+_KEPT = ("ms_per_step_by_epoch", "max_memory_allocated", "held_before",
+         "peak_over_held", "resident_split_bytes",
+         "h2d_copies_in_train_steps", "h2d_batch_copies_in_train_steps",
+         "h2d_bytes_in_train_steps", "train_loss_by_epoch", "best_loss",
+         "test_average", "wall_s")
+
+
+def device_data_pair(resident: list, host: list) -> dict:
+    """The resident and the host runs' fields side by side: epoch 2's
+    ms per step of the host path over the resident path's (their
+    means), and the largest relative gap of the losses, best loss and
+    test average between the paths, within each path where it ran twice
+    (`check_device_data` holds them)."""
+    import itertools
+
+    import numpy as np
+
+    def vals(a: dict):
+        return np.asarray(a["train_loss_by_epoch"] + [a["best_loss"]]
+                          + list(a["test_average"]), np.float64)
+
+    def gap(pairs) -> float | None:
+        return max((float((np.abs(vals(a) - vals(b)) / np.abs(vals(b))).max())
+                    for a, b in pairs), default=None)
+
+    def epoch2(runs) -> float:
+        return statistics.mean(r["ms_per_step_by_epoch"][-1] for r in runs)
+
+    return dict(
+        steps_per_epoch=resident[0]["steps_per_epoch"],
+        resident=[{k: r[k] for k in _KEPT} for r in resident],
+        host=[{k: h[k] for k in _KEPT} for h in host],
+        epoch2_ms_host_over_resident=epoch2(host) / epoch2(resident),
+        rel_gap_resident_host=gap(itertools.product(resident, host)),
+        rel_gap_host_host=gap(itertools.combinations(host, 2)),
+        rel_gap_resident_resident=gap(itertools.combinations(resident, 2)),
+        rtol=DEVICE_DATA_RTOL)
+
+
+def check_device_data(line: dict) -> None:
+    """`device_data_pair`'s line: the resident path holds its split and
+    copies no batch in its train steps; the counter sees the host
+    path's x and y of every step; the paths agree within the rtol."""
+    steps = 2 * line["steps_per_epoch"]
+    for r in line["resident"]:
+        assert r["resident_split_bytes"] > 0, r
+        assert r["h2d_batch_copies_in_train_steps"] == 0, r
+    for h in line["host"]:
+        assert h["resident_split_bytes"] == 0, h
+        assert h["h2d_batch_copies_in_train_steps"] == 2 * steps, h
+    assert line["rel_gap_resident_host"] <= line["rtol"], line
+
+
+def phase_device_data(rec: dict, abba: bool = False) -> None:
+    """`cli`'s TGCN run and `gptst_cli`'s pretrain run (made here where
+    those phases did not run) against a run of each with `-device_data
+    False` (`device_data_pair`). With `abba`, fresh runs of each model
+    in the order host, resident, resident, host."""
+    host = ("-device_data", "False")
+
+    def gptst(extra):
+        with tempfile.TemporaryDirectory() as tmp:
+            return run_gptst_cli(tmp, extra)[0]
+
+    for model, run, kept, kw in (
+            ("TGCN", lambda extra: run_cli("TGCN", BATCH, 600, extra=extra),
+             "_cli_run", dict(nodes=N_BIG, batch=BATCH, time_steps=600)),
+            ("GPT-ST pretrain", gptst, "_gptst_cli_run",
+             dict(nodes=GPTST_CLI_NODES, batch=GPTST_CLI_BATCH,
+                  time_steps=2000))):
+        earlier = rec.pop(kept, None)
+        if abba:
+            h1, r1, r2, h2 = (run(e) for e in (host, (), (), host))
+            resident, hosted = [r1, r2], [h1, h2]
+        else:
+            resident, hosted = [earlier or run(())], [run(host)]
+        line = device_data_pair(resident, hosted)
+        emit("device_data", model=model, order="host, resident, resident, "
+             "host" if abba else "resident (earlier phase), host",
+             **kw, **line)
+        check_device_data(line)
 
 
 def write_pems08(tmp: str, nodes: int, num_steps: int) -> str:

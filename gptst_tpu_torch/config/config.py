@@ -110,8 +110,8 @@ class FrameworkConfig:
     # graph artifacts under <root>/{STGODE,STFGNN,STMGCN_demand});
     # builders fall back to synthesis when files are absent
     data_root: str = "./data"
-    # keep the train split device-resident and gather batches on-device
-    # inside the scanned step (needs scan_steps > 1); the reference
+    # keep the train split device-resident and gather each batch on the
+    # device by index (needs scan_steps other than 1); the reference
     # keeps splits wholly on the GPU (`lib/dataloader.py:92-99`)
     device_data: bool = True
     # periodic resumable checkpoint every N epochs (0 = off); restored

@@ -11,10 +11,11 @@ preparation stage and a lightweight shuffled batch iterator. Steps
   5. fit per-channel-group std scalers on the *train split* only
   6. transform every split channel-wise
 
-The prepared arrays stay in host memory as numpy; batches are converted
-to device arrays by the trainer (one H2D per batch — on TPU the whole
-split would not fit HBM for large graphs, and this overlaps with
-compute via async dispatch).
+The prepared arrays stay in host memory as numpy. The trainer puts the
+train split on its device once and gathers each train batch there by
+the order `STDataset.order` gives (`train/trainer.py`); validation and
+test batches, and the train batches where the split stays on the host,
+are converted to device tensors one batch at a time.
 """
 
 from __future__ import annotations
@@ -112,13 +113,20 @@ class STDataset:
         x = getattr(self, f"x_{split}")
         y = getattr(self, f"y_{split}")
         n = x.shape[0]
-        idx = np.arange(n)
-        if shuffle:
-            np.random.default_rng(seed).shuffle(idx)
+        idx = self.order(split, shuffle, seed)
         stop = (n // batch_size) * batch_size if drop_last else n
         for s in range(0, stop, batch_size):
             sel = idx[s:s + batch_size]
             yield x[sel], y[sel]
+
+    def order(self, split: str, shuffle: bool = False,
+              seed: int = 0) -> np.ndarray:
+        """The window order `batches` walks: arange(n), shuffled in
+        place by `default_rng(seed)` with `shuffle`."""
+        idx = np.arange(getattr(self, f"x_{split}").shape[0])
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        return idx
 
     def num_batches(self, split: str, batch_size: int,
                     drop_last: bool = False) -> int:

@@ -6,7 +6,19 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     `np.random.default_rng(seed * 10_000 + epoch).shuffle(arange(n))`
     cut into consecutive `batch_size` slices, ragged tail last (the
     JAX trainer's indexed, scan-fused and host paths all give this
-    sequence, so `scan_steps` and `device_data` change nothing here);
+    sequence);
+  - the device-resident train split: with `cfg.device_data` and K
+    above 1 (K = `cfg.scan_steps`, 16 where it is 0: the defaults),
+    the train split's x and y are put on the trainer's device once, at
+    construction (`train_split`), and each step gathers its batch from
+    them with `index_select` by the epoch's order, copied to the device
+    once per epoch, so no train batch crosses from the host. Otherwise
+    (`scan_steps` 1, `device_data` False, or a split the device cannot
+    hold: a `torch.OutOfMemoryError` at placement, logged with the
+    split's bytes) every train batch is gathered on the host and
+    copied at its step. Both paths give the same batches, values and
+    order; validation and test always batch on the host. Unlike the
+    JAX trainer's K steps per dispatch, every step is one dispatch;
   - optimizer: `optax.chain(clip_by_global_norm(max_grad_norm),
     adam(schedule, eps=1e-8))`, written out (`ClippedAdam`), with the
     MultiStepLR milestones as a piecewise-constant schedule on the
@@ -261,6 +273,10 @@ class Trainer:
                                            self.cfg, forward)
         self.batch_seen = 0
         self._step_kw: dict = {}
+        k = 16 if self.cfg.scan_steps == 0 else self.cfg.scan_steps
+        # (x, y) of the train split on the device, or None: the host path
+        self.train_split = (self._place_split()
+                            if self.cfg.device_data and k > 1 else None)
 
     def _stat(self, v):
         """A scaler statistic: a float, or a tensor on the device for
@@ -269,17 +285,41 @@ class Trainer:
             return float(v)
         return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
+    def _put(self, arr) -> torch.Tensor:
+        """A numpy array copied to the device, or a tensor moved there
+        (no copy where it lies there already, as the resident split's
+        batches do)."""
+        if isinstance(arr, torch.Tensor):
+            return arr.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _place_split(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """The train split's (x, y) on the device (under a mesh, its
+        root: the data rows take their slices of each gathered batch
+        there); None, with a warning, where the device runs out of
+        memory. Any other error propagates."""
+        try:
+            return (self._put(self.dataset.x_train),
+                    self._put(self.dataset.y_train))
+        except torch.OutOfMemoryError:
+            if self.device.type == "cuda":    # x, if placed, is freed
+                torch.cuda.empty_cache()
+            self.logger.warning(
+                "The train split (%d bytes) does not fit on %s; its "
+                "batches go from the host",
+                self.dataset.x_train.nbytes + self.dataset.y_train.nbytes,
+                self.device)
+            return None
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     # --- epoch loops ----------------------------------------------------
-    def _train_batch(self, xb: np.ndarray, yb: np.ndarray):
-        """One optimizer step with the epoch's generator (and pretrain's
-        epoch), the predictor reading the batch's step count; returns
-        (total, flow) as device scalars."""
+    def _train_batch(self, xb, yb):
+        """One optimizer step on a batch (numpy from the host path,
+        tensors on the device from the resident split) with the epoch's
+        generator (and pretrain's epoch), the predictor reading the
+        batch's step count; returns (total, flow) as device scalars."""
         self.batch_seen += 1
         return train_step(self._loss_terms, self.optimizer, self._put(xb),
                           self._put(yb), next(self._step_counts),
@@ -293,11 +333,13 @@ class Trainer:
             generator=self._generator(self.seed * 10_000 + epoch))
         if self.pretrain:
             self._step_kw["epoch"] = epoch
-        it = self.dataset.batches("train", self.cfg.batch_size, shuffle=True,
-                                  seed=self.seed * 10_000 + epoch)
+        it = self._train_batches(self.seed * 10_000 + epoch)
+        # the counts of the JAX trainer's path: indexed where the split
+        # is resident (it too falls back where the split does not fit)
         self._step_counts = iter(jax_step_counts(
             self.dataset.x_train.shape[0], self.cfg.batch_size,
-            self.cfg.scan_steps, self.cfg.device_data, self.batch_seen))
+            self.cfg.scan_steps, self.train_split is not None,
+            self.batch_seen))
         # losses stay on the device until the epoch ends: one sync
         steps = [self._train_batch(xb, yb) for xb, yb in it]
         totals, flows = torch.stack([torch.stack(s) for s in steps]).T.tolist()
@@ -307,6 +349,19 @@ class Trainer:
                                  epoch, i, self.steps_per_epoch, loss)
         losses = flows if self.pretrain else totals
         return sum(losses) / max(len(losses), 1)
+
+    def _train_batches(self, seed: int):
+        """The epoch's train batches in the dataset's shuffled order:
+        gathered by `index_select` from the resident split (the order
+        copied to the device once), else the host's numpy batches."""
+        bs = self.cfg.batch_size
+        if self.train_split is None:
+            return self.dataset.batches("train", bs, shuffle=True, seed=seed)
+        x, y = self.train_split
+        order = torch.from_numpy(self.dataset.order(
+            "train", shuffle=True, seed=seed)).to(self.device)
+        return ((x.index_select(0, sel), y.index_select(0, sel))
+                for sel in order.split(bs))
 
     @torch.no_grad()
     def val_epoch(self, epoch: int, split: str = "val") -> float:

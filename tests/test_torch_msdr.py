@@ -114,13 +114,15 @@ def _perturb(tree, seed):
 
 @functools.lru_cache
 def _random_params(remat="none", seed=1):
-    """A JAX MSDR and a flax tree of nonzero random weights."""
-    x, _ = _inputs()
-    jsups, jp, _, _ = _graph(False)
+    """A JAX MSDR and a flax tree of nonzero random weights: the port's
+    init in JAX's layout (a JAX init runs the interpreted kernels op by
+    op), perturbed."""
     model = JMSDR(cfg=JMSDRConfig(**CFG, remat=remat), dim_in=1, dim_out=1,
                   horizon=T)
-    return model, _perturb(
-        model.init(jax.random.PRNGKey(0), jnp.asarray(x), jsups, jp), seed)
+    net = MSDR(MSDRConfig(**CFG, remat=remat), dim_in=1, dim_out=1,
+               generator=torch.Generator().manual_seed(0))
+    return model, _perturb(state_dict_to_flax(
+        net.state_dict(), chunked=remat == "full"), seed)
 
 
 def _torch_net(params, remat="none"):
@@ -133,8 +135,13 @@ def _torch_net(params, remat="none"):
 def test_convert_round_trips(remat):
     """Both flax layouts: cells at encoder/cell{i}, and one level deeper
     at encoder/seg/cell{i} under chunked remat."""
-    _, params = _random_params(remat)
+    model, params = _random_params(remat)
     assert ("seg" in params["params"]["encoder"]) == (remat == "full")
+    x, _ = _inputs()
+    jsups, jp, _, _ = _graph(False)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x), jsups, jp)
+    assert jax.tree.map(np.shape, shapes) == jax.tree.map(np.shape, params)
     back = state_dict_to_flax(flax_to_state_dict(params),
                               chunked=remat == "full")
     flat, tree = jax.tree_util.tree_flatten(params)
@@ -226,8 +233,12 @@ def test_ori_msdr_trajectory_matches_jax_sparse(monkeypatch):
     monkeypatch.setattr(tbuild, "msdr_adapt_pattern",
                         lambda m, n, device: _tile16_patterns(m, n)[1])
     jcfg = jax_default_config("PEMS08", **TRAIN, scan_steps=1)
-    init_fn, forward = jbuild.build_model(jcfg)
-    params = _perturb(init_fn(jax.random.PRNGKey(jcfg.seed)), 4)
+    _, forward = jbuild.build_model(jcfg)
+    cfg = default_config("PEMS08", **TRAIN)
+    model = tbuild.build_model(cfg, device="cpu")
+    # the port's init carried over (a JAX init runs the interpreted
+    # kernels op by op), perturbed
+    params = _perturb(state_dict_to_flax(model.predictor.net.state_dict()), 4)
     tr = JTrainer(forward=forward, params=params, cfg=jcfg,
                   dataset=jax_build_dataset(jcfg, num_steps=160,
                                             seed=jcfg.seed),
@@ -243,10 +254,7 @@ def test_ori_msdr_trajectory_matches_jax_sparse(monkeypatch):
     tr._run_chunk = recording_chunk
     jres = tr.train()
 
-    cfg = default_config("PEMS08", **TRAIN)
-    model = tbuild.build_model(cfg, device="cpu")
-    model.predictor.net.load_state_dict(flax_to_state_dict(
-        jax.tree.map(np.asarray, params)))
+    model.predictor.net.load_state_dict(flax_to_state_dict(params))
     ttr = Trainer(model=model, cfg=cfg, seed=cfg.seed, device="cpu",
                   dataset=build_dataset(cfg, num_steps=160, seed=cfg.seed))
     tlosses = []

@@ -168,7 +168,8 @@ def jax_stgcn():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((B, 12, N, 40)).astype(np.float32)
     g = rng.standard_normal((B, 12, N, 1)).astype(np.float32)
-    params = _noisy(model.init(jax.random.PRNGKey(0), jnp.asarray(x), cheb))
+    params = _noisy(jax.jit(model.init)(jax.random.PRNGKey(0),
+                                        jnp.asarray(x), cheb))
 
     @jax.jit
     def vg(p, x):

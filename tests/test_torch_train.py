@@ -161,15 +161,15 @@ def test_bf16_loss_and_grads_match_jax(monkeypatch):
     kw = dict(CFG, compute_dtype="bfloat16")
     jcfg = jax_default_config("PEMS08", **kw)
     init_fn, forward = jbuild.build_model(jcfg)
-    params = init_fn(jax.random.PRNGKey(0))
+    params = jax.jit(init_fn)(jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     x = rng.standard_normal((4, 12, 20, 3)).astype(np.float32)
     y = rng.standard_normal((4, 12, 20, 3)).astype(np.float32)
     jterms = jmake_loss_terms(
         forward, jbuild_loss("mask_mae", 50.0, 10.0, None, False), jcfg)
-    (jloss, _), jgrads = jax.value_and_grad(
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jterms(p, jnp.asarray(x), jnp.asarray(y), None, 1, 0),
-        has_aux=True)(params)
+        has_aux=True))(params)
 
     cfg = default_config("PEMS08", **kw)
     model = tbuild.build_model(cfg, device="cpu")
