@@ -7,6 +7,7 @@
     python3 chip_phases.py final_predictors_graph
     python3 chip_phases.py build distributed
     python3 chip_phases.py build device_data_abba
+    python3 chip_phases.py build step_graph
     python3 chip_phases.py build cards      # with 2+ cards
 
 Each name is a phase of `chip_smoke.PHASES`, run in the order given,

@@ -168,7 +168,7 @@ Phases, one JSON line each; any failure exits non-zero:
              the trainer's device-resident train split (the default:
              `device_data` True, `scan_steps` 0) against the host path
              (`-device_data False`): `cli`'s TGCN run (16,384 nodes,
-             batch 16, 600 time steps, 2 epochs) and `gptst_cli`'s
+             batch 16, 480 time steps, 2 epochs) and `gptst_cli`'s
              pretrain run (170 nodes, batch 64), each run again on the
              host path. For both paths: ms per step by epoch, the peak
              over what the run found allocated, the split's bytes on the
@@ -179,7 +179,26 @@ Phases, one JSON line each; any failure exits non-zero:
              averages must agree within `DEVICE_DATA_RTOL`.
              `chip_phases.py device_data_abba` runs each model's paths
              afresh in the order host, resident, resident, host.
-  eval_cli   the main path: `run.main` at 16,384 nodes from a 600-step
+  step_graph the trainer's K steps per dispatch (`train/step.StepGraph`,
+             K = 4 here): trainers built as `run.main` builds them take
+             2 epochs of 2 K + 2 steps with each chunk of K full batches
+             replayed from one captured CUDA graph of the train step,
+             and again with the same step body run eagerly on the card,
+             from the same weights and generator seeds; every step's
+             losses and the final parameters agree within rtol 1e-5
+             (1e-4 where the COO tail's atomics sum), bitwise equality
+             reported. TGCN at 16,384 nodes, batch 16, on the CLI graph
+             (`bsr_spmm`) and on the road graph (`dia_spmm`), each
+             kernel launched inside the captured step and counted at
+             every replay; GPT-ST pretrain at 170 nodes, batch 64,
+             across `change_epoch` (two captures); eval STGCN at 170
+             nodes; the 13 predictors `-mode ori` at their CLI sizes
+             (170 / 250 nodes, batch 64). For both paths: ms and host ms
+             per step over the last epoch's runner steps, peak allocated
+             and reserved over what was held, captures, kernel launches
+             per step. The CLI phases above and below run graphed too
+             (K = 16, the default).
+  eval_cli   the main path: `run.main` at 16,384 nodes from a 480-step
              PEMS08.npz, `-mode pretrain` (batch 8, 1 epoch), then
              `-mode eval -model TGCN` (frozen encoder, Fusion head,
              TGCN at dim_in 64; batch 16, 2 epochs, under
@@ -287,7 +306,7 @@ PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "data_parallel", "gptst_graph", "predictors_graph",
           "last_predictors_graph", "final_predictors_graph",
           "distributed", "gptst_model",
-          "gptst_cli", "device_data", "eval_cli",
+          "gptst_cli", "device_data", "step_graph", "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
           "predictors_cli", "graph_predictors_cli", "graph_predictors_model",
           "last_predictors_cli", "last_predictors_model", "profile",
@@ -320,6 +339,10 @@ ADAPT_RANK = 10
 # batch 8, and the CLI at PEMS08's own 170 nodes and batch 64
 GPTST_BATCH = 8
 GPTST_CLI_NODES, GPTST_CLI_BATCH = 170, 64
+# time steps of the 16,384-node CLI runs: the fewest that leave 16 full
+# train batches (TGCN at batch 16: 265 windows; MSDR at batch 8: 133),
+# so the default K = 16 replays one chunk an epoch besides the tail
+CLI_TIME_STEPS, MSDR_TIME_STEPS = 480, 260
 
 # rtol of a bf16 output: a different summation order may flip the
 # final rounding by one bf16 ulp (2^-8 relative, up to 2^-7 of the
@@ -1242,12 +1265,13 @@ class HostCopies:
 
 
 class TrainProbe:
-    """Watches `Trainer`'s train steps while entered: the kernels'
-    launches inside them (`in_steps`), the host-to-device copies inside
-    them (`copies`, a `HostCopies`) and the bytes of each trainer's
-    resident train split (`split_bytes`, 0 on the host path). With
-    `keep` it also keeps each trainer (`trainers`); without, the split
-    is freed with the run."""
+    """Watches `Trainer`'s train steps while entered (`_train_batch`,
+    one step, and `_train_steps`, a chunk through `StepGraph`): the
+    kernels' launches inside them (`in_steps`, replays included), the
+    host-to-device copies inside them (`copies`, a `HostCopies`) and
+    the bytes of each trainer's resident train split (`split_bytes`, 0
+    on the host path). With `keep` it also keeps each trainer
+    (`trainers`); without, the split is freed with the run."""
 
     def __init__(self, keep: bool = False):
         self.keep = keep
@@ -1260,18 +1284,21 @@ class TrainProbe:
         self.in_steps = dict.fromkeys(LAUNCHES, 0)
         self.split_bytes: list[int] = []
         self.copies = HostCopies().__enter__()
-        self._saved = (Trainer._train_batch, Trainer.train)
-        train_batch, train = self._saved
+        self._saved = (Trainer._train_batch, Trainer._train_steps,
+                       Trainer.train)
+        train_batch, train_steps, train = self._saved
 
-        def counted(tr, *args):
-            before = dict(LAUNCHES)
-            self.copies.active = True
-            try:
-                return train_batch(tr, *args)
-            finally:
-                self.copies.active = False
-                for k in self.in_steps:
-                    self.in_steps[k] += LAUNCHES[k] - before[k]
+        def counting(fn):
+            def counted(tr, *args):
+                before = dict(LAUNCHES)
+                self.copies.active = True
+                try:
+                    return fn(tr, *args)
+                finally:
+                    self.copies.active = False
+                    for k in self.in_steps:
+                        self.in_steps[k] += LAUNCHES[k] - before[k]
+            return counted
 
         def keep(tr, *args, **kw):
             self.split_bytes.append(sum(
@@ -1280,13 +1307,15 @@ class TrainProbe:
                 self.trainers.append(tr)
             return train(tr, *args, **kw)
 
-        Trainer._train_batch, Trainer.train = counted, keep
+        Trainer._train_batch, Trainer._train_steps, Trainer.train = (
+            counting(train_batch), counting(train_steps), keep)
         return self
 
     def __exit__(self, *exc) -> None:
         from gptst_tpu_torch.train.trainer import Trainer
 
-        Trainer._train_batch, Trainer.train = self._saved
+        (Trainer._train_batch, Trainer._train_steps,
+         Trainer.train) = self._saved
         self.copies.__exit__(*exc)
 
     def line(self, steps: int) -> dict:
@@ -1357,7 +1386,7 @@ def run_cli(model: str, batch: int, num_steps: int, epochs: int = 2,
 
 
 def phase_cli(rec: dict) -> None:
-    line = run_cli("TGCN", BATCH, num_steps=600)
+    line = run_cli("TGCN", BATCH, num_steps=CLI_TIME_STEPS)
     launches = line["launches"]
     assert launches["bsr_spmm"] > 0 and launches["dia_spmm"] == 0, launches
     rec["bsr_spmm"]["launches"] = launches["bsr_spmm"]
@@ -1367,7 +1396,7 @@ def phase_cli(rec: dict) -> None:
 
 
 def phase_msdr_cli(rec: dict) -> None:
-    line = run_cli("MSDR", MSDR_BATCH, num_steps=300)
+    line = run_cli("MSDR", MSDR_BATCH, num_steps=MSDR_TIME_STEPS)
     launches = line["launches"]
     for k in ("bsr_spmm", "sddmm", "spmm_dvals"):
         assert launches[k] > 0, launches
@@ -3278,7 +3307,8 @@ def check_device_data(line: dict) -> None:
     steps = 2 * line["steps_per_epoch"]
     for r in line["resident"]:
         assert r["resident_split_bytes"] > 0, r
-        assert r["h2d_batch_copies_in_train_steps"] == 0, r
+        # no copy at all: GPT-ST's per-step 8-byte copy is gone too
+        assert r["h2d_copies_in_train_steps"] == 0, r
     for h in line["host"]:
         assert h["resident_split_bytes"] == 0, h
         assert h["h2d_batch_copies_in_train_steps"] == 2 * steps, h
@@ -3297,8 +3327,10 @@ def phase_device_data(rec: dict, abba: bool = False) -> None:
             return run_gptst_cli(tmp, extra)[0]
 
     for model, run, kept, kw in (
-            ("TGCN", lambda extra: run_cli("TGCN", BATCH, 600, extra=extra),
-             "_cli_run", dict(nodes=N_BIG, batch=BATCH, time_steps=600)),
+            ("TGCN", lambda extra: run_cli("TGCN", BATCH, CLI_TIME_STEPS,
+                                           extra=extra),
+             "_cli_run", dict(nodes=N_BIG, batch=BATCH,
+                              time_steps=CLI_TIME_STEPS)),
             ("GPT-ST pretrain", gptst, "_gptst_cli_run",
              dict(nodes=GPTST_CLI_NODES, batch=GPTST_CLI_BATCH,
                   time_steps=2000))):
@@ -3313,6 +3345,283 @@ def phase_device_data(rec: dict, abba: bool = False) -> None:
              "host" if abba else "resident (earlier phase), host",
              **kw, **line)
         check_device_data(line)
+
+
+# K of the step_graph phase's trainers: 2 K full batches (two chunks
+# of replays), then a full batch and a ragged tail (one step each)
+STEP_GRAPH_K = 4
+STEP_GRAPH_EPOCHS = 2
+# replays against eager steps on the card: the same kernels in the same
+# order, unless a library picks another algorithm under capture; where
+# `index_add_`'s atomics sum (the COO tail), as `device_data`
+STEP_GRAPH_RTOL = 1e-5
+STEP_GRAPH_ATOMIC_RTOL = DEVICE_DATA_RTOL
+STEP_GRAPH_PREDICTORS = (
+    ("STGCN", "PEMS08"), ("TGCN", "PEMS08"), ("MSDR", "PEMS08"),
+    ("GWN", "PEMS08"), ("MTGNN", "PEMS08"), ("CCRNN", "NYC_BIKE"),
+    ("STMGCN", "NYC_BIKE"), ("ASTGCN", "PEMS08"), ("STSGCN", "PEMS08"),
+    ("STFGNN", "PEMS08"), ("STGODE", "PEMS08"), ("ST_WA", "PEMS08"),
+    ("DMVSTNET", "NYC_BIKE"))
+
+
+class RunnerProbe:
+    """While entered, every `train/step.StepGraph` made is kept
+    (`runners`) and each of its `run` calls is measured (`calls`): the
+    card synchronized before it, the host seconds until it returns, the
+    wall seconds until the card has run it, and the kernel launches it
+    counted (through its replays). With `eager`, the runners take their
+    steps eagerly on the card (`capture` False): the reference the
+    replays are held against."""
+
+    def __init__(self, eager: bool = False):
+        self.eager = eager
+        self.runners: list = []
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        import torch
+
+        from gptst_tpu_torch.kernels.spmm import LAUNCHES
+        from gptst_tpu_torch.train.step import StepGraph
+
+        self._saved = (StepGraph.__init__, StepGraph.run)
+        init, run = self._saved
+
+        def made(rn, *args, **kw):
+            init(rn, *args, **kw)
+            rn.capture = rn.capture and not self.eager
+            self.runners.append(rn)
+
+        def measured(rn, steps, key, feed=None):
+            torch.cuda.synchronize()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            run(rn, steps, key, feed)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            self.calls.append(dict(
+                steps=steps, host_s=host, wall_s=time.perf_counter() - t0,
+                launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+
+        StepGraph.__init__, StepGraph.run = made, measured
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from gptst_tpu_torch.train.step import StepGraph
+
+        StepGraph.__init__, StepGraph.run = self._saved
+
+
+def cli_trainer(argv: list[str], windows: int, model=None):
+    """The one-card `Trainer` that `run.main(argv)` builds (dataset,
+    model from the seed, config), its train split cut to `windows`;
+    `model` in place of the built one. In eval mode the frozen GPT-ST
+    is `build_pretrain`'s random init."""
+    from gptst_tpu_torch.data import build_dataset
+    from gptst_tpu_torch.models.build import build_model, build_pretrain
+    from gptst_tpu_torch.run import make_config, parse_args
+    from gptst_tpu_torch.train import Trainer
+
+    ns = parse_args(argv)
+    cfg = make_config(ns)
+    ds = build_dataset(cfg, data_root=cfg.data_root, num_steps=ns.num_steps,
+                       seed=cfg.seed)
+    assert ds.x_train.shape[0] >= windows, ds.x_train.shape
+    ds.x_train, ds.y_train = ds.x_train[:windows], ds.y_train[:windows]
+    if model is None:
+        pretrain = None
+        if cfg.mode == "eval":
+            pretrain = build_pretrain(cfg.replace(mode="pretrain"),
+                                      device="cuda", seed=cfg.seed).gptst
+        model = build_model(cfg, device="cuda", seed=cfg.seed,
+                            scaler_zeros=ds.scaler_zeros,
+                            pretrain_params=pretrain)
+    return Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
+                   device="cuda")
+
+
+def step_graph_run(make, eager: bool) -> tuple[dict, object, dict]:
+    """`STEP_GRAPH_EPOCHS` train epochs of the trainer `make()` builds:
+    graphed (the default on the card) or, with `eager`, the same step
+    body eagerly. Returns the line's fields (ms and host ms per step
+    over the last epoch's runner steps, which hold pretrain's warm-up
+    and capture, and over its last chunk, replays only; kernel launches
+    per step; peak allocated and reserved over what was held, captures),
+    the per-step losses (epochs, steps, 2) and the parameters."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    held_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    with RunnerProbe(eager) as probe:
+        tr = make()
+        losses = []
+        for epoch in range(1, STEP_GRAPH_EPOCHS + 1):
+            tr.train_epoch(epoch)
+            losses.append(tr._losses.clone())
+        tr.release_graph()
+    torch.cuda.synchronize()
+    (runner,) = probe.runners
+    last = probe.calls[len(probe.calls) // STEP_GRAPH_EPOCHS
+                       * (STEP_GRAPH_EPOCHS - 1):]
+    steps, chunk = sum(c["steps"] for c in last), probe.calls[-1]
+    line = dict(
+        runner_steps_last_epoch=steps,
+        ms_per_step=sum(c["wall_s"] for c in last) / steps * 1e3,
+        host_ms_per_step=sum(c["host_s"] for c in last) / steps * 1e3,
+        # the last chunk: replays only, also where the epoch captured
+        ms_per_step_last_chunk=chunk["wall_s"] / chunk["steps"] * 1e3,
+        host_ms_per_step_last_chunk=chunk["host_s"] / chunk["steps"] * 1e3,
+        peak_over_held=torch.cuda.max_memory_allocated() - held,
+        reserved_peak_over_held=torch.cuda.max_memory_reserved()
+        - held_reserved,
+        captures=runner.captures,
+        launches_per_step={k: sum(c["launches"][k] for c in last) / steps
+                           for k in last[0]["launches"]},
+        captured_step_launches=dict(runner.launches))
+    assert runner.graph is None           # released: its pool is freed
+    params = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
+    del tr, probe, runner
+    return line, torch.stack(losses), params
+
+
+def step_graph_case(name: str, make, rtol: float) -> dict:
+    """`make()`'s trainer graphed against the same trainer's step body
+    eagerly on the card, from the same weights and generator seeds:
+    every step's losses within `rtol` and every parameter within `rtol`
+    with an atol of `rtol` of its tensor's largest entry (bitwise
+    equality reported where it holds)."""
+    import torch
+
+    eager, want_l, want_p = step_graph_run(make, eager=True)
+    graphed, got_l, got_p = step_graph_run(make, eager=False)
+    assert torch.isfinite(got_l).all(), (name, got_l)
+    assert graphed["captures"] >= 1 and eager["captures"] == 0, name
+    torch.testing.assert_close(got_l, want_l, rtol=rtol, atol=0)
+    gaps = {}
+    for k, w in want_p.items():
+        scale = float(w.abs().max())
+        torch.testing.assert_close(got_p[k], w, rtol=rtol,
+                                   atol=rtol * scale,
+                                   msg=lambda m: f"{k}: {m}")
+        gaps[k] = float((got_p[k] - w).abs().max()) / max(scale, 1e-30)
+    rel = (got_l - want_l).abs() / want_l.abs().clamp_min(1e-30)
+    return dict(
+        case=name, steps_per_epoch=got_l.shape[1], rtol=rtol,
+        losses_bitwise_equal=bool(torch.equal(got_l, want_l)),
+        params_bitwise_equal=all(torch.equal(got_p[k], w)
+                                 for k, w in want_p.items()),
+        loss_max_rel_gap=float(rel.max()),
+        param_max_gap_of_scale=max(gaps.values()),
+        graphed=graphed, eager=eager,
+        eager_over_graphed_ms=eager["ms_per_step"] / graphed["ms_per_step"],
+        eager_over_graphed_ms_last_chunk=eager["ms_per_step_last_chunk"]
+        / graphed["ms_per_step_last_chunk"])
+
+
+def step_graph_cases(rec: dict, tmp: str) -> list[tuple]:
+    """The step_graph phase's cases, (name, make, rtol, kernel): `make()`
+    builds the case's trainer; `kernel`, where not None, must launch
+    inside the captured step. Data goes under `tmp`."""
+    k = STEP_GRAPH_K
+    data = {"PEMS08": ["-dataset", "PEMS08", "-data_root", write_pems08(
+                tmp, GPTST_CLI_NODES, 1400)],
+            "NYC_BIKE": ["-dataset", "NYC_BIKE", "-num_steps", "1400"]}
+    big = ["-dataset", "PEMS08", "-num_nodes", str(N_BIG), "-data_root",
+           write_pems08(os.path.join(tmp, "big"), N_BIG, 400)]
+
+    def cli(dataset_args, mode, model, batch, net=None):
+        argv = [*dataset_args, "-mode", mode, "-model", model,
+                "-batch_size", str(batch), "-epochs", str(STEP_GRAPH_EPOCHS),
+                "-change_epoch", "1", "-lr_decay", "False", "-scan_steps",
+                str(k), "-log_step", "1000"]
+        # 2 K + 1 full batches and a ragged tail
+        windows = batch * (2 * k + 1) + batch // 4
+        return lambda: cli_trainer(argv, windows,
+                                   model=net() if net else None)
+
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
+    from gptst_tpu_torch.ops.graph_conv import make_support
+
+    sups = rec["_supports"]
+    if "cli_graph" not in sups:       # the graph `run.main` builds
+        sups["cli_graph"] = make_support(sym_adj(random_sensor_graph(
+            N_BIG, avg_degree=6, seed=0)), device="cuda")
+    if "road_graph" not in sups:
+        sups["road_graph"] = road_support(N_BIG, 48, "cuda")
+    cli_sup, road = sups["cli_graph"], sups["road_graph"]
+    return [
+        ("TGCN, CLI graph, 16,384 nodes",
+         cli(big, "ori", "TGCN", BATCH,
+             lambda: bind("TGCN", tgcn_net(), (cli_sup,))),
+         STEP_GRAPH_ATOMIC_RTOL, "bsr_spmm"),
+        ("TGCN, road graph, 16,384 nodes",
+         cli(big, "ori", "TGCN", BATCH,
+             lambda: bind("TGCN", tgcn_net(), (road,))),
+         STEP_GRAPH_ATOMIC_RTOL, "dia_spmm"),
+        ("GPT-ST pretrain, 170 nodes",
+         cli(data["PEMS08"], "pretrain", "STGCN", GPTST_CLI_BATCH),
+         STEP_GRAPH_RTOL, None),
+        ("eval STGCN, 170 nodes",
+         cli(data["PEMS08"], "eval", "STGCN", GPTST_CLI_BATCH),
+         STEP_GRAPH_RTOL, None),
+    ] + [(f"{m} ori, {ds}", cli(data[ds], "ori", m, GPTST_CLI_BATCH),
+          STEP_GRAPH_RTOL, None) for m, ds in STEP_GRAPH_PREDICTORS]
+
+
+def step_graph_line(rec: dict, name: str, make, rtol: float,
+                    kernel: str | None) -> dict:
+    """One case of the phase (`step_graph_case`), with its kernel's
+    launches inside the captured step checked and recorded."""
+    t0 = time.perf_counter()
+    line = step_graph_case(name, make, rtol)
+    line["seconds"] = time.perf_counter() - t0
+    if kernel is not None:
+        # the kernel ran inside the captured step, counted at each replay
+        assert line["graphed"]["captured_step_launches"][kernel] > 0, line
+        rec[kernel]["launches_by_path"][f"step_graph {name}"] = line[
+            "graphed"]["launches_per_step"][kernel]
+    return line
+
+
+def phase_step_graph(rec: dict) -> None:
+    """The trainer's K steps per dispatch (`train/step.StepGraph`, K =
+    `STEP_GRAPH_K`): each case's trainer (`step_graph_cases`), as
+    `run.main` builds it on the card, takes 2 epochs of 2 K + 2 steps
+    graphed (two chunks of K full batches replayed from one captured
+    step, then a full batch and a ragged tail one step each) and again
+    with the same step body run eagerly, from the same weights
+    (`step_graph_case`). Cases: TGCN at 16,384 nodes, batch 16, on the
+    CLI graph (`bsr_spmm` and the COO tail inside the captured step)
+    and on the road graph (`dia_spmm`); GPT-ST pretrain at 170 nodes,
+    batch 64, across `change_epoch` 1 (two captures); eval STGCN at 170
+    nodes with the frozen encoder; each of the 13 predictors `-mode
+    ori` at its CLI size (PEMS08 170 nodes, NYC_BIKE 250), batch 64.
+    The work runs in a fresh directory (STFGNN's and STGODE's DTW
+    graphs are cached there)."""
+    import torch
+
+    cwd = os.getcwd()
+    lines = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            work = os.path.join(tmp, "run", "work")
+            os.makedirs(work)
+            os.chdir(work)
+            for case in step_graph_cases(rec, tmp):
+                line = step_graph_line(rec, *case)
+                emit("step_graph", **line)
+                lines.append(line)
+                torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    emit("step_graph", k=STEP_GRAPH_K, epochs=STEP_GRAPH_EPOCHS,
+         cases=len(lines),
+         bitwise_equal=[ln["case"] for ln in lines
+                        if ln["losses_bitwise_equal"]
+                        and ln["params_bitwise_equal"]])
 
 
 def write_pems08(tmp: str, nodes: int, num_steps: int) -> str:
@@ -3387,7 +3696,7 @@ def phase_eval_cli(rec: dict) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         save = os.path.join(tmp, "save")
         common = ["-dataset", "PEMS08", "-num_nodes", str(N_BIG),
-                  "-data_root", write_pems08(tmp, N_BIG, 600),
+                  "-data_root", write_pems08(tmp, N_BIG, CLI_TIME_STEPS),
                   "-lr_decay", "False", "-early_stop", "False",
                   "-log_dir", save, "-log_step", "1000"]
         pretrain_s = run_main(["-mode", "pretrain", "-batch_size", "8",
@@ -3439,7 +3748,7 @@ def phase_eval_cli(rec: dict) -> None:
     rec["bsr_spmm"]["launches"] = launches["bsr_spmm"]
     rec["bsr_spmm"]["launches_by_path"]["eval_cli"] = launches["bsr_spmm"]
     emit("eval_cli", model="TGCN", nodes=N_BIG, batch=BATCH, epochs=2,
-         hidden_dim=HIDDEN, rnn_units=UNITS, time_steps=600,
+         hidden_dim=HIDDEN, rnn_units=UNITS, time_steps=CLI_TIME_STEPS,
          steps_per_epoch=steps,
          ms_per_step_by_epoch=[s / steps * 1e3 for s in ev["epoch_seconds"]],
          samples_per_s_epoch2=steps * BATCH / ev["epoch_seconds"][-1],

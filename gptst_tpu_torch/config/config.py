@@ -96,12 +96,17 @@ class FrameworkConfig:
     # "default" under the bf16 throughput mode. Any explicit jax
     # precision name ("default"|"high"|"highest") overrides.
     matmul_precision: str = "auto"
-    # optimizer steps fused into one dispatch via lax.scan (1 = off);
-    # amortizes host->device dispatch latency (~10x at reference scale).
-    # 0 = auto (the default): the trainer uses 16 — the benched fast
-    # path — falling back to per-batch dispatch only where fusion can't
-    # apply (ragged tails fuse at their own width; the device-resident
-    # indexed gather additionally needs the split to fit in HBM)
+    # K, the optimizer steps per dispatch (1 = off): on one card each
+    # chunk of K full batches is replayed from one CUDA graph of the
+    # train step (`train/step.StepGraph`), with no kernel launched from
+    # Python between its steps. 0 = auto (the default): 16. A chunk of
+    # one, a chunk holding the ragged tail and every step under a mesh
+    # take one step at a time; the device-resident split additionally
+    # needs the split to fit on the card. The graph's memory pool stays
+    # reserved, so a one-step batch beside it takes a second step's
+    # memory; where the card has not that much free, the graph is
+    # dropped before it and captured again at the next chunk (1 keeps
+    # every step eager, in one step's memory)
     scan_steps: int = 0
     # root of reference-format conf/<MODEL>/<DATASET>.conf predictor
     # configs; empty = use the built-in dataclass defaults

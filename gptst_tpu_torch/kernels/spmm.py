@@ -26,12 +26,13 @@ package's, including the 8 zero pad blocks `_pad_chunk` appends (the
 TPU kernels over-read in chunks; the CUDA kernels never multiply them).
 
 Each kernel wrapper runs its kernel on CUDA tensors, counts the launch
-in `LAUNCHES`, and raises on anything the kernel does not take; it
-takes the plain PyTorch version (`*_plain`, same module) only for
-tensors on the CPU. The autograd functions follow the JAX custom VJPs:
-dX is the same kernel on the transposed structure; no gradient flows
-into a constant band or COO tail; d block_vals is computed only when
-asked for.
+in `LAUNCHES` (inside a CUDA graph's capture, in the graph's tally,
+counted at each replay: `capture_launches`), and raises on anything the
+kernel does not take; it takes the plain PyTorch version (`*_plain`,
+same module) only for tensors on the CPU. The autograd functions
+follow the JAX custom VJPs: dX is the same kernel on the transposed
+structure; no gradient flows into a constant band or COO tail; d
+block_vals is computed only when asked for.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ LAUNCHES = {"bsr_spmm": 0, "dia_spmm": 0, "sddmm": 0, "spmm_dvals": 0,
 # concurrently: the data rows of `parallel/spmd.py`)
 _COUNT_LOCK = threading.Lock()
 _TALLY = threading.local()
+# the launches recorded into the CUDA graph being captured, or None
+_CAPTURED: dict[str, int] | None = None
 # per (kernel, device): an int32 tensor on the device that the block
 # kernels add one to for each (CUDA block, stored block) pair that ran
 # densely; read by `dense_block_counts()` only, never on the main path
@@ -85,12 +88,47 @@ def tally_launches(counts: dict[str, int]):
 
 def count_launch(name: str) -> None:
     """Add one launch of kernel `name`, to `LAUNCHES` and to the
-    calling thread's tally."""
+    calling thread's tally; while a CUDA graph is being captured
+    (`capture_launches`), to the graph's tally alone, which each replay
+    adds (`replay_launches`)."""
     with _COUNT_LOCK:
-        LAUNCHES[name] += 1
-        counts = getattr(_TALLY, "counts", None)
-        if counts is not None:
-            counts[name] = counts.get(name, 0) + 1
+        if _CAPTURED is not None:
+            _CAPTURED[name] = _CAPTURED.get(name, 0) + 1
+            return
+        _add_launches({name: 1})
+
+
+def _add_launches(counts: dict[str, int]) -> None:
+    tally = getattr(_TALLY, "counts", None)
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Within the block a CUDA graph is being captured: the wrappers'
+    launches (from any thread: the backward's run in autograd's) go
+    into the dict yielded, not into `LAUNCHES`, since nothing runs on
+    the card until the graph is replayed."""
+    global _CAPTURED
+    with _COUNT_LOCK:
+        if _CAPTURED is not None:
+            raise RuntimeError("a CUDA graph is already being captured")
+        _CAPTURED = counts = {}
+    try:
+        yield counts
+    finally:
+        with _COUNT_LOCK:
+            _CAPTURED = None
+
+
+def replay_launches(counts: dict[str, int]) -> None:
+    """Count one replay of a graph whose capture tallied `counts`: in
+    `LAUNCHES` and in the calling thread's tally."""
+    with _COUNT_LOCK:
+        _add_launches(counts)
 
 
 def dense_block_counts() -> dict[str, int]:

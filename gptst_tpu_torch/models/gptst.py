@@ -359,6 +359,14 @@ def _rank_desc(score: torch.Tensor) -> torch.Tensor:
     return torch.argsort(order, stable=True)
 
 
+def rank_counts(ranks: torch.Tensor, n: int) -> torch.Tensor:
+    """`torch.bincount(ranks, minlength=n)` for ranks below n, with no
+    read back to the host (bincount sizes its output by the largest
+    rank, which a CUDA graph capture refuses)."""
+    return torch.zeros(n, dtype=torch.long, device=ranks.device).index_add_(
+        0, ranks, torch.ones_like(ranks))
+
+
 def generate_mask(cfg: GPTSTConfig, generator: torch.Generator,
                   guide: torch.Tensor, epoch: int,
                   shape: tuple[int, int, int, int]) -> torch.Tensor:
@@ -407,11 +415,10 @@ def generate_mask(cfg: GPTSTConfig, generator: torch.Generator,
     label_c = guide.argmax(-1).reshape(-1)
     perm = torch.randperm(cfg.HS, generator=generator, device=dev)
     elem_rank = torch.argsort(perm)[label_c]       # visit rank of each element
-    cum = torch.bincount(elem_rank, minlength=cfg.HS).cumsum(0)
+    cum = rank_counts(elem_rank, cfg.HS).cumsum(0)
     # i = number of clusters visited until the budget is crossed
     if a_num > 0:
-        i = torch.searchsorted(
-            cum, torch.tensor([a_num], device=dev, dtype=cum.dtype))[0] + 1
+        i = torch.searchsorted(cum, cum.new_full((1,), a_num))[0] + 1
     else:
         i = torch.zeros((), dtype=torch.long, device=dev)
 

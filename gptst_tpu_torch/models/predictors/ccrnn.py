@@ -29,8 +29,11 @@ every rank and data row (`parallel/rows.shared_draw`).
 
 Teacher forcing needs the targets, a generator and the trainer's step
 count (`train/trainer.jax_step_counts`): one coin per horizon step,
-U[0, 1) < threshold, drawn from the generator on its device. Without
-any of the three the decoder feeds back its own predictions.
+U[0, 1) < threshold, drawn from the generator on its device. The
+trainer hands the threshold itself, computed on the host and staged on
+the device for every step of an epoch (`step_inputs`), so that a step
+captured in a CUDA graph reads each replay's own. Without any of the
+three the decoder feeds back its own predictions.
 
 Parameters, by the flax scope each one mirrors (`convert.py`):
   nodevec1, nodevec2, w1, w2, b1, b2      raw parameters
@@ -89,11 +92,14 @@ def teacher_forcing_threshold(step: int, cl_decay_steps: int) -> torch.Tensor:
     return cl_decay_steps / (cl_decay_steps + torch.exp(s / cl_decay_steps))
 
 
-def teacher_forcing_coins(horizon: int, step: int, cl_decay_steps: int,
+def teacher_forcing_coins(horizon: int, step, cl_decay_steps: int,
                           generator: torch.Generator) -> torch.Tensor:
     """One coin per horizon step, U[0, 1) < the step's threshold, drawn
-    from `generator` on its device: True feeds the target back."""
-    thr = teacher_forcing_threshold(step, cl_decay_steps)
+    from `generator` on its device: True feeds the target back. `step`
+    is the step count, or the 0-dim tensor of its threshold that the
+    trainer staged on the device (`CCRNN.step_inputs`)."""
+    thr = (step if isinstance(step, torch.Tensor)
+           else teacher_forcing_threshold(step, cl_decay_steps))
     return torch.rand(horizon, generator=generator,
                       device=generator.device) < thr.to(generator.device)
 
@@ -267,8 +273,16 @@ class CCRNN(nn.Module):
         graphs.append(F.leaky_relu(v1 @ v2))
         return graphs
 
+    def step_inputs(self, counts: list[int]) -> torch.Tensor:
+        """The trainer's per-step input for step counts `counts`: each
+        count's teacher-forcing threshold, computed on the host in f32
+        (`teacher_forcing_threshold`), staged on the device once per
+        epoch and handed to `forward` as `step`."""
+        return torch.stack([teacher_forcing_threshold(
+            c, self.cfg.cl_decay_steps) for c in counts])
+
     def forward(self, x, y: torch.Tensor | None = None,
-                step: int | None = None,
+                step: int | torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
                 shards: NodeShards | None = None):
         """x (B, T, N, dim_in), or with `shards` the list of the ranks'

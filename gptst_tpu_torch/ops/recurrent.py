@@ -217,7 +217,11 @@ def remat_cell(cell, remat: str = "none"):
     remat: "none" (store everything), "full" (store only the step's
     inputs and recompute the cell in backward) or "dots" (store the
     matmul outputs, recompute the elementwise chains). Values are
-    identical either way: the same ops run again.
+    identical either way: the same ops run again. No cell draws random
+    numbers (the predictors' draws come from explicit generators outside
+    the cells), so no RNG state is saved for the recomputation: saving
+    it reads the CUDA generator's offset, which a CUDA graph capture
+    refuses.
     """
     if remat == "none":
         return cell
@@ -234,7 +238,8 @@ def remat_cell(cell, remat: str = "none"):
             policy)
 
     def wrapped(*args):
-        return checkpoint(cell, *args, use_reentrant=False, **kw)
+        return checkpoint(cell, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
 
     return wrapped
 

@@ -17,8 +17,24 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     hold: a `torch.OutOfMemoryError` at placement, logged with the
     split's bytes) every train batch is gathered on the host and
     copied at its step. Both paths give the same batches, values and
-    order; validation and test always batch on the host. Unlike the
-    JAX trainer's K steps per dispatch, every step is one dispatch;
+    order; validation and test always batch on the host;
+  - K steps per dispatch: the epoch is cut into the JAX trainer's
+    chunks (K full batches from the resident split, then the leftover
+    batches as one chunk; on the host path, chunks of K in batch
+    order). A chunk of two or more full batches runs through
+    `train/step.StepGraph`: on the card the train step is captured
+    once in a CUDA graph and replayed for each of its steps (the
+    resident path gathers the batch inside the graph by the slot; the
+    host path copies each batch from page-locked memory into static
+    buffers with `non_blocking` before the replay); on the CPU the same
+    step runs eagerly through the same buffers. `scan_steps` 1, a chunk
+    of one and a chunk that holds the ragged tail take one step at a
+    time (`_train_batch`), as the JAX trainer's one-step path does, and
+    so does every step under a mesh (`mesh`, processes): graphed steps
+    there are not ported yet. Every path reads its learning rate, bias
+    corrections and step input from the same staged buffers
+    (`ClippedAdam.stage`, `_stage`) and writes its losses into one
+    device buffer, read once when the epoch ends;
   - optimizer: `optax.chain(clip_by_global_norm(max_grad_norm),
     adam(schedule, eps=1e-8))`, written out (`ClippedAdam`), with the
     MultiStepLR milestones as a piecewise-constant schedule on the
@@ -42,7 +58,9 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     ST_WA's draws run at test, as in the JAX package;
   - the step count a predictor reads (CCRNN's scheduled sampling):
     batch by batch the count the JAX trainer's default dispatch passes
-    (`jax_step_counts`), not the number of steps taken.
+    (`jax_step_counts`), not the number of steps taken; the forward is
+    handed the step input staged for it (`train/step.step_inputs`: the
+    count, or CCRNN's teacher-forcing threshold of it).
 
 With a `mesh` (`parallel/mesh.make_mesh`) the trainer is data-parallel,
 as the JAX trainer is under GSPMD: the parameters and the optimizer
@@ -94,7 +112,7 @@ from gptst_tpu_torch.parallel import collectives
 from gptst_tpu_torch.parallel.mesh import normalize_device
 from gptst_tpu_torch.train.loss import build_loss
 from gptst_tpu_torch.train.step import (
-    make_loss_terms, model_forwards, train_step,
+    StepGraph, make_loss_terms, model_forwards, step_inputs, train_step,
 )
 from gptst_tpu_torch.utils.device import resolve_device
 from gptst_tpu_torch.utils.logger import get_logger
@@ -125,7 +143,23 @@ class ClippedAdam(torch.optim.Optimizer):
     eps))`: scale every gradient by max_norm / norm only when the global
     norm is at least max_norm (no epsilon in the divisor), then Adam
     with bias correction and eps outside the square root. The learning
-    rate is `lr_fn(count)`, count being the number of steps taken."""
+    rate is `lr_fn(count)`, count being the number of steps taken.
+
+    The step reads its scalars from the device, so that a step captured
+    in a CUDA graph reads each replay's own: `stage(n)` computes, on the
+    host in double, -lr(c) and the reciprocals of the bias corrections
+    1 - b1^(c + 1) and 1 - b2^(c + 1) for the next n step counts c,
+    rounds them once to the parameters' dtype and copies the rows into
+    a device buffer; each step reads the row at `slot` (a 0-dim device
+    counter) and advances it. The moments are multiplied by the
+    reciprocals, as CUDA applies a Python-scalar divisor. `mu` and `nu`
+    are updated in place. `count` stays a host int: `step()` advances
+    it, and whoever replays a captured step advances it by the steps
+    the replays took. A step outside the staged rows (after
+    `load_state_dict`, or without `stage`) stages the next
+    `STAGE_AHEAD` first."""
+
+    STAGE_AHEAD = 256
 
     def __init__(self, params: Iterable[torch.Tensor],
                  lr_fn: Callable[[int], float],
@@ -135,6 +169,11 @@ class ClippedAdam(torch.optim.Optimizer):
         self.lr_fn = lr_fn
         self.max_norm = max_norm
         self.count = 0
+        # per group {dtype: (rows, 3)} buffers, the count of row 0, the
+        # rows staged, and the slot: made at the first `stage`
+        self._rows: list[dict[torch.dtype, torch.Tensor]] = []
+        self._base = self._staged = 0
+        self.slot: torch.Tensor | None = None
 
     def state_dict(self) -> dict:
         """torch's optimizer state (per-parameter `mu`, `nu`) plus the
@@ -142,22 +181,73 @@ class ClippedAdam(torch.optim.Optimizer):
         return {**super().state_dict(), "count": self.count}
 
     def load_state_dict(self, state_dict: dict) -> None:
+        """As torch's, but the moments are copies (torch keeps a given
+        tensor whose dtype and device fit, and the steps update the
+        moments in place), and moments that exist already are
+        overwritten in place (a captured step keeps reading them)."""
         state_dict = dict(state_dict)
         self.count = int(state_dict.pop("count"))
+        state_dict["state"] = {
+            k: {n: v.clone() if isinstance(v, torch.Tensor) else v
+                for n, v in st.items()}
+            for k, st in state_dict["state"].items()}
+        held = {p: dict(st) for p, st in self.state.items()}
         super().load_state_dict(state_dict)
+        for p, old in held.items():
+            for k, t in old.items():
+                if k in self.state[p]:
+                    self.state[p][k] = t.copy_(self.state[p][k])
+        self._staged = 0
+
+    def stage(self, steps: int) -> None:
+        """Stage the scalars of the next `steps` step counts (from
+        `count`) and restart `slot` at 0, in place where the buffers
+        hold that many rows (`staged_buffers` tells a capture whether
+        they moved)."""
+        counts = range(self.count, self.count + steps)
+        device = self.param_groups[0]["params"][0].device
+        for gi, group in enumerate(self.param_groups):
+            b1, b2 = group["b1"], group["b2"]
+            # taken in double and rounded once
+            rows64 = torch.tensor(
+                [[-self.lr_fn(c), 1 / (1.0 - b1 ** (c + 1)),
+                  1 / (1.0 - b2 ** (c + 1))] for c in counts],
+                dtype=torch.float64)
+            if gi == len(self._rows):
+                self._rows.append({})
+            bufs = self._rows[gi]
+            for dt in {p.dtype for p in group["params"]}:
+                rows = rows64.to(dt)
+                if dt not in bufs or bufs[dt].shape[0] < steps:
+                    bufs[dt] = torch.empty(steps, 3, dtype=dt, device=device)
+                bufs[dt][:steps].copy_(rows)
+        if self.slot is None:
+            self.slot = torch.zeros((), dtype=torch.long, device=device)
+        else:
+            self.slot.zero_()
+        self._base, self._staged = self.count, steps
+
+    def staged_buffers(self) -> list[torch.Tensor]:
+        """The device tensors a step reads besides the parameters and
+        their moments: the staged rows and the slot."""
+        return [b for bufs in self._rows for b in bufs.values()] + [self.slot]
 
     @torch.no_grad()
     def step(self, closure=None):
+        if not self._base <= self.count < self._base + self._staged:
+            self.stage(self.STAGE_AHEAD)
         norm = None
         if self.max_norm is not None:
             norm = torch.stack([
                 (p.grad * p.grad).sum() for g in self.param_groups
                 for p in g["params"] if p.grad is not None]).sum().sqrt()
-        lr = self.lr_fn(self.count)
-        self.count += 1
-        for group in self.param_groups:
+        at = self.slot.view(1)
+        for group, bufs in zip(self.param_groups, self._rows):
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
+            # (-lr, 1 / (1 - b1^count), 1 / (1 - b2^count)) as 0-dim
+            # tensors, by dtype
+            rows = {dt: b.index_select(0, at).view(3).unbind()
+                    for dt, b in bufs.items()}
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -169,9 +259,12 @@ class ClippedAdam(torch.optim.Optimizer):
                 if not st:
                     st["mu"] = torch.zeros_like(p)
                     st["nu"] = torch.zeros_like(p)
-                st["mu"] = mu = (1 - b1) * g + b1 * st["mu"]
-                st["nu"] = nu = (1 - b2) * (g * g) + b2 * st["nu"]
-                p.add_((mu / bc1) / ((nu / bc2).sqrt() + eps) * -lr)
+                mu = st["mu"].mul_(b1).add_((1 - b1) * g)
+                nu = st["nu"].mul_(b2).add_((1 - b2) * (g * g))
+                neg_lr, inv1, inv2 = rows[p.dtype]
+                p.add_(mu * inv1 / ((nu * inv2).sqrt() + eps) * neg_lr)
+        self.count += 1
+        self.slot.add_(1)
 
 
 def make_optimizer(cfg: FrameworkConfig, params: Iterable[torch.Tensor],
@@ -223,6 +316,43 @@ def jax_step_counts(n_samples: int, batch_size: int, scan_steps: int,
     return counts
 
 
+class HostBatches:
+    """The host path's batches for replayed steps: each is gathered by
+    numpy into one of `depth` staging slots (page-locked on CUDA) and
+    copied with `non_blocking` into the static buffers `static` (x, y)
+    that the step reads, on the current stream, so the copy waits for
+    the previous step and the next replay waits for the copy. A slot is
+    written again only once its copy has run (its event): with `depth`
+    K, never within a chunk of K."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, batch_size: int,
+                 depth: int, device: torch.device):
+        self.src = (x, y)
+        self.pinned = device.type == "cuda"
+        self.static = tuple(
+            torch.empty((batch_size, *a.shape[1:]),
+                        dtype=torch.from_numpy(a[:0]).dtype, device=device)
+            for a in self.src)
+        self.slots = [tuple(torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=self.pinned)
+                            for t in self.static) for _ in range(depth)]
+        self.events: list = [None] * depth
+        self.next = 0
+
+    def feed(self, sel: np.ndarray) -> None:
+        """Put the batch of windows `sel` into `static`."""
+        k = self.next
+        self.next = (k + 1) % len(self.slots)
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        for a, buf, dst in zip(self.src, self.slots[k], self.static):
+            np.take(a, sel, axis=0, out=buf.numpy())
+            dst.copy_(buf, non_blocking=True)
+        if self.pinned:
+            self.events[k] = torch.cuda.Event()
+            self.events[k].record()
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -272,11 +402,18 @@ class Trainer:
         self._loss_terms = make_loss_terms(self.model, self.loss_fn,
                                            self.cfg, forward)
         self.batch_seen = 0
-        self._step_kw: dict = {}
-        k = 16 if self.cfg.scan_steps == 0 else self.cfg.scan_steps
+        self.k = 16 if self.cfg.scan_steps == 0 else self.cfg.scan_steps
         # (x, y) of the train split on the device, or None: the host path
         self.train_split = (self._place_split()
-                            if self.cfg.device_data and k > 1 else None)
+                            if self.cfg.device_data and self.k > 1 else None)
+        # the epoch's generator, re-seeded in place every epoch (a
+        # captured step draws from this object), and the device buffers
+        # of `_stage`, made at the first epoch
+        self._train_gen = self._generator(0)
+        self._step_kw: dict = {}
+        self._step_in = self._losses = self._order = None
+        self._host = None
+        self._runner = None
 
     def _stat(self, v):
         """A scaler statistic: a float, or a tensor on the device for
@@ -315,53 +452,145 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     # --- epoch loops ----------------------------------------------------
+    def _step(self, x: torch.Tensor, y: torch.Tensor):
+        """One optimizer step on a batch on the device, with the epoch's
+        generator (and pretrain's epoch), the forward handed the step
+        input staged at the optimizer's slot; (total, flow) go into the
+        epoch's losses at that slot. Returns them as device scalars."""
+        opt = self.optimizer
+        at = opt.slot.clone().view(1)
+        step = self._step_in.index_select(0, at).view(())
+        total, flow = train_step(self._loss_terms, opt, x, y, step,
+                                 **self._step_kw)
+        self._losses.index_copy_(
+            0, at, torch.stack([total, flow]).double()[None])
+        return total, flow
+
     def _train_batch(self, xb, yb):
-        """One optimizer step on a batch (numpy from the host path,
-        tensors on the device from the resident split) with the epoch's
-        generator (and pretrain's epoch), the predictor reading the
-        batch's step count; returns (total, flow) as device scalars."""
+        """One step on a batch (numpy from the host path, tensors on the
+        device from the resident split): the one-step path."""
         self.batch_seen += 1
-        return train_step(self._loss_terms, self.optimizer, self._put(xb),
-                          self._put(yb), next(self._step_counts),
-                          **self._step_kw)
+        return self._step(self._put(xb), self._put(yb))
+
+    def _one_steps(self, batches: range, order: np.ndarray) -> None:
+        """The batches one step at a time (`_train_batch`): gathered on
+        the host, or from the resident split by the order on the
+        device."""
+        bs = self.cfg.batch_size
+        for b in batches:
+            if self.train_split is None:
+                sel = order[b * bs:(b + 1) * bs]
+                xb, yb = self.dataset.x_train[sel], self.dataset.y_train[sel]
+            else:
+                sel = self._order[b * bs:(b + 1) * bs]
+                xb, yb = (t.index_select(0, sel) for t in self.train_split)
+            self._train_batch(xb, yb)
+
+    def _gathered_step(self):
+        """A step on the resident split's batch at the optimizer's slot,
+        gathered by the epoch's order on the device."""
+        bs = self.cfg.batch_size
+        full = self.dataset.x_train.shape[0] // bs
+        sel = self._order[: full * bs].view(full, bs).index_select(
+            0, self.optimizer.slot.view(1)).view(-1)
+        x, y = self.train_split
+        return self._step(self._put(x.index_select(0, sel)),
+                          self._put(y.index_select(0, sel)))
+
+    def _train_steps(self, batches: range, order: np.ndarray, epoch: int):
+        """A chunk of full batches through `StepGraph` (one replay a step
+        on the card). The capture is keyed by pretrain's epoch and the
+        storage of the buffers the step reads."""
+        if self._runner is None:
+            if self.train_split is None:
+                self._host = HostBatches(self.dataset.x_train,
+                                         self.dataset.y_train,
+                                         self.cfg.batch_size, self.k,
+                                         self.device)
+            body = (self._gathered_step if self.train_split is not None
+                    else lambda: self._step(*map(self._put,
+                                                 self._host.static)))
+            self._runner = StepGraph(body, self.optimizer, self._train_gen,
+                                     self.device)
+        feed = None
+        if self._host is not None:
+            bs = self.cfg.batch_size
+
+            def feed(i: int) -> None:
+                b = batches[i]
+                self._host.feed(order[b * bs:(b + 1) * bs])
+        key = (epoch if self.pretrain else None,
+               *(t.data_ptr() for t in (*self.optimizer.staged_buffers(),
+                                        self._step_in, self._losses)))
+        self.batch_seen += len(batches)
+        self._runner.run(len(batches), key, feed)
+
+    def _stage(self, counts: list[int], order: np.ndarray) -> None:
+        """The epoch's buffers, in place: the optimizer's scalars, the
+        step inputs of `counts`, the losses and (resident) the order."""
+        n = len(counts)
+        self.optimizer.stage(n)
+        table = step_inputs(self.model, counts)
+        if self._step_in is None:
+            self._step_in = torch.empty(n, dtype=table.dtype,
+                                        device=self.device)
+            self._losses = torch.zeros(n, 2, dtype=torch.float64,
+                                       device=self.device)
+        self._step_in.copy_(table)
+        if self.train_split is not None:
+            if self._order is None:
+                self._order = torch.empty(order.shape, dtype=torch.long,
+                                          device=self.device)
+            self._order.copy_(torch.from_numpy(order))
+
+    def _chunks(self) -> list[range]:
+        """The epoch's batches (by index in the epoch's order) in the
+        JAX trainer's dispatches: K full batches at a time from the
+        resident split, then the rest as one chunk; on the host path,
+        chunks of K."""
+        bs, k = self.cfg.batch_size, self.k
+        n = self.dataset.x_train.shape[0]
+        nb = -(-n // bs)
+        if self.train_split is not None:      # placed only with K > 1
+            usable = (n // bs) // k * k
+            return ([range(c, c + k) for c in range(0, usable, k)]
+                    + ([range(usable, nb)] if usable < nb else []))
+        return [range(c, min(c + k, nb)) for c in range(0, nb, k)]
 
     def train_epoch(self, epoch: int) -> float:
         """Mean train loss of the epoch: the total in ori and eval mode,
         the flow loss in pretrain (`BasicTrainer.py:120-121`)."""
         self.model.train()
-        self._step_kw = dict(
-            generator=self._generator(self.seed * 10_000 + epoch))
+        seed = self.seed * 10_000 + epoch
+        self._train_gen.manual_seed(seed)
+        self._step_kw = dict(generator=self._train_gen)
         if self.pretrain:
             self._step_kw["epoch"] = epoch
-        it = self._train_batches(self.seed * 10_000 + epoch)
+        bs = self.cfg.batch_size
+        n = self.dataset.x_train.shape[0]
+        order = self.dataset.order("train", shuffle=True, seed=seed)
         # the counts of the JAX trainer's path: indexed where the split
         # is resident (it too falls back where the split does not fit)
-        self._step_counts = iter(jax_step_counts(
-            self.dataset.x_train.shape[0], self.cfg.batch_size,
-            self.cfg.scan_steps, self.train_split is not None,
-            self.batch_seen))
+        self._stage(jax_step_counts(n, bs, self.cfg.scan_steps,
+                                    self.train_split is not None,
+                                    self.batch_seen), order)
+        for chunk in self._chunks():
+            if (self.k > 1 and len(chunk) > 1 and self.mesh is None
+                    and chunk[-1] < n // bs):
+                self._train_steps(chunk, order, epoch)
+            elif self._runner is None:
+                self._one_steps(chunk, order)
+            else:         # beside the captured step's pool: make room
+                with self._runner.beside():
+                    self._one_steps(chunk, order)
         # losses stay on the device until the epoch ends: one sync
-        steps = [self._train_batch(xb, yb) for xb, yb in it]
-        totals, flows = torch.stack([torch.stack(s) for s in steps]).T.tolist()
+        totals, flows = self._losses.T.tolist()
         for i, loss in enumerate(totals):
             if i % self.cfg.log_step == 0:
                 self.logger.info("Train Epoch %d: %d/%d Loss: %.6f",
                                  epoch, i, self.steps_per_epoch, loss)
         losses = flows if self.pretrain else totals
         return sum(losses) / max(len(losses), 1)
-
-    def _train_batches(self, seed: int):
-        """The epoch's train batches in the dataset's shuffled order:
-        gathered by `index_select` from the resident split (the order
-        copied to the device once), else the host's numpy batches."""
-        bs = self.cfg.batch_size
-        if self.train_split is None:
-            return self.dataset.batches("train", bs, shuffle=True, seed=seed)
-        x, y = self.train_split
-        order = torch.from_numpy(self.dataset.order(
-            "train", shuffle=True, seed=seed)).to(self.device)
-        return ((x.index_select(0, sel), y.index_select(0, sel))
-                for sel in order.split(bs))
 
     @torch.no_grad()
     def val_epoch(self, epoch: int, split: str = "val") -> float:
@@ -443,6 +672,7 @@ class Trainer:
                 self.logger.info("Periodic checkpoint at epoch %d", epoch)
         self.logger.info("Total training time: %.4f min, best loss: %.6f",
                          (time.time() - start) / 60, best_loss)
+        self.release_graph()
         self.model.load_state_dict(best_state)
         if self.log_dir:
             if self.coordinator:
@@ -453,6 +683,13 @@ class Trainer:
         return {"best_loss": best_loss, "history": history,
                 "epoch_seconds": epoch_seconds,
                 "steps_per_epoch": self.steps_per_epoch, "report": report}
+
+    def release_graph(self) -> None:
+        """Drop the captured train step and its memory (`train` does when
+        its epochs end); a later epoch captures again."""
+        if self._runner is not None:
+            self._runner.release()
+            self._runner = None
 
     def _barrier(self) -> None:
         if self.processes > 1:

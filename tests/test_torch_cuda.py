@@ -669,3 +669,124 @@ def test_cuda_ring_spmm_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         fn([s.t().contiguous().t() for s in shard_rows(x, mesh)])
 
+
+
+
+def _trained_tgcn(card, support, remat: str, monkeypatch, capture: bool):
+    """TGCN (160 nodes, 8 units) on `support` through the trainer, K = 4:
+    43 windows in batches of 4, so each of 2 epochs has two chunks of 4
+    full batches through `StepGraph` (replayed from one captured step
+    with `capture`; else the same step eagerly on the card) and 3 steps
+    one at a time. Returns the per-step losses, the parameters, the
+    launches counted (from 0) and the runner."""
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.data.pipeline import build_dataset
+    from gptst_tpu_torch.models.build import GraphPredictor, predictor_forward
+    from gptst_tpu_torch.models.predictors.tgcn import TGCN, TGCNConfig
+    from gptst_tpu_torch.train import trainer as T
+
+    class Eager(T.StepGraph):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.capture = False
+
+    monkeypatch.setattr(T, "StepGraph", T.StepGraph if capture else Eager)
+    n = 160
+    cfg = default_config("PEMS08", mode="ori", model="TGCN", num_nodes=n,
+                         batch_size=4, scan_steps=4, epochs=2,
+                         lr_decay=False, log_step=1000)
+    ds = build_dataset(cfg, num_steps=200, seed=0)
+    ds.x_train, ds.y_train = ds.x_train[:43], ds.y_train[:43]
+    net = TGCN(TGCNConfig(num_nodes=n, rnn_units=8, remat=remat), dim_in=1,
+               dim_out=1, horizon=12,
+               generator=torch.Generator().manual_seed(0)).to(card)
+    tr = T.Trainer(model=predictor_forward(cfg, GraphPredictor(net, support)),
+                   cfg=cfg, dataset=ds, seed=0, device=card)
+    K.reset_launch_counts()
+    losses = []
+    for epoch in (1, 2):
+        tr.train_epoch(epoch)
+        losses.append(tr._losses.clone())
+    return (torch.stack(losses), dict(tr.model.named_parameters()),
+            dict(K.LAUNCHES), tr._runner)
+
+
+@pytest.mark.parametrize("kind,remat,room", [
+    ("bsr_spmm", "none", True), ("bsr_spmm", "full", True),
+    ("dia_spmm", "none", True), ("bsr_spmm", "none", False)])
+def test_cuda_replayed_train_steps_match_eager_ones(card, kind, remat, room,
+                                                    monkeypatch):
+    """Replays of the captured train step against the same step run
+    eagerly, from the same weights: every step's losses and the
+    parameters within rtol 1e-4, and the kernel launches counted
+    through the replays equal to the eager run's. A random graph at
+    tile 16 gives `bsr_spmm`, a band `dia_spmm`; `remat` full runs the
+    cell under `torch.utils.checkpoint` inside the capture. Without
+    `room` the card reports no free memory, so the runner drops its
+    graph before each epoch's one-step batches and captures again in
+    the next epoch (`StepGraph.beside`)."""
+    adj = _graph(160, seed=40, band=None if kind == "bsr_spmm" else 10,
+                 density=0.03)
+    sup = make_support(adj, dense_threshold=0, tile=16, device=card)
+    assert (sup.dia is None) == (kind == "bsr_spmm")
+    if not room:
+        total = torch.cuda.mem_get_info(card)[1]
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda device=None: (0, total))
+    got, got_p, got_n, runner = _trained_tgcn(card, sup, remat, monkeypatch,
+                                              capture=True)
+    want, want_p, want_n, eager = _trained_tgcn(card, sup, remat,
+                                                monkeypatch, capture=False)
+    assert runner.capture and not eager.captures
+    assert runner.captures == (1 if room else 2)
+    assert (runner.graph is None) == (not room) and runner.pool_bytes > 0
+    assert runner.launches[kind] > 0
+    assert got_n == want_n and got_n[kind] > 0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    for k, w in want_p.items():
+        torch.testing.assert_close(got_p[k], w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def test_cuda_staged_adam_steps_as_python_scalars_did(card):
+    """`ClippedAdam` reads its learning rate and bias corrections from
+    staged device rows (so that a captured step reads each replay's);
+    on the card its parameters and moments equal, bit for bit, the
+    update written with Python-scalar divisors (which CUDA applies as a
+    multiply by the reciprocal taken in double; the staged rows hold
+    those reciprocals), across an LR milestone,
+    clipped and unclipped steps."""
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.train.trainer import ClippedAdam, make_lr_schedule
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    init = [torch.randn(64, 33, generator=gen, device=card),
+            torch.randn(1000, generator=gen, device=card)]
+    grads = [[torch.randn(p.shape, generator=gen, device=card)
+              * (0.01 if i % 2 else 10.0) for p in init] for i in range(7)]
+    lr_fn = make_lr_schedule(default_config(
+        "PEMS08", lr_init=3e-3, lr_decay=True, lr_decay_step=(1,),
+        lr_decay_rate=0.3), steps_per_epoch=3)
+    params = [p.clone().requires_grad_() for p in init]
+    opt = ClippedAdam(params, lr_fn, max_norm=5.0)
+    opt.stage(7)
+    want = [p.clone() for p in init]
+    mus = [torch.zeros_like(p) for p in init]
+    nus = [torch.zeros_like(p) for p in init]
+    for count, g in enumerate(grads, 1):
+        for p, gi in zip(params, g):
+            p.grad = gi.clone()
+        opt.step()
+        norm = torch.stack([(gi * gi).sum() for gi in g]).sum().sqrt()
+        lr = lr_fn(count - 1)
+        bc1, bc2 = 1.0 - 0.9 ** count, 1.0 - 0.999 ** count
+        for j, gi in enumerate(g):
+            gi = torch.where(norm < 5.0, gi, gi / norm * 5.0)
+            mus[j] = (1 - 0.9) * gi + 0.9 * mus[j]
+            nus[j] = (1 - 0.999) * (gi * gi) + 0.999 * nus[j]
+            want[j].add_((mus[j] / bc1) / ((nus[j] / bc2).sqrt() + 1e-8)
+                         * -lr)
+    for p, w, mu, nu in zip(params, want, mus, nus):
+        assert torch.equal(p.detach(), w)
+        assert torch.equal(opt.state[p]["mu"], mu)
+        assert torch.equal(opt.state[p]["nu"], nu)

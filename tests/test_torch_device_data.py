@@ -17,9 +17,11 @@ and a ragged tail of 3):
   * against `gptst_tpu`'s own indexed path (`scan_steps=4`,
     `device_data=True`, as `tests/test_indexed_path.py` builds it:
     STGCN, no randomness in training) on the same weights carried
-    through `convert.py`: 64 windows, batch 8, so every batch goes
-    through the one jitted K-step dispatch; per-epoch losses at rtol
-    1e-5, parameters at rtol 1e-4 and atol 1e-5, that file's
+    through `convert.py`: 83 windows, batch 8, so 8 batches go through
+    the K-step dispatch (two jitted scans of 4 there, the port's
+    `StepGraph` here) and the leftovers (two full batches and a ragged
+    tail of 3) one step at a time on both sides; per-epoch losses at
+    rtol 1e-5, parameters at rtol 1e-4 and atol 1e-5, that file's
     tolerances.
 """
 
@@ -139,8 +141,7 @@ def test_resident_split_lies_on_the_device_once():
     assert x.dtype == y.dtype == torch.float32
     np.testing.assert_array_equal(x.numpy(), tr.dataset.x_train)
     np.testing.assert_array_equal(y.numpy(), tr.dataset.y_train)
-    batch = next(iter(tr._train_batches(7)))
-    assert tr._put(batch[0]) is batch[0]      # no copy on the device
+    assert tr._put(x) is x                    # no copy on the device
 
 
 def _failing_put(error):
@@ -197,8 +198,9 @@ def test_resident_split_matches_the_jax_indexed_path():
               epochs=2, lr_decay=False, early_stop=False, log_step=1000,
               scan_steps=4, device_data=True)
     jcfg = jax_default_config("PEMS08", **kw)
-    jds = jax_build_dataset(jcfg, num_steps=145, seed=0)
-    assert jds.x_train.shape[0] == 64       # whole chunks of 4 x 8
+    jds = jax_build_dataset(jcfg, num_steps=200, seed=0)
+    # two chunks of 4 x 8, then 8, 8 and a ragged 3
+    jds.x_train, jds.y_train = jds.x_train[:83], jds.y_train[:83]
     _, forward = jbuild.build_model(jcfg)
     cfg = default_config("PEMS08", **kw)
     model = tbuild.build_model(cfg, device="cpu")
@@ -206,8 +208,10 @@ def test_resident_split_matches_the_jax_indexed_path():
     model.predictor.net.load_state_dict(flax_to_state_dict(params))
     model.double()
     model.predictor.graph = tuple(t.double() for t in model.predictor.graph)
-    tr = Trainer(model=model, cfg=cfg, seed=0, device="cpu",
-                 dataset=build_dataset(cfg, num_steps=145, seed=0))
+    ds = build_dataset(cfg, num_steps=200, seed=0)
+    ds.x_train, ds.y_train = ds.x_train[:83], ds.y_train[:83]
+    np.testing.assert_array_equal(ds.x_train, jds.x_train)
+    tr = Trainer(model=model, cfg=cfg, seed=0, device="cpu", dataset=ds)
     assert tr.train_split is not None
     assert tr.train_split[0].dtype == torch.float32
     put = tr._put
@@ -222,6 +226,7 @@ def test_resident_split_matches_the_jax_indexed_path():
             np.testing.assert_allclose(tr.train_epoch(epoch), want,
                                        rtol=1e-5)
         jparams = jax.tree.map(np.asarray, jtr.params)
+    assert tr._runner is not None and tr.batch_seen == jtr.batch_seen == 22
     got = dict(jax.tree_util.tree_leaves_with_path(state_dict_to_flax(
         {k: p.detach() for k, p in model.predictor.net.named_parameters()})))
     leaves = jax.tree_util.tree_leaves_with_path(jparams)

@@ -421,6 +421,9 @@ def _eval_params(cfg, jcfg, jds, jm):
     return forward, params, build
 
 
+_ONE_DEVICE: dict = {}
+
+
 @pytest.mark.parametrize("d, g, mode", [
     pytest.param(2, 1, "ori", id="2-1"), pytest.param(2, 2, "ori", id="2-2"),
     pytest.param(1, 2, "eval", id="eval-1-2")])
@@ -451,7 +454,12 @@ def test_trainer_under_a_mesh_matches_jax_and_one_device(d, g, mode,
     jres = jtr.train()
     state = flax_to_state_dict(jax.tree.map(np.asarray, params))
     runs, widths = [], set()
+    # the one-device run of the same weights is made once per mode
+    weights = tuple((k, v.numpy().tobytes()) for k, v in state.items())
     for mesh in (_mesh(d, g), None):
+        if mesh is None and _ONE_DEVICE.get(mode, (None,))[0] == weights:
+            runs.append(_ONE_DEVICE[mode][1])
+            continue
         tr = _torch_trainer(cfg, state, mesh, **build)
         if mode == "eval" and mesh is not None:
             for m in tr.model.encoder.modules():
@@ -462,6 +470,8 @@ def test_trainer_under_a_mesh_matches_jax_and_one_device(d, g, mode,
         losses = _recorded(tr, "_train_batch")
         res = tr.train()
         runs.append(([float(v) for v in losses], res))
+        if mesh is None:
+            _ONE_DEVICE[mode] = weights, runs[-1]
     assert widths == ({10, (10, 10)} if mode == "eval" else set())
     for losses, res in runs:
         assert len(losses) == len(jlosses) == 2 * 7
