@@ -8,6 +8,7 @@
     python3 chip_phases.py build distributed
     python3 chip_phases.py build device_data_abba
     python3 chip_phases.py build step_graph
+    python3 chip_phases.py build step_graph_cards   # with 2+ cards
     python3 chip_phases.py build cards      # with 2+ cards
 
 Each name is a phase of `chip_smoke.PHASES`, run in the order given,
@@ -19,8 +20,9 @@ card and the CLI graph's mesh), of `gptst_graph` (GPT-ST's two graph
 ranks on two cards), of `predictors_graph` (STGCN, GWN, MTGNN and
 CCRNN on two cards), of `last_predictors_graph` (MSDR, ASTGCN, STGODE,
 ST_WA and DMVSTNET on two cards), of `final_predictors_graph` (TGCN,
-STMGCN, STSGCN and STFGNN on two cards) and of `distributed` (NCCL, one
-process per card).
+STMGCN, STSGCN and STFGNN on two cards), of `distributed` (NCCL, one
+process per card) and `step_graph_cards` (the same processes, each
+replaying its captured data-parallel train step).
 The state that earlier phases leave for later ones is made up front:
 the CLI graph's adjacency, its sym-normalized form and `bsr_spmm`
 support, and empty `bsr_spmm`/`dia_spmm` records.
@@ -52,7 +54,8 @@ def main(names: list[str]) -> int:
     for name in names:
         runs = ((c.data_parallel_cards, c.gptst_graph_cards,
                  c.predictors_graph_cards, c.last_predictors_graph_cards,
-                 c.final_predictors_graph_cards, c.distributed_cards)
+                 c.final_predictors_graph_cards, c.distributed_cards,
+                 c.phase_step_graph_cards)
                 if name == "cards" else
                 (lambda rec: c.phase_device_data(rec, abba=True),)
                 if name == "device_data_abba"

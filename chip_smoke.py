@@ -198,6 +198,17 @@ Phases, one JSON line each; any failure exits non-zero:
              and reserved over what was held, captures, kernel launches
              per step. The CLI phases above and below run graphed too
              (K = 16, the default).
+  step_graph_cards
+             with 2 or more cards: the same K steps per dispatch across
+             two processes over NCCL, one card each (a global (2, 1)
+             mesh): each process captures its data-parallel step, the
+             collectives included, and replays it. TGCN on the CLI graph
+             at 16,384 nodes (global batch 16), GPT-ST pretrain and GWN
+             at 170 nodes (global batch 64), graphed against the same
+             steps eagerly in the same processes and against one card's
+             graphed run of the same global batch; GWN again with one
+             process short of memory (both drop the graph and capture
+             again). With one card it prints that it did not run.
   eval_cli   the main path: `run.main` at 16,384 nodes from a 480-step
              PEMS08.npz, `-mode pretrain` (batch 8, 1 epoch), then
              `-mode eval -model TGCN` (frozen encoder, Fusion head,
@@ -291,6 +302,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -306,7 +318,8 @@ PHASES = ("build", "bsr", "dia", "gwn_kernels", "sddmm", "dvals", "ring",
           "data_parallel", "gptst_graph", "predictors_graph",
           "last_predictors_graph", "final_predictors_graph",
           "distributed", "gptst_model",
-          "gptst_cli", "device_data", "step_graph", "eval_cli",
+          "gptst_cli", "device_data", "step_graph", "step_graph_cards",
+          "eval_cli",
           "eval_model", "stgcn_cli", "gwn_cli", "gwn_model",
           "predictors_cli", "graph_predictors_cli", "graph_predictors_model",
           "last_predictors_cli", "last_predictors_model", "profile",
@@ -2916,11 +2929,14 @@ def distributed_child() -> int:
     return 0
 
 
-def dist_run(world: int, backend: str, devices: list[str]) -> list[dict]:
-    """`world` processes of `distributed_child`, rank r on devices[r],
-    started together with a fresh localhost port; joined within
-    DIST_DEADLINE_S, else every one is killed. Raises, with the end of
-    each process's output, when one fails; returns their results."""
+def dist_run(world: int, backend: str, devices: list[str],
+             child: str = "distributed_child", env_extra=None,
+             deadline: float = DIST_DEADLINE_S) -> list[dict]:
+    """`world` processes of `child` (a function of this module), rank r
+    on devices[r], `env_extra` added to their environment, started
+    together with a fresh localhost port; joined within `deadline`
+    seconds, else every one is killed. Raises, with the end of each
+    process's output, when one fails; returns their results."""
     import socket
 
     import torch
@@ -2935,13 +2951,14 @@ def dist_run(world: int, backend: str, devices: list[str]) -> list[dict]:
                    "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(world),
                    "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
                    "GPTST_SMOKE_BACKEND": backend,
-                   "GPTST_SMOKE_DEVICE": devices[r], "GPTST_SMOKE_OUT": tmp}
+                   "GPTST_SMOKE_DEVICE": devices[r], "GPTST_SMOKE_OUT": tmp,
+                   **(env_extra or {})}
             logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", "import sys, chip_smoke; "
-                 "sys.exit(chip_smoke.distributed_child())"],
+                 f"sys.exit(chip_smoke.{child}())"],
                 cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-        end = time.monotonic() + DIST_DEADLINE_S
+        end = time.monotonic() + deadline
         try:
             for p in procs:
                 p.wait(timeout=max(end - time.monotonic(), 0.01))
@@ -3412,32 +3429,45 @@ class RunnerProbe:
         StepGraph.__init__, StepGraph.run = self._saved
 
 
-def cli_trainer(argv: list[str], windows: int, model=None):
-    """The one-card `Trainer` that `run.main(argv)` builds (dataset,
-    model from the seed, config), its train split cut to `windows`;
-    `model` in place of the built one. In eval mode the frozen GPT-ST
-    is `build_pretrain`'s random init."""
+@functools.lru_cache(maxsize=1)
+def cli_dataset(argv: tuple, windows: int):
+    """The config and dataset `run.main(argv)` builds, the train split
+    cut to `windows`: the last one is kept, so that the graphed and the
+    eager trainer of a step_graph case read one dataset (a build at
+    16,384 nodes takes seconds)."""
     from gptst_tpu_torch.data import build_dataset
-    from gptst_tpu_torch.models.build import build_model, build_pretrain
     from gptst_tpu_torch.run import make_config, parse_args
-    from gptst_tpu_torch.train import Trainer
 
-    ns = parse_args(argv)
+    ns = parse_args(list(argv))
     cfg = make_config(ns)
     ds = build_dataset(cfg, data_root=cfg.data_root, num_steps=ns.num_steps,
                        seed=cfg.seed)
     assert ds.x_train.shape[0] >= windows, ds.x_train.shape
     ds.x_train, ds.y_train = ds.x_train[:windows], ds.y_train[:windows]
+    return cfg, ds
+
+
+def cli_trainer(argv: list[str], windows: int, model=None, mesh=None):
+    """The one-card `Trainer` that `run.main(argv)` builds (dataset,
+    model from the seed, config), its train split cut to `windows`;
+    `model` in place of the built one; with `mesh`, the data-parallel
+    trainer on its root (the library's entry across processes). In
+    eval mode the frozen GPT-ST is `build_pretrain`'s random init."""
+    from gptst_tpu_torch.models.build import build_model, build_pretrain
+    from gptst_tpu_torch.train import Trainer
+
+    cfg, ds = cli_dataset(tuple(argv), windows)
+    device = "cuda" if mesh is None else mesh.root
     if model is None:
         pretrain = None
         if cfg.mode == "eval":
             pretrain = build_pretrain(cfg.replace(mode="pretrain"),
-                                      device="cuda", seed=cfg.seed).gptst
-        model = build_model(cfg, device="cuda", seed=cfg.seed,
+                                      device=device, seed=cfg.seed).gptst
+        model = build_model(cfg, device=device, seed=cfg.seed,
                             scaler_zeros=ds.scaler_zeros,
-                            pretrain_params=pretrain)
+                            pretrain_params=pretrain, mesh=mesh)
     return Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
-                   device="cuda")
+                   device=device, mesh=mesh)
 
 
 def step_graph_run(make, eager: bool) -> tuple[dict, object, dict]:
@@ -3487,12 +3517,13 @@ def step_graph_run(make, eager: bool) -> tuple[dict, object, dict]:
     return line, torch.stack(losses), params
 
 
-def step_graph_case(name: str, make, rtol: float) -> dict:
+def step_graph_case(name: str, make, rtol: float) -> tuple:
     """`make()`'s trainer graphed against the same trainer's step body
     eagerly on the card, from the same weights and generator seeds:
     every step's losses within `rtol` and every parameter within `rtol`
     with an atol of `rtol` of its tensor's largest entry (bitwise
-    equality reported where it holds)."""
+    equality reported where it holds). Returns the line, and the
+    graphed run's losses and parameters."""
     import torch
 
     eager, want_l, want_p = step_graph_run(make, eager=True)
@@ -3518,29 +3549,44 @@ def step_graph_case(name: str, make, rtol: float) -> dict:
         graphed=graphed, eager=eager,
         eager_over_graphed_ms=eager["ms_per_step"] / graphed["ms_per_step"],
         eager_over_graphed_ms_last_chunk=eager["ms_per_step_last_chunk"]
-        / graphed["ms_per_step_last_chunk"])
+        / graphed["ms_per_step_last_chunk"]), got_l, got_p
+
+
+def step_graph_cli(dataset_args: list[str], mode: str, model: str,
+                   batch: int, net=None, mesh=None):
+    """`make()` of a step_graph case: the trainer `cli_trainer` builds
+    for `-mode mode -model model` at `-batch_size batch` (under `mesh`
+    where given), K = `STEP_GRAPH_K`, `STEP_GRAPH_EPOCHS` epochs, 2 K +
+    1 full batches and a ragged tail; `net()` in place of the built
+    model."""
+    k = STEP_GRAPH_K
+    argv = [*dataset_args, "-mode", mode, "-model", model,
+            "-batch_size", str(batch), "-epochs", str(STEP_GRAPH_EPOCHS),
+            "-change_epoch", "1", "-lr_decay", "False", "-scan_steps",
+            str(k), "-log_step", "1000"]
+    windows = batch * (2 * k + 1) + batch // 4
+    return lambda: cli_trainer(argv, windows, model=net() if net else None,
+                               mesh=mesh)
+
+
+def step_graph_data(tmp: str) -> dict:
+    """The step_graph phases' `-dataset` arguments, data under `tmp`:
+    PEMS08 at 170 nodes, NYC_BIKE, and PEMS08 at 16,384 nodes
+    (`big`)."""
+    return {"PEMS08": ["-dataset", "PEMS08", "-data_root", write_pems08(
+                tmp, GPTST_CLI_NODES, 1400)],
+            "NYC_BIKE": ["-dataset", "NYC_BIKE", "-num_steps", "1400"],
+            "big": ["-dataset", "PEMS08", "-num_nodes", str(N_BIG),
+                    "-data_root", write_pems08(os.path.join(tmp, "big"),
+                                               N_BIG, 400)]}
 
 
 def step_graph_cases(rec: dict, tmp: str) -> list[tuple]:
     """The step_graph phase's cases, (name, make, rtol, kernel): `make()`
     builds the case's trainer; `kernel`, where not None, must launch
     inside the captured step. Data goes under `tmp`."""
-    k = STEP_GRAPH_K
-    data = {"PEMS08": ["-dataset", "PEMS08", "-data_root", write_pems08(
-                tmp, GPTST_CLI_NODES, 1400)],
-            "NYC_BIKE": ["-dataset", "NYC_BIKE", "-num_steps", "1400"]}
-    big = ["-dataset", "PEMS08", "-num_nodes", str(N_BIG), "-data_root",
-           write_pems08(os.path.join(tmp, "big"), N_BIG, 400)]
-
-    def cli(dataset_args, mode, model, batch, net=None):
-        argv = [*dataset_args, "-mode", mode, "-model", model,
-                "-batch_size", str(batch), "-epochs", str(STEP_GRAPH_EPOCHS),
-                "-change_epoch", "1", "-lr_decay", "False", "-scan_steps",
-                str(k), "-log_step", "1000"]
-        # 2 K + 1 full batches and a ragged tail
-        windows = batch * (2 * k + 1) + batch // 4
-        return lambda: cli_trainer(argv, windows,
-                                   model=net() if net else None)
+    data = step_graph_data(tmp)
+    big, cli = data["big"], step_graph_cli
 
     from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
     from gptst_tpu_torch.ops.graph_conv import make_support
@@ -3576,7 +3622,7 @@ def step_graph_line(rec: dict, name: str, make, rtol: float,
     """One case of the phase (`step_graph_case`), with its kernel's
     launches inside the captured step checked and recorded."""
     t0 = time.perf_counter()
-    line = step_graph_case(name, make, rtol)
+    line = step_graph_case(name, make, rtol)[0]
     line["seconds"] = time.perf_counter() - t0
     if kernel is not None:
         # the kernel ran inside the captured step, counted at each replay
@@ -3622,6 +3668,233 @@ def phase_step_graph(rec: dict) -> None:
          bitwise_equal=[ln["case"] for ln in lines
                         if ln["losses_bitwise_equal"]
                         and ln["params_bitwise_equal"]])
+
+
+# the step_graph_cards phase: (case, data, mode, model, global batch,
+# rtol of replays against eager steps, the kernel that must launch in
+# the captured step, whether replays must equal eager steps bit for
+# bit), and the seconds its two processes may take in all
+STEP_GRAPH_CARDS = (
+    ("TGCN, CLI graph, 16,384 nodes", "big", "ori", "TGCN", BATCH,
+     STEP_GRAPH_ATOMIC_RTOL, "bsr_spmm", False),
+    ("GPT-ST pretrain, 170 nodes", "PEMS08", "pretrain", "STGCN",
+     GPTST_CLI_BATCH, STEP_GRAPH_RTOL, None, True),
+    ("GWN ori, 170 nodes", "PEMS08", "ori", "GWN", GPTST_CLI_BATCH,
+     STEP_GRAPH_RTOL, None, True),
+)
+STEP_GRAPH_CARDS_SHORT = "GWN ori, 170 nodes, rank 1 short of memory"
+STEP_GRAPH_CARDS_DEADLINE_S = 240
+
+
+def step_graph_card_makes(data: dict, sup, mesh) -> list[tuple]:
+    """`STEP_GRAPH_CARDS`' cases with their `make()` under `mesh` (None:
+    one card), TGCN bound to the CLI graph's support `sup`."""
+    return [(name, step_graph_cli(
+        data[ds], mode, model, batch, mesh=mesh,
+        net=(lambda: bind("TGCN", tgcn_net(), (sup,)))
+        if model == "TGCN" else None), rtol, kernel, bitwise)
+        for name, ds, mode, model, batch, rtol, kernel, bitwise
+        in STEP_GRAPH_CARDS]
+
+
+def step_graph_child() -> int:
+    """One process of `phase_step_graph_cards`: joins the process group
+    (NCCL) as `distributed_child` does, lays its global mesh over
+    `GPTST_SMOKE_DEVICE` (one data row of a global (2, 1)) and runs
+    each `STEP_GRAPH_CARDS` case graphed and eagerly
+    (`step_graph_case`) on the data under `GPTST_SMOKE_DATA` (a JSON
+    dict of `-dataset` arguments), TGCN on the CLI graph's support saved
+    at `GPTST_SMOKE_SUPPORT`; then GWN graphed again with this
+    process's free memory reported as 0 on rank 1 (`StepGraph.beside`
+    drops the graph on every process: both capture twice). Writes the
+    lines, losses and parameters to `$GPTST_SMOKE_OUT/rank<RANK>.pt`."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from gptst_tpu_torch.config.config import default_config
+    from gptst_tpu_torch.core.distributed import (
+        global_mesh, initialize_distributed,
+    )
+    from gptst_tpu_torch.run import set_precision
+
+    set_precision(default_config("PEMS08"))
+    env = os.environ
+    initialize_distributed(backend=env["GPTST_SMOKE_BACKEND"],
+                           timeout=DIST_TIMEOUT_S)
+    mesh = global_mesh(1, devices=[env["GPTST_SMOKE_DEVICE"]])
+    rank = torch.distributed.get_rank()
+    os.chdir(env["GPTST_SMOKE_OUT"])       # the models' graph caches
+    t0 = time.perf_counter()
+    sup = torch.load(env["GPTST_SMOKE_SUPPORT"], map_location=mesh.root,
+                     weights_only=False)
+    cases = step_graph_card_makes(json.loads(env["GPTST_SMOKE_DATA"]), sup,
+                                  mesh)
+    out = {"rank": rank, "device": str(mesh.root), "mesh": mesh.shape,
+           "backend": torch.distributed.get_backend()}
+    out["support_s"] = time.perf_counter() - t0
+    for name, make, rtol, _, _ in cases:
+        t1 = time.perf_counter()
+        line, losses, params = step_graph_case(name, make, rtol)
+        line["seconds"] = time.perf_counter() - t1
+        out[name] = dict(line=line, losses=losses.cpu(),
+                         params={k: v.cpu() for k, v in params.items()})
+        torch.cuda.empty_cache()
+    name, make = cases[-1][:2]
+    total = torch.cuda.mem_get_info(mesh.root)[1]
+    saved = torch.cuda.mem_get_info
+    if rank == 1:
+        torch.cuda.mem_get_info = lambda device=None: (0, total)
+    try:
+        line, losses, params = step_graph_run(make, eager=False)
+    finally:
+        torch.cuda.mem_get_info = saved
+    out[STEP_GRAPH_CARDS_SHORT] = dict(
+        line=line, losses=losses.cpu(),
+        params={k: v.cpu() for k, v in params.items()})
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(env["GPTST_SMOKE_OUT"], f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def loss_gap(got, want) -> float:
+    """The largest relative gap of two runs' per-step losses."""
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+def first_chunk(losses):
+    """The total losses of the first chunk of K steps (epoch 1) of a
+    step_graph run's (epochs, steps, 2) losses."""
+    return losses[0, :STEP_GRAPH_K, 0]
+
+
+def phase_step_graph_cards(rec: dict) -> None:
+    """K steps per dispatch across processes: with 2 or more cards, two
+    processes over NCCL, one card each, each a (1, 1) mesh of a global
+    (2, 1) data axis, spawned once (`step_graph_child`). Each runs the
+    trainer `step_graph_cli` builds at K = `STEP_GRAPH_K` (2 epochs of
+    10 steps, 8 replayed in ori mode) graphed, its data-parallel step
+    and its collectives captured once, and again eagerly from the same
+    weights: TGCN on the CLI graph at 16,384 nodes, global batch 16
+    (`bsr_spmm` and the COO tail in the graph), GPT-ST pretrain at 170
+    nodes, global batch 64 (its mask meets through `on_global_batch`),
+    GWN at 170 nodes, global batch 64 (batch statistics through
+    `batch_count`), and GWN once more with rank 1 short of memory (both
+    processes drop the graph before the tail and capture again). Per
+    case and process: ms and host ms per step graphed and eager,
+    captures, `bsr_spmm` launches per replay against per eager step,
+    peak allocated and reserved, the replays' gaps to the eager steps
+    (bitwise for GPT-ST and GWN, rtol 1e-4 for TGCN), the ranks'
+    parameters bit for bit, and the gap to one card's graphed run of
+    the same global batch: the first chunk's losses held at
+    `dist_check`'s rtol 1e-5; over the whole run the largest loss gap
+    and the parameters beyond `dist_check`'s tolerances are recorded,
+    not held (f32 sums in another order drift apart through Adam over
+    20 steps: GPT-ST 1.3e-3, GWN 5.6e-4 at the last steps on two
+    H100s). With fewer cards it prints that it did not run."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("step_graph_cards", ran=False, cards=count)
+        return
+    from gptst_tpu_torch.graph.artifacts import random_sensor_graph, sym_adj
+    from gptst_tpu_torch.ops.graph_conv import make_support
+
+    sups = rec["_supports"]
+    if "cli_graph" not in sups:
+        sups["cli_graph"] = make_support(sym_adj(random_sensor_graph(
+            N_BIG, avg_degree=6, seed=0)), device="cuda")
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            work = os.path.join(tmp, "run", "work")
+            os.makedirs(work)
+            os.chdir(work)
+            data = step_graph_data(tmp)
+            one_card = {}
+            t0 = time.perf_counter()
+            for name, make, _, _, _ in step_graph_card_makes(
+                    data, sups["cli_graph"], None):
+                line, losses, params = step_graph_run(make, eager=False)
+                one_card[name] = dict(line=line, losses=losses.cpu(),
+                                      params={k: v.cpu()
+                                              for k, v in params.items()})
+            one_card_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            support = os.path.join(tmp, "cli_support.pt")
+            torch.save(sups["cli_graph"], support)
+            results = dist_run(2, "nccl", ["cuda:0", "cuda:1"],
+                               child="step_graph_child",
+                               env_extra={"GPTST_SMOKE_DATA":
+                                          json.dumps(data),
+                                          "GPTST_SMOKE_SUPPORT": support},
+                               deadline=STEP_GRAPH_CARDS_DEADLINE_S)
+            run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    checks = []
+    for name, _, _, _, _, _, kernel, bitwise in STEP_GRAPH_CARDS:
+        want = one_card[name]
+        ranks = {}
+        for res in results:
+            got = res[name]
+            line = got["line"]
+            ranks[f"rank {res['rank']}"] = dict(
+                **{k: line[k] for k in (
+                    "losses_bitwise_equal", "params_bitwise_equal",
+                    "loss_max_rel_gap", "param_max_gap_of_scale",
+                    "eager_over_graphed_ms",
+                    "eager_over_graphed_ms_last_chunk")},
+                graphed=line["graphed"], eager=line["eager"],
+                one_card_loss_max_rel_gap=loss_gap(got["losses"],
+                                                   want["losses"]),
+                one_card_first_chunk_loss_max_rel_gap=loss_gap(
+                    first_chunk(got["losses"]), first_chunk(want["losses"])),
+                one_card=param_gaps(got["params"], want["params"]))
+            checks.append((name, res, line, kernel, bitwise))
+        emit("step_graph_cards", case=name, ran=True, cards=count,
+             processes=2, backend=results[0]["backend"],
+             global_mesh=results[0]["mesh"], k=STEP_GRAPH_K,
+             epochs=STEP_GRAPH_EPOCHS, one_card_graphed=want["line"],
+             ranks_params_bitwise_equal=all(
+                 torch.equal(res[name]["params"][k], v)
+                 for res in results[1:]
+                 for k, v in results[0][name]["params"].items()),
+             **ranks)
+    short = {f"rank {res['rank']}": res[STEP_GRAPH_CARDS_SHORT]["line"]
+             for res in results}
+    emit("step_graph_cards", case=STEP_GRAPH_CARDS_SHORT, **short,
+         losses_equal_to_room=[bool(torch.equal(
+             res[STEP_GRAPH_CARDS_SHORT]["losses"],
+             res[STEP_GRAPH_CARDS[-1][0]]["losses"])) for res in results])
+    emit("step_graph_cards", one_card_s=one_card_s, processes_s=run_s,
+         child_seconds=[res["seconds"] for res in results],
+         child_support_s=[res["support_s"] for res in results])
+    for name, res, line, kernel, bitwise in checks:
+        g, e = line["graphed"], line["eager"]
+        captures = STEP_GRAPH_EPOCHS if "pretrain" in name else 1
+        assert g["captures"] == captures and e["captures"] == 0, (name, g)
+        assert not bitwise or (line["losses_bitwise_equal"]
+                               and line["params_bitwise_equal"]), line
+        if kernel is not None:
+            assert g["captured_step_launches"][kernel] > 0, g
+            assert (g["launches_per_step"][kernel]
+                    == e["launches_per_step"][kernel]), (g, e)
+            rec[kernel]["launches_by_path"][
+                f"step_graph_cards {name}, rank {res['rank']}"] = g[
+                "launches_per_step"][kernel]
+    for res in results:
+        got = res[STEP_GRAPH_CARDS_SHORT]
+        assert got["line"]["captures"] == 2, got["line"]
+        assert torch.equal(got["losses"],
+                           res[STEP_GRAPH_CARDS[-1][0]]["losses"])
+    for name, want in one_card.items():
+        for res in results:
+            torch.testing.assert_close(
+                first_chunk(res[name]["losses"]), first_chunk(want["losses"]),
+                rtol=1e-5, atol=0, msg=lambda m: f"{name}: {m}")
 
 
 def write_pems08(tmp: str, nodes: int, num_steps: int) -> str:

@@ -11,13 +11,22 @@ process group, in program order, as XLA's collectives do under GSPMD:
     (`AllReduceChain`);
   * `gather_batch` — the processes' batch slices concatenated in
     process order; its backward keeps this process's slice;
-  * `all_gather_cat`, `all_reduce_int`, `broadcast_floats` and
+  * `all_gather_cat`, `broadcast_floats`, `any_process` and
     `reduce_gradients` (one flat bucket of gradients, summed), with no
     gradient.
 
 NCCL takes CUDA tensors; gloo takes CPU tensors and, for these
 collectives, CUDA tensors too (it copies them through host memory
 itself), so two processes can share one card over gloo.
+
+The collectives a train step reaches (`all_reduce_sum_`,
+`all_gather_cat`, `reduce_gradients`, `all_reduce_sum`, `gather_batch`)
+read nothing back to the host and size every buffer from the shapes of
+their inputs alone, so over NCCL a train step that calls them is
+captured in a CUDA graph and replayed (`train/step.StepGraph`): each
+replay runs the same collectives on the same buffers, in the same
+order on every process. `broadcast_floats`, `any_process` and
+`barrier` read or wait on the host and run only between steps.
 """
 
 from __future__ import annotations
@@ -45,17 +54,12 @@ def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
 
 def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
     """Every process's t (the same shape) concatenated on axis 0 in
-    process order, no gradient."""
+    process order, no gradient: one all-gather into one buffer."""
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(world()[1])]
-    dist.all_gather(parts, t)
-    return torch.cat(parts)
-
-
-def all_reduce_int(n: int, device: torch.device) -> int:
-    """The sum over processes of an int."""
-    return int(all_reduce_sum_(torch.tensor([n], dtype=torch.float64,
-                                            device=device)).item())
+    out = t.new_empty((world()[1] * t.shape[0], *t.shape[1:]))
+    # `all_gather_single` is the newer name of the same collective
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, t)
+    return out
 
 
 def broadcast_floats(values: Sequence[float],
@@ -64,6 +68,13 @@ def broadcast_floats(values: Sequence[float],
     t = torch.tensor(list(values), dtype=torch.float64, device=device)
     dist.broadcast(t, src=0)
     return t.tolist()
+
+
+def any_process(flag: bool, device: torch.device) -> bool:
+    """Whether `flag` holds on any process (a read on the host: between
+    steps only)."""
+    t = torch.tensor([float(flag)], dtype=torch.float64, device=device)
+    return bool(all_reduce_sum_(t).item() > 0)
 
 
 def barrier() -> None:

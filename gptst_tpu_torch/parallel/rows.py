@@ -27,10 +27,12 @@ Where the mesh's 'data' axis spans processes (`core/distributed.py`),
 each meeting is also a meeting of the processes, in the same program
 order: the rows of this process combine first, then the processes
 (`parallel/collectives.py`). `batch_sum` is an all-reduce whose
-backward sums the gradients over processes too; `batch_count` an
-all-reduce; `batch_draw` draws the global shape from every process's
-generator (seeded alike, on the same device type) and takes this
-process's slice, and `shared_draw` needs no communication at all;
+backward sums the gradients over processes too; `batch_count` the
+rows' sum times the processes, with no collective (the data axis
+splits over processes only a batch it divides, so every process's rows
+hold as many entries); `batch_draw` draws the global shape from every
+process's generator (seeded alike, on the same device type) and takes
+this process's slice, and `shared_draw` needs no communication at all;
 `on_global_batch` all-gathers the rows' inputs.
 
 `current_row()` tells a sharded graph support which of this process's
@@ -62,13 +64,11 @@ class RowReleased(RuntimeError):
 class RowGroup:
     """The `n` rows of one data-parallel forward in this process, and
     with `processes` above 1 the same rows of every other process (this
-    one's index `process`; the collectives' scalars on `device`)."""
+    one's index `process`)."""
 
-    def __init__(self, n: int, processes: int = 1, process: int = 0,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, n: int, processes: int = 1, process: int = 0):
         self.n = n
         self.processes, self.process = processes, process
-        self.device = device
         self._cond = threading.Condition()
         self._meetings: dict[int, dict] = {}
         self._failed = False
@@ -201,15 +201,15 @@ def batch_sum(t: torch.Tensor) -> torch.Tensor:
 
 def batch_count(n: int) -> int:
     """`n`; in a data row, the sum of every row's `n` over every
-    process."""
+    process: this process's rows' sum times the processes, as
+    `batch_draw`'s global shape is. A data axis splits over processes
+    only a batch it divides (`parallel/spmd.DataParallel`), so every
+    process's rows count alike, and nothing is read from the device."""
     if not _in_rows():
         return n
 
     def combine(values, group):
-        total = sum(values)
-        if group.processes > 1:
-            total = collectives.all_reduce_int(total, group.device)
-        return [total] * len(values)
+        return [sum(values) * group.processes] * len(values)
 
     return _meet(n, combine)
 

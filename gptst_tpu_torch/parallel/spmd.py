@@ -43,6 +43,10 @@ the gradients over processes (one flat bucket; the exact gradient, no
 division), and the optimizer, clipping included, runs on every
 process, so the parameters stay equal everywhere. A ragged batch runs
 whole on every process's first row and its gradient is not summed.
+With one data row in this process the row runs in the calling thread,
+with no thread pool and no wait at its meetings, so over NCCL the whole
+step, collectives included, is captured in a CUDA graph
+(`train/step.StepGraph`).
 """
 
 from __future__ import annotations
@@ -193,8 +197,7 @@ class DataParallel:
         across = self.across = (self.mesh.processes > 1 and batch_spec(
             x.shape, self.mesh)[0] is not None)
         group = (RowGroup(len(xs), self.mesh.processes,
-                          self.mesh.data_offset // self.mesh.local_rows,
-                          self.mesh.root)
+                          self.mesh.data_offset // self.mesh.local_rows)
                  if across else RowGroup(len(xs)))
 
         def row(rows: _Rows, r: int):

@@ -147,8 +147,8 @@ def step_inputs(model: nn.Module, counts: list[int]) -> torch.Tensor:
 
 
 class StepGraph:
-    """Runs chunks of train steps: on CUDA, the step captured once in a
-    CUDA graph and replayed; elsewhere (the CPU), the same step run
+    """Runs chunks of train steps: with `capture` (on CUDA), the step
+    captured once in a CUDA graph and replayed; else the same step run
     eagerly.
 
     `body()` is one whole train step on `optimizer` (a
@@ -174,21 +174,31 @@ class StepGraph:
     capture (the next chunk captures again), and gives the eager steps'
     cached blocks back after them.
 
+    Across processes (`body` a data-parallel step whose collectives
+    go over NCCL) each process captures its own step, collectives
+    included, and every process must replay in the same order: the
+    processes warm up, capture and replay at the same steps, since each
+    takes the same chunks. `agree(flag)` (given there) tells whether
+    `flag` holds on any process; `beside()` drops the graph on every
+    process where one of them needs the room, so that no process
+    captures while another replays.
+
     Kernel launches recorded at the capture (`kernels/spmm.
     capture_launches`) are counted at each replay, and each replay
     advances `optimizer.count`. `captures` counts captures; `capture`
-    False runs the steps eagerly on the card too (the reference that
-    replays are held against)."""
+    False runs the steps eagerly (the CPU; on the card, the reference
+    that replays are held against, and a gloo process group, whose
+    collectives cannot be captured)."""
 
     WARMUP_STEPS = 2
 
     def __init__(self, body: Callable[[], object],
                  optimizer: torch.optim.Optimizer,
                  generator: torch.Generator | None,
-                 device: torch.device):
+                 device: torch.device, capture: bool,
+                 agree: Callable[[bool], bool] | None = None):
         self.body, self.optimizer, self.generator = body, optimizer, generator
-        self.device = device
-        self.capture = device.type == "cuda"
+        self.device, self.capture, self.agree = device, capture, agree
         self.captures = 0
         self.graph = None
         self.pool_bytes = 0
@@ -232,12 +242,15 @@ class StepGraph:
         cache's free blocks go back to the device before and after
         them, and the graph is dropped before them where what is free
         then is less than its pool took (an eager step needs about
-        that much)."""
+        that much), on every process where `agree` is given."""
         if self.graph is None:
             yield
             return
         torch.cuda.empty_cache()
-        if torch.cuda.mem_get_info(self.device)[0] < self.pool_bytes:
+        drop = torch.cuda.mem_get_info(self.device)[0] < self.pool_bytes
+        if self.agree is not None:
+            drop = self.agree(drop)
+        if drop:
             self.release()
             torch.cuda.empty_cache()
         try:

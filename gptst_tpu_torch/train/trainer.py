@@ -29,12 +29,11 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     buffers with `non_blocking` before the replay); on the CPU the same
     step runs eagerly through the same buffers. `scan_steps` 1, a chunk
     of one and a chunk that holds the ragged tail take one step at a
-    time (`_train_batch`), as the JAX trainer's one-step path does, and
-    so does every step under a mesh (`mesh`, processes): graphed steps
-    there are not ported yet. Every path reads its learning rate, bias
-    corrections and step input from the same staged buffers
-    (`ClippedAdam.stage`, `_stage`) and writes its losses into one
-    device buffer, read once when the epoch ends;
+    time (`_train_batch`), as the JAX trainer's one-step path does.
+    Every path reads its learning rate, bias corrections and step input
+    from the same staged buffers (`ClippedAdam.stage`, `_stage`) and
+    writes its losses into one device buffer, read once when the epoch
+    ends;
   - optimizer: `optax.chain(clip_by_global_norm(max_grad_norm),
     adam(schedule, eps=1e-8))`, written out (`ClippedAdam`), with the
     MultiStepLR milestones as a piecewise-constant schedule on the
@@ -83,6 +82,19 @@ logs and writes `best_model.pt` and `full_ckpt.pt`; every process waits
 at a barrier after a write and before `resume` reads, so every process
 must be given the same `log_dir` (a shared file system across hosts).
 
+Which meshes take K steps per dispatch is decided at construction
+(`chunked`, `captured`) and logged once: no mesh, and a mesh of which
+this process holds one data row on one device (a (1, 1) mesh, or
+`global_mesh(1)` with one process per card under torchrun), take the
+chunks through `StepGraph`; across processes each process captures its
+own data-parallel step, the collectives of its rows' meetings, of the
+outputs' gather and of the gradients' sum included, and every process
+replays in the same order. Every other mesh steps one at a time: its
+data rows are host threads, or its graph ranks several devices of this
+process, which one capture on one stream does not span. On the card
+under a gloo process group the chunks run eagerly (gloo's collectives
+go through host memory and cannot be captured).
+
 Best parameters are saved with `torch.save` to `<log_dir>/best_model.pt`
 when `log_dir` is set. Every `ckpt_every_epochs` epochs the full state
 (the model's `state_dict`, `ClippedAdam`'s state and step count, the
@@ -95,6 +107,7 @@ are seeded per epoch, so a resumed run reproduces the uninterrupted one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -102,6 +115,7 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from gptst_tpu_torch.config.config import FrameworkConfig
@@ -109,7 +123,7 @@ from gptst_tpu_torch.core.distributed import is_coordinator
 from gptst_tpu_torch.data.pipeline import STDataset
 from gptst_tpu_torch.eval.metrics import all_metrics
 from gptst_tpu_torch.parallel import collectives
-from gptst_tpu_torch.parallel.mesh import normalize_device
+from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS, normalize_device
 from gptst_tpu_torch.train.loss import build_loss
 from gptst_tpu_torch.train.step import (
     StepGraph, make_loss_terms, model_forwards, step_inputs, train_step,
@@ -414,6 +428,32 @@ class Trainer:
         self._step_in = self._losses = self._order = None
         self._host = None
         self._runner = None
+        self.chunked, self.captured = self._dispatch()
+
+    def _dispatch(self) -> tuple[bool, bool]:
+        """(chunks of full batches go through `StepGraph`, and it captures
+        them), decided before the first step; where a mesh or a gloo
+        process group on the card rules either out, logged once with
+        the reason."""
+        mesh, why = self.mesh, None
+        if mesh is not None and mesh.local_rows > 1:
+            why = f"{mesh.local_rows} data rows are host threads here"
+        elif mesh is not None and mesh.shape[GRAPH_AXIS] > 1:
+            why = f"{mesh.shape[GRAPH_AXIS]} graph ranks are devices here"
+        if why is not None:
+            if self.k > 1:
+                self.logger.info("K steps per dispatch: one step at a time "
+                                 "under this mesh (%s)", why)
+            return False, False
+        captured = self.device.type == "cuda"
+        if captured and self.processes > 1 and dist.get_backend() != "nccl":
+            captured = False
+            if self.k > 1:
+                self.logger.info("K steps per dispatch: chunks run eagerly "
+                                 "over %s (its collectives go through host "
+                                 "memory and cannot be captured)",
+                                 dist.get_backend())
+        return True, captured
 
     def _stat(self, v):
         """A scaler statistic: a float, or a tensor on the device for
@@ -510,8 +550,12 @@ class Trainer:
             body = (self._gathered_step if self.train_split is not None
                     else lambda: self._step(*map(self._put,
                                                  self._host.static)))
-            self._runner = StepGraph(body, self.optimizer, self._train_gen,
-                                     self.device)
+            self._runner = StepGraph(
+                body, self.optimizer, self._train_gen, self.device,
+                capture=self.captured,
+                agree=(functools.partial(collectives.any_process,
+                                         device=self.device)
+                       if self.processes > 1 else None))
         feed = None
         if self._host is not None:
             bs = self.cfg.batch_size
@@ -575,7 +619,7 @@ class Trainer:
                                     self.train_split is not None,
                                     self.batch_seen), order)
         for chunk in self._chunks():
-            if (self.k > 1 and len(chunk) > 1 and self.mesh is None
+            if (self.k > 1 and len(chunk) > 1 and self.chunked
                     and chunk[-1] < n // bs):
                 self._train_steps(chunk, order, epoch)
             elif self._runner is None:

@@ -790,3 +790,68 @@ def test_cuda_staged_adam_steps_as_python_scalars_did(card):
         assert torch.equal(p.detach(), w)
         assert torch.equal(opt.state[p]["mu"], mu)
         assert torch.equal(opt.state[p]["nu"], nu)
+
+
+def test_cuda_captured_collectives_replay_as_eager_calls(card):
+    """The collectives a data-parallel train step reaches
+    (`parallel/collectives.py`) over NCCL, in a process group of this
+    one process on the card, captured once in a CUDA graph (after two
+    eager warm-ups on a side stream, as `train/step.StepGraph` does)
+    and replayed on new inputs: `all_reduce_sum_`, `all_gather_cat`,
+    `all_reduce_sum` and `gather_batch` with their backward (run from
+    the autograd engine's device thread) and `reduce_gradients`; every
+    replay equals the same calls made eagerly, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gptst_tpu_torch.parallel import collectives as C
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    card = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        gen = torch.Generator(device=card).manual_seed(5)
+        x = torch.empty(6, 5, device=card)
+        p = torch.nn.Parameter(torch.empty(6, 5, device=card))
+
+        def body():
+            p.grad = None
+            total = C.all_reduce_sum_(x)
+            cat = C.all_gather_cat(x)
+            summed, _ = C.all_reduce_sum(p * x)
+            out = C.gather_batch(summed * 2)
+            (out * out).sum().backward()
+            C.reduce_gradients([p])
+            return total, cat, out.detach(), p.grad
+
+        def fill():
+            x.copy_(torch.randn(x.shape, device=card, generator=gen))
+            p.data.copy_(torch.randn(p.shape, device=card, generator=gen))
+            return x.clone(), p.detach().clone()
+
+        fill()
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                body()
+        torch.cuda.current_stream(card).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = body()
+        for _ in range(3):
+            xv, pv = fill()
+            want = [t.clone() for t in body()]
+            x.copy_(xv)
+            p.data.copy_(pv)
+            graph.replay()
+            torch.cuda.synchronize(card)
+            for got, w in zip(static, want):
+                assert torch.equal(got, w)
+            assert torch.equal(want[2], 2 * pv * xv)
+    finally:
+        dist.destroy_process_group()

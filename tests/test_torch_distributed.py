@@ -4,7 +4,7 @@ and the data-parallel step and trainer over a process group.
 Two processes (gloo on the CPU, the process group joined through a
 FileStore in a temporary directory) run `tests/torch_distributed_child.py`,
 which imports only the port; the test starts them with a deadline and
-kills them past it. One spawn runs cases (b) to (e), each checked by its
+kills them past it. One spawn runs cases (b) to (g), each checked by its
 own test while the one-process side is computed here:
 
   (a) without a process group: no group made, the coordinator, and
@@ -25,10 +25,24 @@ own test while the one-process side is computed here:
       every step's loss, the history, the report and the final
       parameters against the one-process (2, 1) trainer, the same early
       stop, and files from rank 0 alone;
-  (e) after (b) to (d), rank 1 raises in a forward: rank 0, waiting
+  (f) the trainer of (d) at K = 4 (`scan_steps` 4): each process holds
+      one data row of the global (2, 1) mesh, so each epoch's chunk of
+      4 full batches goes through the runner (`train/step.StepGraph`,
+      its body eager on the CPU) and the rest one step at a time; every
+      step's losses as the epochs staged them (`Trainer._losses`), the
+      history and the report against `gptst_tpu`'s jitted trainer on
+      `make_mesh(2, graph_axis_size=1)` at `scan_steps` 4 (its indexed
+      K-step dispatch; rtol 1e-4) and against the port's one-process
+      (2, 1) trainer, which steps one at a time (rtol 1e-5);
+  (g) GWN's trainer (batch statistics, dropout) at K = 4 the same way,
+      every chunk under a dispatch mode that raises on a host read (as
+      a CUDA graph capture would refuse one): against the one-process
+      (2, 1) trainer (rtol 1e-5);
+  (e) after (b) to (g), rank 1 raises in a forward: rank 0, waiting
       for it in a collective, fails too, within the deadline.
 
-In (b) to (d) both processes end with the same parameters, bit for bit.
+In (b) to (d), (f) and (g) both processes end with the same
+parameters, bit for bit.
 """
 
 import os
@@ -46,15 +60,19 @@ import torch.distributed as dist
 
 from gptst_tpu.config.config import default_config as jax_default_config
 from gptst_tpu.core import distributed as jdist
+from gptst_tpu.data.pipeline import build_dataset as jax_build_dataset
 from gptst_tpu.models import build as jbuild
 from gptst_tpu.parallel import mesh as jmesh
 from gptst_tpu.parallel import spmd as jspmd
 from gptst_tpu.train.loss import build_loss as jbuild_loss
 from gptst_tpu.train.step import make_loss_terms as jmake_loss_terms
+from gptst_tpu.train.trainer import Trainer as JTrainer
+from gptst_tpu_torch.config.config import default_config
 from gptst_tpu_torch.convert import state_dict_to_flax
 from gptst_tpu_torch.core import (
     global_mesh, initialize_distributed, is_coordinator,
 )
+from gptst_tpu_torch.models.build import build_model
 from gptst_tpu_torch.parallel.mesh import make_mesh
 from torch_parity import assert_step_matches_jax, one_torch_thread
 import torch_distributed_child as child
@@ -127,7 +145,7 @@ class Spawn:
 
 @pytest.fixture(scope="module")
 def steps(tmp_path_factory):
-    """Cases (b) to (e) in one spawn of two processes."""
+    """Cases (b) to (g) in one spawn of two processes."""
     spawn = Spawn("steps,fail", tmp_path_factory.mktemp("steps"))
     yield spawn
     spawn.kill()
@@ -241,10 +259,87 @@ def test_trainer_across_processes_matches_one_process(steps, tmp_path):
     _assert_ranks_equal(results, "train", "state")
 
 
+# --- (f), (g) K steps per dispatch across processes ------------------------
+
+def _one_process_k4(kw: dict, seed: int) -> dict:
+    """The port's one-process (2, 1) trainer of `kw`: its data rows are
+    threads, so it steps one at a time."""
+    want = child.train(make_mesh(devices=["cpu"] * 2, graph_axis_size=1),
+                       None, kw, seed)
+    assert not want["chunked"] and want["chunks"] == []
+    return want
+
+
+def _assert_chunked_runs(results: list[dict], key: str, want: dict,
+                         chunks: int) -> None:
+    """Each process's run of `key` took each epoch's chunk of 4 full
+    batches through the runner and matches `want` (losses and history
+    at rtol 1e-5, the report at 1e-4, the parameters at `_assert_close`),
+    the ranks bit for bit."""
+    for r, res in enumerate(results):
+        got = res[key]
+        assert got["chunked"] and got["chunks"] == [4] * chunks
+        assert len(got["epoch_losses"]) == len(want["epoch_losses"])
+        np.testing.assert_allclose(got["epoch_losses"],
+                                   want["epoch_losses"], rtol=1e-5)
+        np.testing.assert_allclose(got["history"], want["history"],
+                                   rtol=1e-5)
+        for part in ("per_horizon", "average"):
+            np.testing.assert_allclose(got["report"][part],
+                                       want["report"][part], rtol=1e-4)
+        _assert_close(got["state"], want["state"], f"rank {r} param")
+    _assert_ranks_equal(results, key, "state")
+
+
+def test_trainer_chunks_across_processes_match_jax_and_one_process(steps):
+    kw = child.TRAIN_K4
+    jcfg = jax_default_config("PEMS08", **kw)
+    jds = jax_build_dataset(jcfg, num_steps=child.NUM_STEPS, seed=jcfg.seed)
+    jm = jmesh.make_mesh(2, graph_axis_size=1)
+    _, forward = jbuild.build_model(jcfg, mesh=jm)
+    net = build_model(default_config("PEMS08", **kw), device="cpu",
+                      seed=4).predictor.net
+    jtr = JTrainer(forward=forward, params=state_dict_to_flax(
+        net.state_dict()), cfg=jcfg, dataset=jds, seed=jcfg.seed, mesh=jm)
+    assert jtr._indexed_step is not None
+    jlosses = []
+    for name in ("_run_indexed", "_run_chunk"):
+        def recording(*a, _fn=getattr(jtr, name)):
+            out = _fn(*a)
+            jlosses.extend(total for total, _ in out)
+            return out
+        setattr(jtr, name, recording)
+    jres = jtr.train()
+    want = _one_process_k4(kw, 4)
+    np.testing.assert_allclose(want["epoch_losses"], jlosses, rtol=1e-4)
+    results = steps.results("train_k4")
+    _assert_chunked_runs(results, "train_k4", want, len(jres["history"]))
+    for res in results:
+        got = res["train_k4"]
+        np.testing.assert_allclose(got["epoch_losses"], jlosses, rtol=1e-4)
+        np.testing.assert_allclose(got["history"], jres["history"],
+                                   rtol=1e-4)
+        for part in ("per_horizon", "average"):
+            np.testing.assert_allclose(got["report"][part],
+                                       jres["report"][part], rtol=1e-4)
+
+
+def test_gwn_chunks_across_processes_read_nothing_on_the_host(steps):
+    t = torch.ones(2)
+    for read in (lambda: t.sum().item(), lambda: float(t[0]),
+                 lambda: torch.nonzero(t)):
+        with pytest.raises(RuntimeError, match="host read"), \
+                child.NoHostReads():
+            read()
+    want = _one_process_k4(child.GWN_K4, 0)
+    _assert_chunked_runs(steps.results("gwn_k4"), "gwn_k4", want,
+                         child.GWN_K4["epochs"])
+
+
 # --- (e) a failing process --------------------------------------------------
 
 def test_a_failing_process_fails_its_peer(steps):
-    steps.results("train")          # (b) to (d) ran before it
+    steps.results("gwn_k4")         # (b) to (g) ran before it
     rcs = steps.wait()
     assert "rank 1 fails" in steps.log(1)
     # rank 0 failed in the gather of the outputs, where it waited

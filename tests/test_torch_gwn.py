@@ -111,13 +111,27 @@ def _directed(n, band, seed, permute):
     return a
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(cfg: tuple, shape: tuple, n_sup: int):
+    """GWN's JAX init of config `cfg` (its items) for x of `shape`,
+    compiled once per config: the values depend on the key and the
+    shapes alone, so it runs on dense zero supports, and the three
+    sparse cases share one compile (~8-11 s of CPU each)."""
+    model = jgwn.GWN(cfg=jgwn.GWNConfig(**dict(cfg)), dim_in=shape[-1],
+                     dim_out=1, horizon=12)
+    n = shape[2]
+    return jax.tree.map(np.asarray, jax.jit(model.init)(
+        jax.random.PRNGKey(1), jnp.zeros(shape),
+        tuple(jnp.zeros((n, n)) for _ in range(n_sup))))
+
+
 def _run_both(cfg, jsups, tsups, x, g, n_sup):
     """Prediction and gradients of sum(pred * g) on both sides, the
     port on the JAX init (noised) carried over."""
     model = jgwn.GWN(cfg=jgwn.GWNConfig(**cfg), dim_in=x.shape[-1],
                      dim_out=1, horizon=12)
-    params = _noisy(jax.tree.map(np.asarray, jax.jit(model.init)(
-        jax.random.PRNGKey(1), jnp.asarray(x), tuple(jsups))))
+    params = _noisy(_jax_init(tuple(sorted(cfg.items())), x.shape,
+                              len(jsups)))
 
     def jloss(p):
         pred = model.apply(p, jnp.asarray(x), tuple(jsups))
@@ -222,7 +236,10 @@ SPARSE = {"bcsr_rcm": (200, True, 32, True),
           "dia_rcm": (40, True, 64, True)}
 
 
+@functools.lru_cache(maxsize=None)
 def _sparse_supports(kind):
+    """The directed graph of `kind` and its supports in both packages,
+    built once for the two tests that read them."""
     band, permute, tile, reorder = SPARSE[kind]
     adj = _directed(480, band, seed=0, permute=permute)
     mats = [asym_adj(adj), asym_adj(adj.T)]

@@ -26,12 +26,18 @@ eagerly through the same buffers and step state as on the card.
     the counts and draw the same coins.
   * A full checkpoint written with `scan_steps` 4 restores into a
     trainer with `scan_steps` 1, and back.
+  * Under a (1, 1) mesh (one data row on one device, the mesh each
+    process holds with one process per card) the chunks go through the
+    runner, bit for bit as without a mesh; under a mesh with threaded
+    data rows or graph ranks the trainer steps one at a time, which it
+    decides at construction and logs once with the reason.
 
 Against `gptst_tpu`'s own K-step dispatch:
 `tests/test_torch_device_data.py::test_resident_split_matches_the_jax_indexed_path`.
 """
 
 import functools
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +51,7 @@ from gptst_tpu_torch.data.pipeline import build_dataset
 from gptst_tpu_torch.models import build as tbuild
 from gptst_tpu_torch.models.gptst import rank_counts
 from gptst_tpu_torch.ops.graph_conv import make_support
+from gptst_tpu_torch.parallel.mesh import make_mesh
 from gptst_tpu_torch.train.trainer import (
     ClippedAdam, Trainer, make_lr_schedule,
 )
@@ -80,9 +87,10 @@ def _data(name: str, windows: int):
 
 
 def _trained(name: str, windows: int, resident: bool, one_steps: bool,
-             monkeypatch):
+             monkeypatch, mesh=None):
     """The per-step losses, parameters and optimizer of `epochs` train
-    epochs; with `one_steps` every chunk goes one step at a time."""
+    epochs (under `mesh`, where given); with `one_steps` every chunk
+    goes one step at a time."""
     if name == "TGCN":
         monkeypatch.setattr(tbuild, "make_support", functools.partial(
             make_support, dense_threshold=0, tile=16))
@@ -90,8 +98,9 @@ def _trained(name: str, windows: int, resident: bool, one_steps: bool,
     cfg = cfg.replace(device_data=resident)
     ds = build_dataset(cfg, num_steps=200, seed=0)
     ds.x_train, ds.y_train = x, y
-    tr = Trainer(model=tbuild.build_model(cfg, device="cpu", seed=0),
-                 cfg=cfg, dataset=ds, seed=0, device="cpu")
+    tr = Trainer(model=tbuild.build_model(cfg, device="cpu", seed=0,
+                                          mesh=mesh),
+                 cfg=cfg, dataset=ds, seed=0, device="cpu", mesh=mesh)
     assert (tr.train_split is not None) == resident
     if one_steps:
         tr._train_steps = lambda batches, order, epoch: tr._one_steps(
@@ -109,6 +118,19 @@ def _trained(name: str, windows: int, resident: bool, one_steps: bool,
 
 
 _ONE_STEPS: dict = {}
+_RUNNER: dict = {}
+
+
+def _assert_equal_runs(got: dict, want: dict) -> None:
+    assert torch.equal(got["losses"], want["losses"])
+    assert got["count"] == want["count"]
+    assert got["params"].keys() == want["params"].keys()
+    for k, p in want["params"].items():
+        assert torch.equal(got["params"][k], p), k
+    assert got["moments"].keys() == want["moments"].keys()
+    for k, st in want["moments"].items():
+        for m in ("mu", "nu"):
+            assert torch.equal(got["moments"][k][m], st[m]), (k, m)
 
 
 @pytest.mark.parametrize("resident", [True, False], ids=["resident", "host"])
@@ -121,7 +143,8 @@ def test_runner_takes_the_one_step_path_bit_for_bit(name, windows, resident,
     windows the resident and the host path cut the same chunks, so
     they give the same step counts, and a batch gathered on either
     holds the same values (`tests/test_torch_device_data.py`)."""
-    got = _trained(name, windows, resident, False, monkeypatch)
+    got = _RUNNER[name, windows, resident] = _trained(
+        name, windows, resident, False, monkeypatch)
     if (name, windows) not in _ONE_STEPS:
         _ONE_STEPS[name, windows] = _trained(name, windows, resident, True,
                                              monkeypatch)
@@ -129,15 +152,50 @@ def test_runner_takes_the_one_step_path_bit_for_bit(name, windows, resident,
     steps = -(-windows // 4)
     assert got["losses"].shape == (MODELS[name][2], steps, 2)
     assert torch.isfinite(got["losses"]).all()
-    assert torch.equal(got["losses"], want["losses"])
-    assert got["count"] == want["count"] == MODELS[name][2] * steps
-    assert got["params"].keys() == want["params"].keys()
-    for k, p in want["params"].items():
-        assert torch.equal(got["params"][k], p), k
-    assert got["moments"].keys() == want["moments"].keys()
-    for k, st in want["moments"].items():
-        for m in ("mu", "nu"):
-            assert torch.equal(got["moments"][k][m], st[m]), (k, m)
+    assert got["count"] == MODELS[name][2] * steps
+    _assert_equal_runs(got, want)
+
+
+@pytest.mark.parametrize("resident", [True, False], ids=["resident", "host"])
+def test_a_one_device_mesh_takes_the_runner_bit_for_bit(resident,
+                                                        monkeypatch):
+    """A (1, 1) CPU mesh: the chunks go through the runner, and the run
+    equals the trainer's without a mesh, bit for bit."""
+    mesh = make_mesh(devices=["cpu"], graph_axis_size=1)
+    got = _trained("TGCN", 43, resident, False, monkeypatch, mesh=mesh)
+    if ("TGCN", 43, resident) not in _RUNNER:
+        _RUNNER["TGCN", 43, resident] = _trained("TGCN", 43, resident, False,
+                                                 monkeypatch)
+    _assert_equal_runs(got, _RUNNER["TGCN", 43, resident])
+
+
+@pytest.mark.parametrize("d,g,why", [
+    (2, 1, "2 data rows are host threads here"),
+    (1, 2, "2 graph ranks are devices here")], ids=["2-1", "1-2"])
+def test_threaded_rows_and_graph_ranks_step_one_at_a_time(d, g, why,
+                                                          caplog):
+    """Under a mesh whose data rows are threads or whose graph ranks
+    are devices of this process, the trainer decides at construction
+    to step one at a time, logs why once, and takes no chunk through
+    the runner."""
+    cfg, x, y = _data("TGCN", 40)
+    ds = build_dataset(cfg, num_steps=200, seed=0)
+    ds.x_train, ds.y_train = x, y
+    mesh = make_mesh(devices=["cpu"] * (d * g), graph_axis_size=g)
+    logger = logging.getLogger("trainer")
+    logger.addHandler(caplog.handler)
+    try:
+        tr = Trainer(model=tbuild.build_model(cfg, device="cpu", seed=0,
+                                              mesh=mesh),
+                     cfg=cfg, dataset=ds, seed=0, device="cpu", mesh=mesh)
+        assert np.isfinite(tr.train_epoch(1))
+    finally:
+        logger.removeHandler(caplog.handler)
+    assert not tr.chunked and not tr.captured and tr._runner is None
+    said = [r.getMessage() for r in caplog.records
+            if r.getMessage().startswith("K steps per dispatch")]
+    assert said == [f"K steps per dispatch: one step at a time under this "
+                    f"mesh ({why})"]
 
 
 def test_staged_clipped_adam_matches_optax_in_float64():

@@ -148,7 +148,10 @@ def test_three_adam_steps_match_the_jax_trainer():
     """`mask_huber` (the STSGCN config's loss), Adam, 3 train steps on
     the builder's graph (PEMS08's synthetic sensor graph) from the
     port's init, carried to JAX (a JAX init is one more compile): the
-    per-step losses rtol 1e-4."""
+    per-step losses rtol 1e-4. Each trainer runs its one train epoch
+    alone (JAX with the key its `train()` folds in for epoch 1): no
+    validation or test pass, which would compile two more JAX
+    programs."""
     jcfg = jax_default_config("PEMS08", **CFG, scan_steps=1)
     assert jcfg.loss_func == "mask_huber"
     jds = jax_build_dataset(jcfg, num_steps=220, seed=jcfg.seed)
@@ -162,7 +165,7 @@ def test_three_adam_steps_match_the_jax_trainer():
     run_chunk = jtr._run_chunk
     jtr._run_chunk = lambda *a, **k: [jlosses.append(t) or (t, f)
                                       for t, f in run_chunk(*a, **k)]
-    jtr.train()
+    jtr.train_epoch(1, jax.random.fold_in(jax.random.PRNGKey(jtr.seed), 1))
     assert cfg.loss_func == "mask_huber"
     ds = build_dataset(cfg, num_steps=220, seed=cfg.seed)
     tr = Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
@@ -176,7 +179,7 @@ def test_three_adam_steps_match_the_jax_trainer():
         return out
 
     tr._train_batch = recording
-    tr.train()
+    tr.train_epoch(1)
     assert len(losses) == len(jlosses) == 3
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
 

@@ -11,11 +11,13 @@ the same functions to run the one-process side.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -59,6 +61,14 @@ TRAIN = dict(mode="ori", model="TGCN", num_nodes=20, batch_size=16,
              early_stop_patience=1, ckpt_every_epochs=1, debug=False,
              log_step=1000, predictor_overrides=(("rnn_units", "8"),))
 NUM_STEPS = 220
+# (f): TRAIN at K = 4: each epoch's one chunk of 4 full batches goes
+# through the runner (`StepGraph`, its body eager on the CPU), the 2
+# full batches left and the ragged tail one step at a time
+TRAIN_K4 = dict(TRAIN, scan_steps=4)
+# (g): GWN (batch statistics, dropout) at K = 4, 2 epochs
+GWN_K4 = dict(mode="ori", model="GWN", num_nodes=12, batch_size=16,
+              epochs=2, scan_steps=4, lr_decay=False, early_stop=False,
+              debug=False, log_step=1000, predictor_overrides=(("nhid", "4"),))
 
 
 def pretrain_model():
@@ -116,34 +126,69 @@ def one_step(name: str, mesh) -> dict:
             "params": model.state_dict()}
 
 
-def train(mesh, log_dir: str) -> dict:
-    """(d) The trainer of TRAIN under `mesh`: every step's loss, the
-    history (its length the early-stop epoch), the test report, the
-    final parameters and the files written to `log_dir`."""
-    cfg = default_config("PEMS08", **TRAIN)
+class NoHostReads(TorchDispatchMode):
+    """Raises on an op that reads the device on the host or sizes its
+    output by the data (what a CUDA graph capture refuses)."""
+
+    READS = {"_local_scalar_dense", "nonzero", "bincount", "unique",
+             "masked_select"}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.__name__.split(".")[0] in self.READS:
+            raise RuntimeError(f"a host read inside a chunk: {func}")
+        return func(*args, **(kwargs or {}))
+
+
+def train(mesh, log_dir: str | None, kw: dict = TRAIN, seed: int = 4,
+          watch: bool = False) -> dict:
+    """(d), (f), (g) The trainer of `kw` under `mesh`: every one-step
+    batch's loss (`_train_batch`), every step's losses as the epochs
+    staged them (`_losses`), the history (its length the early-stop
+    epoch), the test report, the final parameters, the files written
+    to `log_dir`, whether the chunks went through the runner and the
+    steps they took there. With `watch`, every chunk runs under
+    `NoHostReads`."""
+    cfg = default_config("PEMS08", **kw)
     ds = build_dataset(cfg, num_steps=NUM_STEPS, seed=cfg.seed)
-    model = build_model(cfg, device="cpu", seed=4, mesh=mesh)
+    model = build_model(cfg, device="cpu", seed=seed, mesh=mesh)
     tr = Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
                  log_dir=log_dir, device="cpu", mesh=mesh)
-    losses, batch = [], tr._train_batch
+    losses, epochs, chunks = [], [], []
+    batch, train_epoch, train_steps = (tr._train_batch, tr.train_epoch,
+                                       tr._train_steps)
 
     def recording(*a):
         out = batch(*a)
         losses.append(out[0])
         return out
 
-    tr._train_batch = recording
+    def epoch(e):
+        out = train_epoch(e)
+        epochs.append(tr._losses[:, 0].clone())
+        return out
+
+    def steps(batches, *a):
+        chunks.append(len(batches))
+        with NoHostReads() if watch else contextlib.nullcontext():
+            return train_steps(batches, *a)
+
+    tr._train_batch, tr.train_epoch, tr._train_steps = recording, epoch, steps
     res = tr.train()
     return {"losses": [float(v) for v in losses],
+            "epoch_losses": [float(v) for e in epochs for v in e],
             "history": res["history"], "report": res["report"],
-            "state": model.state_dict(), "files": sorted(os.listdir(log_dir))}
+            "state": model.state_dict(), "chunked": tr.chunked,
+            "chunks": chunks,
+            "files": sorted(os.listdir(log_dir)) if log_dir else []}
 
 
 def case_steps(rank: int, out: str) -> dict:
     mesh = global_mesh(1, devices=["cpu"])
     log_dir = os.path.join(out, f"log{rank}")
     os.makedirs(log_dir)
-    res = {"pretrain": pretrain_step(mesh), "train": train(mesh, log_dir)}
+    res = {"pretrain": pretrain_step(mesh), "train": train(mesh, log_dir),
+           "train_k4": train(mesh, None, TRAIN_K4),
+           "gwn_k4": train(mesh, None, GWN_K4, seed=0, watch=True)}
     for name in STEPS:
         m = step_mesh(name)
         res[name] = {**one_step(name, m), "mesh": (m.shape, m.data_offset)}
