@@ -178,7 +178,23 @@ Phases, one JSON line each; any failure exits non-zero:
              train losses, best loss and test (GPT-ST: train split)
              averages must agree within `DEVICE_DATA_RTOL`.
              `chip_phases.py device_data_abba` runs each model's paths
-             afresh in the order host, resident, resident, host.
+             afresh in the order host, resident, resident, host. Then
+             the split over 'graph' (`case="graph"`): the TGCN CLI
+             trainer at 16,384 nodes, batch 16, 51 windows, on a (1, 2)
+             mesh of `[cuda:0, cuda:0]`, each rank holding its half of
+             every window, against `-device_data False` from the same
+             weights: the split's bytes per rank (half the whole), no
+             batch copied from the host in the train steps, the paths'
+             losses within `DEVICE_DATA_RTOL`. With 2 or more cards
+             (`case="graph_cards"`): the same trainer on (1, 2) and on
+             (2, 1) of cuda:0 and cuda:1 (`bsr_spmm` launched in both
+             rows), and with 4 GPT-ST pretrain at 16,384 nodes, batch
+             8, on (2, 2): ms per step by epoch, peak allocated and the
+             split's bytes per card, and epoch 1's device-to-device
+             copies by what they carried (`BatchCopies`: x, y, the
+             labels brought to the root, the rest), from its profiler
+             trace; x's must be 0 on the resident path. With one card
+             it prints that it did not run.
   step_graph the trainer's K steps per dispatch (`train/step.StepGraph`,
              K = 4 here): trainers built as `run.main` builds them take
              2 epochs of 2 K + 2 steps with each chunk of K full batches
@@ -1277,6 +1293,19 @@ class HostCopies:
             setattr(owner, name, fn)
 
 
+def split_bytes(tr) -> dict:
+    """The bytes of a trainer's resident train split on each device
+    (empty on the host path): the (x, y) pair on its device, or under a
+    mesh each device's parts (`parallel/mesh.ResidentSplit`)."""
+    split = tr.train_split
+    if split is None:
+        return {}
+    out: dict = {}
+    for t in split if isinstance(split, tuple) else split.tensors():
+        out[str(t.device)] = out.get(str(t.device), 0) + t.nbytes
+    return out
+
+
 class TrainProbe:
     """Watches `Trainer`'s train steps while entered (`_train_batch`,
     one step, and `_train_steps`, a chunk through `StepGraph`): the
@@ -1314,8 +1343,7 @@ class TrainProbe:
             return counted
 
         def keep(tr, *args, **kw):
-            self.split_bytes.append(sum(
-                t.nbytes for t in tr.train_split or ()))
+            self.split_bytes.append(sum(split_bytes(tr).values()))
             if self.keep:
                 self.trainers.append(tr)
             return train(tr, *args, **kw)
@@ -3336,7 +3364,9 @@ def phase_device_data(rec: dict, abba: bool = False) -> None:
     """`cli`'s TGCN run and `gptst_cli`'s pretrain run (made here where
     those phases did not run) against a run of each with `-device_data
     False` (`device_data_pair`). With `abba`, fresh runs of each model
-    in the order host, resident, resident, host."""
+    in the order host, resident, resident, host. Then the split over
+    'graph': `device_data_graph` on one card, and
+    `device_data_graph_cards` with 2 or more."""
     host = ("-device_data", "False")
 
     def gptst(extra):
@@ -3362,6 +3392,376 @@ def phase_device_data(rec: dict, abba: bool = False) -> None:
              "host" if abba else "resident (earlier phase), host",
              **kw, **line)
         check_device_data(line)
+    device_data_graphs(rec)
+
+
+def device_data_graphs(rec: dict, one_card: bool = True) -> None:
+    """The device_data cases over 'graph' on a 16,384-node PEMS08.npz of
+    `DEVICE_DATA_GRAPH_TIME_STEPS` steps: `device_data_graph` (unless not
+    `one_card`) and `device_data_graph_cards`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["-dataset", "PEMS08", "-num_nodes", str(N_BIG),
+                  "-data_root", write_pems08(tmp, N_BIG,
+                                             DEVICE_DATA_GRAPH_TIME_STEPS),
+                  "-epochs", "2", "-lr_decay", "False", "-early_stop",
+                  "False", "-log_step", "1000"]
+        argv = [*common, "-mode", "ori", "-model", "TGCN", "-batch_size",
+                str(BATCH)]
+        if one_card:
+            device_data_graph(rec, argv)
+        device_data_graph_cards(rec, argv, [
+            *common, "-mode", "pretrain", "-batch_size", str(GPTST_BATCH),
+            "-change_epoch", "1"])
+
+
+# the device_data phase's cases over 'graph': a PEMS08.npz of these time
+# steps (3 validation and 3 test batches of 16), the CLI trainer's train
+# split cut to these windows (full batches and a ragged tail), 2 epochs
+DEVICE_DATA_GRAPH_TIME_STEPS = 300
+DEVICE_DATA_GRAPH_WINDOWS = 3 * BATCH + 3
+DEVICE_DATA_GPTST_WINDOWS = 3 * GPTST_BATCH + 3
+# the memcpy kinds between devices in a profiler trace
+D2D_KINDS = ("DtoD", "PtoP")
+
+
+class BatchCopies:
+    """While entered, the copies of a train step's batch between
+    devices are tagged and sized. `batch_x` and `batch_y` tag each
+    `Tensor.to` whose source shares its storage with the x or y that a
+    data-parallel step was handed (its rows' shards, or the whole batch,
+    and views of either), or with an earlier tagged copy's result;
+    `labels` tags `ResidentSplit.batch`, whose only copies between
+    devices are the labels it brings to the root. Each tag's copies run
+    inside `torch.profiler.record_function` ranges of its name, and
+    `moved` holds the bytes of their results that landed on another
+    device. A context manager: patches on enter, restores on exit.
+
+    `count(trace, steps)` reads a profiler trace of the steps: each
+    memcpy event between devices (`gpu_memcpy`, DtoD or PtoP) and each
+    copy kernel is joined by its correlation id to the runtime call that
+    launched it, and goes to the tag of the range that holds that call
+    on the same thread, or to `other` (the halo exchange, the outputs'
+    gather, the parameters read on other devices). A contiguous copy
+    between cards is a memcpy, which the trace sizes; a strided one
+    (a channel of the batch: the base channel the model reads, the
+    labels' flow channel) runs as a copy kernel that reads the peer
+    card, which the trace does not size: its bytes come from `moved`.
+    Returns, per step, `moved` by tag and the trace's memcpy events,
+    their bytes and the copy kernels by tag."""
+
+    TAGS = ("batch_x", "batch_y", "labels")
+
+    def __enter__(self):
+        import torch
+
+        from gptst_tpu_torch.parallel import mesh as M, spmd
+
+        self.moved = dict.fromkeys(self.TAGS, 0)
+        self.storages = {"batch_x": set(), "batch_y": set()}
+        record = torch.profiler.record_function
+        T = torch.Tensor
+        call, batch, to = self._saved = (spmd.DataParallel.__call__,
+                                         M.ResidentSplit.batch, T.to)
+
+        def storages(x) -> set:
+            if x is None:
+                return set()
+            rows = x.rows if isinstance(x, M.PlacedBatch) else [x]
+            return {t.untyped_storage().data_ptr() for r in rows or ()
+                    for t in (r if isinstance(r, list) else [r])}
+
+        def calling(dp, x, *args, **kw):
+            self.storages = {"batch_x": storages(x),
+                             "batch_y": storages(kw.get("y"))}
+            return call(dp, x, *args, **kw)
+
+        def moving(t, *args, **kw):
+            try:
+                src = t.untyped_storage().data_ptr()
+            except (RuntimeError, NotImplementedError):    # no storage
+                return to(t, *args, **kw)
+            tag = next((k for k, v in self.storages.items() if src in v),
+                       None)
+            if tag is None:
+                return to(t, *args, **kw)
+            with record(tag):
+                out = to(t, *args, **kw)
+            if out.device != t.device:
+                self.moved[tag] += out.nbytes
+                self.storages[tag].add(out.untyped_storage().data_ptr())
+            return out
+
+        def gathering(rs, *args, **kw):
+            self.storages = {"batch_x": set(), "batch_y": set()}
+            with record("labels"):
+                out = batch(rs, *args, **kw)
+            label = next(b.label for b in out if b.label is not None)
+            sh = rs.rows[0]
+            off = sum(hi - lo for (lo, hi), d in zip(
+                map(sh.node_range, range(sh.parts)), sh.devices)
+                if d != rs.root)
+            self.moved["labels"] += label.nbytes * off // sh.n
+            return out
+
+        spmd.DataParallel.__call__, M.ResidentSplit.batch = calling, gathering
+        T.to = moving
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch
+
+        from gptst_tpu_torch.parallel import mesh as M, spmd
+
+        spmd.DataParallel.__call__, M.ResidentSplit.batch, torch.Tensor.to = (
+            self._saved)
+
+    def count(self, path: str, steps: int) -> dict:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        ranges: dict = {}
+        for e in events:
+            if e.get("cat") == "user_annotation" and e["name"] in self.TAGS:
+                ranges.setdefault((e["pid"], e["tid"]), []).append(
+                    (e["ts"], e["ts"] + e["dur"], e["name"]))
+        calls = {e["args"]["correlation"]: e for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+        trace = {t: dict(memcpy=0.0, memcpy_bytes=0.0, copy_kernels=0.0)
+                 for t in (*self.TAGS, "other")}
+        for e in events:
+            memcpy = e.get("cat") == "gpu_memcpy" and any(
+                k in e["name"] for k in D2D_KINDS)
+            kernel = e.get("cat") == "kernel" and "copy" in e["name"].lower()
+            if not (memcpy or kernel):
+                continue
+            tag = "other"
+            c = calls.get(e.get("args", {}).get("correlation"))
+            if c is not None:
+                tag = next((name for lo, hi, name in ranges.get(
+                    (c["pid"], c["tid"]), ()) if lo <= c["ts"] <= hi),
+                    "other")
+            if memcpy:
+                trace[tag]["memcpy"] += 1 / steps
+                trace[tag]["memcpy_bytes"] += e["args"].get("bytes", 0) / steps
+            else:
+                trace[tag]["copy_kernels"] += 1 / steps
+        return dict(d2d_bytes_per_step={k: v / steps
+                                        for k, v in self.moved.items()},
+                    trace_copies_per_step=trace)
+
+
+def graph_data_run(cfg, ds, model, mesh, host: bool, trace: str | None):
+    """Two epochs through `Trainer.train` of `model` under `mesh` on the
+    resident split (or, with `host`, `-device_data False`): ms per step
+    by epoch, peak allocated on each card over what it held before, the
+    split's bytes on each card and each rank's, `TrainProbe`'s
+    host-to-device copies inside the train steps, the losses, best loss
+    and test average, each data row's forward launches, and with `trace`
+    the device-to-device copies of epoch 1's train steps by what they
+    carried (`BatchCopies`, its trace read and deleted)."""
+    import torch
+
+    from gptst_tpu_torch.parallel.rows import ROW_LAUNCHES
+    from gptst_tpu_torch.train import Trainer
+
+    devs = list(dict.fromkeys(mesh.devices.flat))
+    for d in devs:
+        torch.cuda.synchronize(d)
+    held = {str(d): torch.cuda.memory_allocated(d) for d in devs}
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    ROW_LAUNCHES.clear()
+    copies: dict = {}
+    with TrainProbe() as probe:
+        tr = Trainer(model=model, cfg=cfg.replace(device_data=not host),
+                     dataset=ds, seed=cfg.seed, device=mesh.root, mesh=mesh)
+        epoch_fn = tr.train_epoch
+
+        def train_epoch(epoch: int):
+            if trace is None or epoch != 1:
+                return epoch_fn(epoch)
+            with BatchCopies() as tagged, torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA]
+            ) as prof:
+                out = epoch_fn(epoch)
+                for d in devs:
+                    torch.cuda.synchronize(d)
+            prof.export_chrome_trace(trace)
+            copies.update(tagged.count(trace, tr.steps_per_epoch))
+            os.remove(trace)
+            return out
+
+        tr.train_epoch = train_epoch
+        res = tr.train()
+        for d in devs:
+            torch.cuda.synchronize(d)
+    steps = res["steps_per_epoch"]
+    split = tr.train_split
+    run = dict(
+        steps_per_epoch=steps,
+        ms_per_step_by_epoch=[s / steps * 1e3 for s in res["epoch_seconds"]],
+        peak_over_held_by_card={str(d): torch.cuda.max_memory_allocated(d)
+                                - held[str(d)] for d in devs},
+        split_bytes_by_card=split_bytes(tr),
+        split_bytes_by_rank=(split.rank_bytes() if split is not None
+                             else None),
+        train_loss_by_epoch=res["history"], best_loss=res["best_loss"],
+        test_average=res["report"]["average"],
+        row_forward_launches={r: {k: v for k, v in n.items() if v}
+                              for r, n in sorted(ROW_LAUNCHES.items())},
+        **probe.line(len(res["history"]) * steps), **copies)
+    run.pop("resident_split_bytes")
+    del tr, split
+    torch.cuda.empty_cache()
+    return run
+
+
+def graph_data_pair(argv: list[str], windows: int, model, mesh,
+                    profile: bool = False) -> dict:
+    """`graph_data_run` of `model` on the resident split, then on the
+    host path from the same weights (reloaded), each the CLI trainer of
+    `argv` cut to `windows`; the largest relative gap between the
+    paths' losses, best loss and test average."""
+    import numpy as np
+
+    cfg, ds = cli_dataset(tuple(argv), windows)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, host in (("resident", False), ("host", True)):
+            model.load_state_dict(init)
+            runs[path] = graph_data_run(
+                cfg, ds, model, mesh, host,
+                os.path.join(tmp, "trace.json") if profile else None)
+
+    def vals(a: dict):
+        return np.asarray(a["train_loss_by_epoch"] + [a["best_loss"]]
+                          + list(a["test_average"]), np.float64)
+
+    r, h = vals(runs["resident"]), vals(runs["host"])
+    return dict(mesh=dict(mesh.shape), devices=[str(d) for d in
+                                                mesh.devices.flat],
+                steps_per_epoch=runs["resident"]["steps_per_epoch"],
+                split_bytes_whole=int(ds.x_train.nbytes + ds.y_train.nbytes),
+                **runs, rel_gap_resident_host=float(
+                    (np.abs(r - h) / np.abs(h)).max()),
+                rtol=DEVICE_DATA_RTOL)
+
+
+def check_graph_data(line: dict) -> None:
+    """A `graph_data_pair` line: the resident path holds its split on
+    every rank, 1/G of it each where the graph axis divides N, copies no
+    batch from the host in its train steps and, where its copies were
+    counted, none of x between devices; the host path holds none; the
+    paths agree within the rtol."""
+    res, host = line["resident"], line["host"]
+    g = line["mesh"]["graph"]
+    ranks = [b for row in res["split_bytes_by_rank"] for b in row]
+    assert ranks and all(b * g == line["split_bytes_whole"] for b in ranks), (
+        line)
+    assert res["h2d_batch_copies_in_train_steps"] == 0, res
+    assert host["split_bytes_by_card"] == {}, host
+    steps = 2 * line["steps_per_epoch"]
+    assert host["h2d_batch_copies_in_train_steps"] == 2 * steps, host
+    if "d2d_bytes_per_step" in res:
+        # the resident path moves no x and no y between devices; the
+        # host path's root sends its rows and ranks their x (the check
+        # sees copies where there are some)
+        for tag in ("batch_x", "batch_y"):
+            assert res["d2d_bytes_per_step"][tag] == 0, res
+            assert not any(res["trace_copies_per_step"][tag].values()), res
+        assert host["d2d_bytes_per_step"]["batch_x"] > 0, host
+    assert line["rel_gap_resident_host"] <= line["rtol"], line
+
+
+def tgcn_halo_model(rec: dict, mesh):
+    """TGCN at its published widths (seed 0) on a halo of the CLI graph
+    over `mesh`'s graph ranks, node-sharded (`GraphPredictor.mesh`)."""
+    import numpy as np
+
+    from gptst_tpu_torch.graph import partition as P
+    from gptst_tpu_torch.ops.graph_conv import make_sharded_support
+
+    sym = rec["_cli_sym"]
+    rows, cols = np.nonzero(sym)
+    halo = make_sharded_support(None, mesh, part=P.partition_graph_coo(
+        rows, cols, sym[rows, cols], N_BIG, mesh.shape["graph"]))
+    model = bind("TGCN", tgcn_net(), (halo,))
+    model.predictor.mesh = mesh
+    return model
+
+
+def device_data_graph(rec: dict, argv: list[str]) -> None:
+    """`case="graph"`: the TGCN CLI trainer at 16,384 nodes on a (1, 2)
+    mesh of `[cuda:0, cuda:0]`, its split node-sharded over the two
+    ranks, against `-device_data False` (`graph_data_pair`)."""
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(devices=["cuda:0"] * 2, graph_axis_size=2)
+    model = tgcn_halo_model(rec, mesh)
+    line = graph_data_pair(argv, DEVICE_DATA_GRAPH_WINDOWS, model, mesh)
+    del model
+    emit("device_data", case="graph", model="TGCN", nodes=N_BIG,
+         batch=BATCH, windows=DEVICE_DATA_GRAPH_WINDOWS, **line,
+         seconds=time.perf_counter() - t0)
+    check_graph_data(line)
+
+
+def device_data_graph_cards(rec: dict, argv: list[str],
+                            gptst_argv: list[str]) -> None:
+    """`case="graph_cards"`, with 2 or more cards: the TGCN CLI trainer
+    at 16,384 nodes on (1, 2) of cuda:0 and cuda:1 (a halo of the CLI
+    graph) and on (2, 1) (each data row's own whole split and
+    `bsr_spmm` support), and with 4 cards GPT-ST pretrain at 16,384
+    nodes, batch 8, on (2, 2); each resident run against the host path
+    from the same weights (`graph_data_pair`), epoch 1's train steps
+    profiled for the device-to-device copies by what they carried
+    (`BatchCopies`). On one card it prints that it did not run."""
+    import torch
+
+    from gptst_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("device_data", case="graph_cards", ran=False, cards=count)
+        return
+    from gptst_tpu_torch.models.build import build_model
+
+    cases = [("TGCN", (1, 2)), ("TGCN", (2, 1))]
+    if count >= 4:
+        cases.append(("GPT-ST pretrain", (2, 2)))
+    for name, (d, g) in cases:
+        t0 = time.perf_counter()
+        mesh = make_mesh(devices=[f"cuda:{i}" for i in range(d * g)],
+                         graph_axis_size=g)
+        if name == "TGCN" and g > 1:
+            model, args, windows = (tgcn_halo_model(rec, mesh), argv,
+                                    DEVICE_DATA_GRAPH_WINDOWS)
+        elif name == "TGCN":
+            model = bind("TGCN", tgcn_net(),
+                         (rec["_supports"]["cli_graph"],))
+            model.predictor.mesh = mesh
+            args, windows = argv, DEVICE_DATA_GRAPH_WINDOWS
+        else:
+            args, windows = gptst_argv, DEVICE_DATA_GPTST_WINDOWS
+            cfg, ds = cli_dataset(tuple(args), windows)
+            model = build_model(cfg, device=mesh.root, seed=cfg.seed,
+                                scaler_zeros=ds.scaler_zeros, mesh=mesh)
+        line = graph_data_pair(args, windows, model, mesh, profile=True)
+        del model
+        if d > 1 and name == "TGCN":      # each row's own support
+            for run in (line["resident"], line["host"]):
+                launched = run["row_forward_launches"]
+                assert all(launched.get(r, {}).get("bsr_spmm", 0) > 0
+                           for r in range(d)), launched
+        emit("device_data", case="graph_cards", model=name,
+             nodes=N_BIG, batch=(BATCH if name == "TGCN"
+                                 else GPTST_BATCH),
+             windows=windows, **line, seconds=time.perf_counter() - t0)
+        check_graph_data(line)
+        torch.cuda.empty_cache()
 
 
 # K of the step_graph phase's trainers: 2 K full batches (two chunks

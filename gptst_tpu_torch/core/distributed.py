@@ -21,7 +21,12 @@ global 'data' axis spanning every process. The data-parallel step
 Every process loads the whole dataset from the same seed, walks the same
 shuffled batches and takes its rows' slice of each global batch
 (`cfg.batch_size` is the global batch); only the coordinator writes
-checkpoints and logs.
+checkpoints and logs. The resident train split goes on this process's
+rows alone: with a graph axis G above 1 (which never spans processes)
+each of its rows' graph ranks holds its nodes of every window, as on
+one process (`parallel/mesh.place_split`), so each process gathers its
+rows' slices, and the loss's labels of the whole global batch, from
+its own devices.
 """
 
 from __future__ import annotations

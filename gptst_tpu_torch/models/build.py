@@ -32,7 +32,9 @@ from gptst_tpu_torch.ops.graph_conv import (
     MeshRows, SparseSupport, make_support, sharding_mesh, strided_rows,
     use_sharding_mesh,
 )
-from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS, NodeShards, node_shards
+from gptst_tpu_torch.parallel.mesh import (
+    GRAPH_AXIS, NodeShards, node_shards, per_rank,
+)
 from gptst_tpu_torch.parallel.rows import current_row
 from gptst_tpu_torch.utils.device import resolve_device
 
@@ -141,7 +143,9 @@ def build_predictor(cfg: FrameworkConfig, dim_in: int | None = None,
 
 class OriModel(nn.Module):
     """Ori mode: the bare predictor on the base channels of the full
-    (B, T, N, base+2) input (`model/Model.py:119-127`)."""
+    (B, T, N, base+2) input (`model/Model.py:119-127`), or of each of
+    its node shards, a list (a data row's batch from the resident
+    split)."""
 
     def __init__(self, predictor: nn.Module, input_base_dim: int):
         super().__init__()
@@ -151,8 +155,8 @@ class OriModel(nn.Module):
     def forward(self, x: torch.Tensor, y=None, step=None,
                 generator: torch.Generator | None = None) -> ModelOutput:
         return ModelOutput(pred=self.predictor(
-            x[..., : self.input_base_dim], y=y, step=step,
-            generator=generator))
+            per_rank(lambda t: t[..., : self.input_base_dim], x), y=y,
+            step=step, generator=generator))
 
 
 def predictor_forward(cfg: FrameworkConfig, predictor: nn.Module) -> OriModel:
@@ -321,8 +325,9 @@ class GraphPredictor(nn.Module):
     node-sharded over the graph ranks of the calling data row
     (`shards`) where the graph axis is above 1 and divides N: its input
     is cut into the ranks' node shards (or comes so, from eval's
-    node-sharded encoder) and its output gathered on the row's first
-    device, where the loss reads it. Else it runs whole there. A
+    node-sharded encoder or the trainer's resident split, as does
+    CCRNN's y) and its output gathered on the row's first device, where
+    the loss reads it. Else it runs whole there. A
     constant graph that the sharded network reads only by rows is then
     a `MeshRows` (`sharded_graph`)."""
 
@@ -357,8 +362,8 @@ class GraphPredictor(nn.Module):
         shards = self.shards((x_base[0] if split else x_base).device)
         if shards is None:
             return self.net(x_base, *self.graph, **kw)
-        xs = x_base if split else shards.split(x_base)
-        return shards.gather(self.net(xs, *self.graph, shards=shards, **kw))
+        return shards.gather(self.net(shards.split(x_base), *self.graph,
+                                      shards=shards, **kw))
 
 
 # --- registrations ----------------------------------------------------------

@@ -39,7 +39,7 @@ from torch import nn
 
 from gptst_tpu_torch.models.api import ModelOutput
 from gptst_tpu_torch.ops.dtypes import linear
-from gptst_tpu_torch.parallel.mesh import module_on
+from gptst_tpu_torch.parallel.mesh import module_on, per_rank
 
 
 def torch_linear(din: int, dout: int,
@@ -127,15 +127,21 @@ class EnhancedModel(nn.Module):
         with torch.no_grad():
             return self.encoder.encode(x.to(self._encoder_dtype()))
 
-    def fused_shards(self, x: torch.Tensor) -> list | None:
+    def fused_shards(self, x) -> list | None:
         """The head's output on each graph rank's node shard, from the
         encoder's shards left on their ranks, where the predictor runs
-        node-sharded over the encoder's ranks; else None."""
-        shards = getattr(self.predictor, "shards", lambda _: None)(x.device)
+        node-sharded over the encoder's ranks; else None. x is the row's
+        input, whole or as its ranks' node shards (the resident split's
+        batch, which then stays on its ranks)."""
+        lead = x[0] if isinstance(x, list) else x
+        shards = getattr(self.predictor, "shards", lambda _: None)(
+            lead.device)
         if shards is None or self.encoder.shards(x) != shards:
             return None
+        dtype = self._encoder_dtype()
         with torch.no_grad():
-            _, emb = self.encoder.encode_shards(x.to(self._encoder_dtype()))
+            _, emb = self.encoder.encode_shards(
+                per_rank(lambda t: t.to(dtype), x))
         return [module_on(self.head, e.device)(xg, e)
                 for xg, e in zip(shards.split(x), emb)]
 

@@ -26,7 +26,7 @@ through `.to()` (the gradients meet on the parameters' device). The
 ranks meet only where the one-device math couples nodes, in program
 order:
   * the time embeddings read node 0's calendar channels: computed once
-    from the row's whole input and copied to each rank;
+    from rank 0's shard, where node 0 lies, and copied to each rank;
   * the mask: drawn once from the guide gathered over the row's ranks
     (and over the data rows), each rank taking its nodes;
   * Cap's sums over nodes (the routing's two, `ops/capsule.py`, and the
@@ -75,7 +75,7 @@ from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.ops.capsule import dynamic_routing, squash
 from gptst_tpu_torch.ops.param_pool import node_param_linear, time_param_linear
 from gptst_tpu_torch.ops.recurrent import remat_cell
-from gptst_tpu_torch.parallel.mesh import NodeShards, node_shards
+from gptst_tpu_torch.parallel.mesh import NodeShards, node_shards, per_rank
 from gptst_tpu_torch.parallel.rows import current_row, on_global_batch
 
 
@@ -90,6 +90,27 @@ def xavier_limit(shape: tuple[int, ...]) -> float:
 def _xavier(shape: tuple[int, ...], gen: torch.Generator) -> nn.Parameter:
     lim = xavier_limit(shape)
     return nn.Parameter(torch.rand(shape, generator=gen) * (2 * lim) - lim)
+
+
+def _node0(source) -> torch.Tensor:
+    """The row's input, or the shard of it that holds node 0 (rank 0's)
+    where it comes as the list of the ranks' node shards (a data row's
+    batch from the trainer's resident split)."""
+    return source[0] if isinstance(source, list) else source
+
+
+def _calendar(source, b: int) -> torch.Tensor:
+    """Node 0's calendar channels (B, T, 2), contiguous: the weight
+    gradients of the layers that read them then sum in one order,
+    whether the batch came whole or as node shards."""
+    return _node0(source)[:, :, 0, b:b + 2].contiguous()
+
+
+def _base_shards(source, b: int, shards: NodeShards) -> list[torch.Tensor]:
+    """Each rank's shard of the base channels, contiguous (as
+    `_calendar`)."""
+    return [t.contiguous() for t in shards.split(
+        per_rank(lambda t: t[..., :b], source))]
 
 
 def _at(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -304,7 +325,8 @@ class STHCN(nn.Module):
     hyperTem3 -> cap2 -> hyperTem4, with the time embeddings computed
     once from node 0's calendar channels. Returns (out, routing of cap1,
     routing of cap2); with `shards`, x_in and the results are lists of
-    the ranks' node shards, and `source` is the row's whole input."""
+    the ranks' node shards, and `source` is the row's input, whole or as
+    its ranks' shards (only node 0's calendar channels are read)."""
 
     def __init__(self, cfg: GPTSTConfig, gen: torch.Generator):
         super().__init__()
@@ -328,7 +350,7 @@ class STHCN(nn.Module):
             shards = NodeShards((x_in.device,), x_in.shape[2])
             x_in = [x_in]
         b = self.cfg.input_base_dim
-        tcat = source[:, :, 0, b:b + 2]
+        tcat = _calendar(source, b)
         time_eb = shards.replicate(self.time_feature[0](tcat))
         teb = shards.replicate(self.time_feature[1](tcat))
         time_eb_spg = self.time_feature_spg(tcat)
@@ -459,30 +481,30 @@ class GPTST(nn.Module):
         self.teb4mask = TimeFeature(c.embed_dim, gen)
         self.neb4mask = _xavier((c.num_nodes, c.embed_dim), gen)
 
-    def shards(self, source: torch.Tensor) -> NodeShards:
+    def shards(self, source) -> NodeShards:
         """The node shards of the calling data row (row 0 outside a
         data-parallel forward), or one shard on source's device."""
         return node_shards(self.mesh, self.cfg.num_nodes,
-                           current_row() or 0, source.device)
+                           current_row() or 0, _node0(source).device)
 
     def policy(self, source, base, shards) -> list[torch.Tensor]:
         """The mask policy's (B, T, n_g, HS) softmax on each rank's
         nodes; `base` the ranks' shards of the base channels."""
         b = self.cfg.input_base_dim
-        time_eb = shards.replicate(self.teb4mask(source[:, :, 0, b:b + 2]))
+        time_eb = shards.replicate(self.teb4mask(_calendar(source, b)))
         return [torch.softmax(self.mlp_rl(xg, tg, ng), dim=-1)
                 for xg, tg, ng in zip(base, time_eb,
                                       shards.split(self.neb4mask, dim=0))]
 
-    def pretrain(self, source: torch.Tensor, generator: torch.Generator,
-                 epoch: int):
+    def pretrain(self, source, generator: torch.Generator, epoch: int):
         """Returns (flow_out, decoder output, 1 - mask, policy softmax,
         routing of the encoder's first Cap as (B, T, N, HS)); node-
-        sharded, the decoder output is None."""
+        sharded, the decoder output is None. `source` is the row's
+        input, whole or as its ranks' node shards (each on its rank)."""
         c = self.cfg
         b = c.input_base_dim
         shards = self.shards(source)
-        base = shards.split(source[..., :b])
+        base = _base_shards(source, b, shards)
         guide = shards.gather(self.policy(source, base, shards))
         # in a data-parallel step: once, from the global batch's guide
         mask = on_global_batch(lambda g: generate_mask(
@@ -490,7 +512,7 @@ class GPTST(nn.Module):
             guide.detach())
         # built in f32 for exact budget arithmetic, then cast so that a
         # bf16 forward stays bf16
-        mask = mask.to(source.dtype)
+        mask = mask.to(_node0(source).dtype)
         x_in = [_linear(self.dim_in_flow, torch.where(
                     mg == 0, c.scaler_zeros, mg * xg))
                 for mg, xg in zip(shards.split(mask), base)]
@@ -500,19 +522,19 @@ class GPTST(nn.Module):
         return (flow, dec[0] if shards.parts == 1 else None, 1.0 - mask,
                 guide, shards.gather(hs1, dim=-1).permute(0, 1, 3, 2))
 
-    def encode(self, source: torch.Tensor) -> torch.Tensor:
+    def encode(self, source) -> torch.Tensor:
         """The frozen-encoder embedding (B, T, N, hidden) of the
         unmasked input, on source's device."""
         shards, out = self.encode_shards(source)
         return shards.gather(out)
 
-    def encode_shards(self, source: torch.Tensor
-                      ) -> tuple[NodeShards, list[torch.Tensor]]:
+    def encode_shards(self, source) -> tuple[NodeShards, list[torch.Tensor]]:
         """The node shards and each rank's shard of `encode(source)`, left
-        on its rank (for a node-sharded predictor)."""
+        on its rank (for a node-sharded predictor); `source` whole or
+        as the ranks' node shards."""
         shards = self.shards(source)
         x_flow = [_linear(self.dim_in_flow, xg) for xg in
-                  shards.split(source[..., : self.cfg.input_base_dim])]
+                  _base_shards(source, self.cfg.input_base_dim, shards)]
         return shards, self.encoder(source, x_flow, shards)[0]
 
     def forward(self, source: torch.Tensor,

@@ -286,7 +286,8 @@ class CCRNN(nn.Module):
                 generator: torch.Generator | None = None,
                 shards: NodeShards | None = None):
         """x (B, T, N, dim_in), or with `shards` the list of the ranks'
-        node shards (the output likewise); y whole."""
+        node shards (the output likewise); y whole, or with `shards`
+        already split so (the trainer's resident split)."""
         c = self.cfg
         B, T = (x if shards is None else x[0]).shape[:2]
         graphs = self.graphs(shards)

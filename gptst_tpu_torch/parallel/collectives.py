@@ -11,9 +11,10 @@ process group, in program order, as XLA's collectives do under GSPMD:
     (`AllReduceChain`);
   * `gather_batch` — the processes' batch slices concatenated in
     process order; its backward keeps this process's slice;
-  * `all_gather_cat`, `broadcast_floats`, `any_process` and
-    `reduce_gradients` (one flat bucket of gradients, summed), with no
-    gradient.
+  * `all_gather_cat`, `broadcast_floats`, `any_process` (whether any
+    process ran short of memory: where the trainer places its resident
+    split, and `StepGraph.beside`) and `reduce_gradients` (one flat
+    bucket of gradients, summed), with no gradient.
 
 NCCL takes CUDA tensors; gloo takes CPU tensors and, for these
 collectives, CUDA tensors too (it copies them through host memory

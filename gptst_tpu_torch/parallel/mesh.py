@@ -36,9 +36,25 @@ processes. `batch_spec` applies the divisibility rule to the global
 data axis and `shard_batch` gives this process its rows' slices of the
 global batch (a ragged batch runs whole on every process's first row).
 
-`shard_rows` / `gather_rows` stand in for placing a tensor with
-`NamedSharding(mesh, P('graph', None))` on one row and reading it back;
-`NodeShards` is a row's node axis over its graph ranks, with the
+The train split that the trainer keeps on the devices (`place_split`,
+a `ResidentSplit`) is laid out as the JAX package's `_put_split` lays it
+(`gptst_tpu/train/trainer.py`): its node axis over 'graph', its windows
+replicated over 'data'. Data row r's graph rank g holds nodes
+`NodeShards.node_range(g)` of every window; where the row runs whole (a
+graph axis of 1, or one that does not divide N) the row's first device
+holds the whole split. Each step's batch is then gathered on every rank
+from its own arrays (`ResidentSplit.batch`, a `PlacedBatch`), and the
+data-parallel step hands each row its ranks' shards as they lie: no
+batch of x crosses between devices. Only the labels the loss reads go
+to the root, from row 0's ranks, which hold every window. Validation and
+test batches, and the host path's train batches, still come whole to
+the root and are split there (`shard_batch`, then `NodeShards.split`).
+
+`shard_rows` / `gather_rows` cut a tensor into a row's node shards on
+its ranks and concatenate them back (the sharded supports' whole-tensor
+entry, `parallel/halo.py`: what `NamedSharding(mesh, P('graph', None))`
+does to one row in the JAX package); `NodeShards` is a row's node axis
+over its graph ranks, with the
 differentiable meetings over them, GSPMD's collectives over 'graph' in
 one process: `node_sum` (the all-reduce of a sum over nodes, on the
 row's first device) and `all_sum` (on every rank), `softmax` (over
@@ -266,10 +282,22 @@ class NodeShards:
         n_loc = self.n // self.parts
         return g * n_loc, (g + 1) * n_loc
 
-    def split(self, x: torch.Tensor, dim: int = -2) -> list[torch.Tensor]:
+    def split(self, x, dim: int = -2) -> list[torch.Tensor]:
         """Axis `dim` of x (n long: activations, node tables, routing
         priors) cut into the ranks' shards, shard g on rank g's device.
-        Differentiable: the gradients meet where x lies."""
+        Differentiable: the gradients meet where x lies. A list is
+        already split (the resident split's batch): each shard's device
+        and length are checked, and nothing is copied."""
+        if isinstance(x, (list, tuple)):
+            if len(x) != self.parts:
+                raise ValueError(f"{len(x)} shards for {self.parts} ranks")
+            for g, (s, dev) in enumerate(zip(x, self.devices)):
+                lo, hi = self.node_range(g)
+                if s.device != dev or s.shape[dim] != hi - lo:
+                    raise ValueError(
+                        f"shard {g} is {tuple(s.shape)} on {s.device}; "
+                        f"rank {g} holds {hi - lo} nodes on {dev}")
+            return list(x)
         if self.parts == 1:
             return [x.to(self.devices[0])]
         return [s.to(d) for s, d in zip(
@@ -416,3 +444,138 @@ def node_shards(mesh: Optional[Mesh], n: int, row: int,
             mesh.shape[GRAPH_AXIS] == 1:
         return NodeShards((device,), n)
     return NodeShards(tuple(mesh.graph_devices(row)), n)
+
+
+def put_array(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array copied to `device` (`place_split`'s one copy)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlacedBatch:
+    """A (B, T, N, D) train batch that already lies on the mesh
+    (`ResidentSplit.batch`): `rows[r]` is this process's data row r's
+    slice of the global batch, the list of its graph ranks' node shards
+    (each on its rank) or, where the row runs whole, one tensor on the
+    row's first device; a ragged batch, or one the global data axis does
+    not divide, is row 0's alone (`shard_batch`'s rule). `rows` is None
+    where no row reads the batch (y, unless the model takes targets).
+    `shape` is the global batch's; `label`, where set, is its first
+    channels, whole, on the mesh's root: what the loss reads."""
+
+    rows: Optional[list]
+    shape: tuple
+    label: Optional[torch.Tensor] = None
+
+    def map(self, fn: Callable) -> "PlacedBatch":
+        """`fn` on every shard (the bf16 cast); the label as it is."""
+        if self.rows is None:
+            return self
+        return dataclasses.replace(
+            self, rows=[per_rank(fn, r) for r in self.rows])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ResidentSplit:
+    """The train split's x and y on this process's rows of a mesh
+    (`place_split`): `x[r][g]` and `y[r][g]` are data row r's graph rank
+    g's arrays, nodes `rows[r].node_range(g)` of every window on
+    `rows[r].devices[g]` (the whole split on the row's first device
+    where the row runs whole). A device that appears more than once
+    holds each of its slices once."""
+
+    rows: tuple               # NodeShards of each data row
+    x: tuple                  # [row][rank] tensors
+    y: tuple
+    data: int                 # the global 'data' axis
+    offset: int               # this process's first row on it
+
+    @property
+    def root(self) -> torch.device:
+        return self.rows[0].devices[0]
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """Every device that holds a part, once."""
+        return list(dict.fromkeys(a.device for a in self.tensors()))
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every placed tensor, once."""
+        seen = {id(a): a for arrs in (self.x, self.y)
+                for ranks in arrs for a in ranks}
+        return list(seen.values())
+
+    def rank_bytes(self) -> list[list[int]]:
+        """The bytes of x and y that each (row, rank) reads."""
+        return [[a.nbytes + b.nbytes for a, b in zip(xs, ys)]
+                for xs, ys in zip(self.x, self.y)]
+
+    def batch(self, sel: Callable[[torch.device], torch.Tensor],
+              targets: bool, label: int, cols: int
+              ) -> tuple[PlacedBatch, PlacedBatch]:
+        """The global batch of the windows `sel(device)` (the same
+        indices, on each device that holds a part) as (x, y): each data
+        row's slice gathered by `index_select` on each of its ranks from
+        the rank's own arrays (y's only with `targets`, where the model
+        reads the labels), and the label the loss reads, the first
+        `cols` channels of x (`label` 0, pretrain) or y (1) of the whole
+        batch, gathered on row 0's ranks, which hold every window, and
+        brought to the root."""
+        sels = {d: sel(d) for d in self.devices}
+        size = sels[self.root].shape[0]
+        per = size // self.data
+        spans = ([((self.offset + r) * per, per)
+                  for r in range(len(self.rows))]
+                 if size % self.data == 0 else [(0, size)])
+
+        def rows_of(arrs) -> list:
+            out = []
+            for (start, m), sh, ranks in zip(spans, self.rows, arrs):
+                got = [a.index_select(0, sels[a.device].narrow(0, start, m))
+                       for a in ranks]
+                out.append(got if sh.parts > 1 else got[0])
+            return out
+
+        arrays = (self.x, self.y)
+        rows = [rows_of(self.x), rows_of(self.y) if targets else None]
+        if spans[0] == (0, size) and rows[label] is not None:
+            pieces = rows[label][0]           # row 0 holds the whole batch
+            pieces = pieces if isinstance(pieces, list) else [pieces]
+        else:
+            pieces = [a.index_select(0, sels[a.device])
+                      for a in arrays[label][0]]
+        labels = [p[..., :cols].to(self.root) for p in pieces]
+        whole = labels[0] if len(labels) == 1 else torch.cat(labels, dim=-2)
+        n = self.rows[0].n
+        shapes = [(size, a[0][0].shape[1], n, a[0][0].shape[3])
+                  for a in arrays]
+        return tuple(PlacedBatch(r, s, whole if i == label else None)
+                     for i, (r, s) in enumerate(zip(rows, shapes)))
+
+
+def place_split(arrays: Sequence[np.ndarray], mesh: Mesh) -> ResidentSplit:
+    """The train split's (x, y), (windows, T, N, D) host arrays, placed
+    on this process's rows of `mesh` as the JAX package's `_put_split`
+    places them: each data row's graph rank g takes nodes
+    `node_range(g)` of every window where the graph axis is above 1 and
+    divides N, else the row's first device takes the whole split (rows
+    hold the same parts: the windows are replicated over 'data'). Each
+    (device, slice) is copied from the host once (`put_array`); a
+    `torch.OutOfMemoryError` propagates."""
+    n = arrays[0].shape[2]
+    rows = tuple(node_shards(mesh, n, r, dev)
+                 for r, dev in enumerate(mesh.row_devices))
+    placed: dict = {}
+
+    def on(i: int, dev: torch.device, lo: int, hi: int) -> torch.Tensor:
+        key = (i, dev, lo, hi)
+        if key not in placed:
+            a = arrays[i]
+            placed[key] = put_array(a if hi - lo == n else a[:, :, lo:hi],
+                                    dev)
+        return placed[key]
+
+    x, y = [tuple(tuple(on(i, dev, *sh.node_range(g))
+                        for g, dev in enumerate(sh.devices))
+                  for sh in rows) for i in range(2)]
+    return ResidentSplit(rows, x, y, mesh.shape[DATA_AXIS], mesh.data_offset)

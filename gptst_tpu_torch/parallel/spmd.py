@@ -8,7 +8,11 @@ process:
   * the parameters live once, on `mesh.root`;
   * the batch is split over the data rows (`parallel/mesh.shard_batch`:
     row r's slice on its first device, or the whole ragged batch on row
-    0), and each row runs the forward of its slice on its own devices,
+    0), or comes already placed (a `parallel/mesh.PlacedBatch`, which
+    the trainer gathers from its resident split: row r's slice as its
+    graph ranks' node shards, each on its rank, handed to the row's
+    module as they lie), and each row runs the forward of its slice on
+    its own devices,
     one host thread per row (as `torch.nn.parallel.parallel_apply`
     does), reading the parameters through `.to(row device)` where the
     row lies on another device (`torch.func.functional_call` on a copy
@@ -63,7 +67,9 @@ from torch import nn
 from torch.func import functional_call
 
 from gptst_tpu_torch.parallel import collectives
-from gptst_tpu_torch.parallel.mesh import Mesh, batch_spec, shard_batch
+from gptst_tpu_torch.parallel.mesh import (
+    Mesh, PlacedBatch, batch_spec, shard_batch,
+)
 from gptst_tpu_torch.parallel.rows import RowGroup, RowReleased, row_scope
 
 
@@ -144,7 +150,8 @@ class DataParallel:
     """The forward of `model` (a `ModelOutput` module whose parameters
     lie on `mesh.root`) over the mesh's data rows:
     `dp(x, params=None, **kw)` splits x and a tensor `y` in `kw` with
-    `shard_batch`, runs each row's slice on its devices and returns the
+    `shard_batch` (or takes the rows of a `PlacedBatch` x and y as they
+    lie), runs each row's slice on its devices and returns the
     gathered `ModelOutput` on the root (the global batch's, when the
     data axis spans processes). `params`, by name, replaces the model's
     parameters (the train step's bf16 cast of them,
@@ -158,8 +165,13 @@ class DataParallel:
                        for d in dict.fromkeys(self.devices)
                        if d != mesh.root}
         self.rows = _Rows(model, self.copies)
-        self.pool = (concurrent.futures.ThreadPoolExecutor(
-            max_workers=len(self.devices), thread_name_prefix="data-row")
+        # one thread per row, the same one at every call: autograd
+        # numbers a thread's nodes by its own counter, and the backward
+        # sums a parameter's gradients in that order, so a row that ran
+        # on another thread would sum them in another order
+        self.pools = ([concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"data-row-{r}")
+            for r in range(len(self.devices))]
             if len(self.devices) > 1 else None)
         # whether the last call split its batch over processes
         self.across = False
@@ -186,11 +198,15 @@ class DataParallel:
                         for k, p in params.items()})
         return out
 
-    def __call__(self, x: torch.Tensor,
+    def __call__(self, x: torch.Tensor | PlacedBatch,
                  params: dict[str, torch.Tensor] | None = None, **kw):
-        xs = shard_batch(x, self.mesh)
         y = kw.pop("y", None)
-        ys = ([None] * len(xs) if y is None else shard_batch(y, self.mesh))
+        if isinstance(x, PlacedBatch):
+            xs, ys = x.rows, None if y is None else y.rows
+        else:
+            xs = shard_batch(x, self.mesh)
+            ys = None if y is None else shard_batch(y, self.mesh)
+        ys = ys or [None] * len(xs)
         devices = self.devices[:len(xs)]
         grad = torch.is_grad_enabled()
         threads = torch.get_num_threads()
@@ -217,7 +233,7 @@ class DataParallel:
                                                        **kw)]
             if len(xs) == 1:          # one row here, meeting the others'
                 return [row(rows, 0)]
-            futures = [self.pool.submit(row, rows, r)
+            futures = [self.pools[r].submit(row, rows, r)
                        for r in range(len(xs))]
             errors = [e for e in (f.exception() for f in futures) if e]
             if errors:    # the failing row's error, not a released row's

@@ -264,6 +264,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     os.makedirs(log_dir, exist_ok=True)
     tr = Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
                  log_dir=log_dir, device=device, mesh=mesh)
+    logger.info("train split: %s", tr.split_layout())
     if cfg.mode == "test":
         tr.load_checkpoint(best_path)
         report = tr.test()

@@ -35,15 +35,24 @@ from torch.func import functional_call
 
 from gptst_tpu_torch.config.config import FrameworkConfig
 from gptst_tpu_torch.kernels.spmm import capture_launches, replay_launches
-from gptst_tpu_torch.parallel.mesh import Mesh, shard_params
+from gptst_tpu_torch.parallel.mesh import Mesh, PlacedBatch, shard_params
 from gptst_tpu_torch.parallel.spmd import DataParallel
 from gptst_tpu_torch.train.loss import kl_div_sum
 
 
 def _cast_bf16(t):
+    if isinstance(t, PlacedBatch):
+        return t.map(_cast_bf16)
     if isinstance(t, torch.Tensor) and t.is_floating_point():
         return t.to(torch.bfloat16)
     return t
+
+
+def labels(t, cols: int) -> torch.Tensor:
+    """What the loss reads of a batch: its first `cols` channels, whole
+    (a `PlacedBatch` carries them, brought to the mesh's root from the
+    ranks' shards)."""
+    return t.label if isinstance(t, PlacedBatch) else t[..., :cols]
 
 
 def model_forwards(model: nn.Module, cfg: FrameworkConfig,
@@ -94,7 +103,9 @@ def make_loss_terms(model: nn.Module, loss_fn: Callable,
     a predictor's dropout in the other modes); `epoch` is pretrain's.
     In eval mode the cast reaches only the trainable parameters: the
     frozen encoder, outside them, stays f32. `loss_terms.reduce_gradients`
-    is the forward's (None on one process)."""
+    is the forward's (None on one process). Under a mesh x and y may be
+    `PlacedBatch`es (the trainer's resident split): the forward takes
+    their rows as they lie and the loss their label on the root."""
     pretrain = cfg.mode == "pretrain"
     if forward is None:
         forward = model_forwards(model, cfg)[1]
@@ -107,7 +118,7 @@ def make_loss_terms(model: nn.Module, loss_fn: Callable,
         out = forward(x, **kw)
         pred = out.pred.float()
         mask = None if out.mask is None else out.mask.float()
-        flow = loss_fn(pred, label[..., : cfg.output_dim], mask)
+        flow = loss_fn(pred, labels(label, cfg.output_dim), mask)
         if pretrain and epoch > cfg.change_epoch:
             log_prob = out.probability.float().clamp_min(1e-38).log()
             return flow + 0.1 * kl_div_sum(log_prob, out.routing), flow

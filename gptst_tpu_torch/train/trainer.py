@@ -9,15 +9,25 @@ The JAX package's `train/trainer.py` behaviour, step for step:
     sequence);
   - the device-resident train split: with `cfg.device_data` and K
     above 1 (K = `cfg.scan_steps`, 16 where it is 0: the defaults),
-    the train split's x and y are put on the trainer's device once, at
+    the train split's x and y are put on the devices once, at
     construction (`train_split`), and each step gathers its batch from
-    them with `index_select` by the epoch's order, copied to the device
-    once per epoch, so no train batch crosses from the host. Otherwise
-    (`scan_steps` 1, `device_data` False, or a split the device cannot
-    hold: a `torch.OutOfMemoryError` at placement, logged with the
-    split's bytes) every train batch is gathered on the host and
-    copied at its step. Both paths give the same batches, values and
-    order; validation and test always batch on the host;
+    them with `index_select` by the epoch's order, copied to each of
+    those devices once per epoch, so no train batch crosses from the
+    host. On one device the split lies there whole. Under a mesh it
+    lies as the JAX trainer's `_put_split` puts it
+    (`parallel/mesh.place_split`): its node axis over 'graph', its
+    windows replicated over 'data', so each data row's graph rank
+    holds its nodes of every window (the whole split on a row's first
+    device where the graph axis is 1 or does not divide N). Each rank
+    then gathers its row's slice of the batch from its own part, the
+    rows' modules take those shards as they lie, and only the labels
+    the loss reads are brought to the root (`ResidentSplit.batch`).
+    Otherwise (`scan_steps` 1, `device_data` False, or a split that a
+    device cannot hold: a `torch.OutOfMemoryError` at placement on any
+    device, of any process, logged with the split's bytes) every train
+    batch is gathered on the host and copied at its step. Both paths
+    give the same batches, values and order; validation and test
+    always batch on the host;
   - K steps per dispatch: the epoch is cut into the JAX trainer's
     chunks (K full batches from the resident split, then the leftover
     batches as one chunk; on the host path, chunks of K in batch
@@ -64,12 +74,14 @@ The JAX package's `train/trainer.py` behaviour, step for step:
 With a `mesh` (`parallel/mesh.make_mesh`) the trainer is data-parallel,
 as the JAX trainer is under GSPMD: the parameters and the optimizer
 stay whole on `mesh.root` (`shard_params`), and every train, val and
-test batch is split over the data rows (`shard_batch`; a ragged tail
-runs whole on row 0) by `parallel/spmd.DataParallel`, whose step is the
-one-device step's math. The test report gathers the predictions in
-batch order. The generators, the batch order and the step counts do not
-change, and checkpoints hold the root's parameters, so they load into a
-one-device trainer and back.
+test batch is split over the data rows (a ragged tail runs whole on row
+0) by `parallel/spmd.DataParallel`, whose step is the one-device
+step's math: a batch from the host by `shard_batch` on the root, then
+over a row's graph ranks by the model (`NodeShards.split`), a batch of
+the resident split already placed so on the ranks. The test report
+gathers the predictions in batch order. The generators, the batch
+order and the step counts do not change, and checkpoints hold the
+root's parameters, so they load into a one-device trainer and back.
 
 With a mesh whose 'data' axis spans processes (`core/distributed.
 global_mesh`), every process runs this loop on the same dataset and
@@ -123,7 +135,9 @@ from gptst_tpu_torch.core.distributed import is_coordinator
 from gptst_tpu_torch.data.pipeline import STDataset
 from gptst_tpu_torch.eval.metrics import all_metrics
 from gptst_tpu_torch.parallel import collectives
-from gptst_tpu_torch.parallel.mesh import GRAPH_AXIS, normalize_device
+from gptst_tpu_torch.parallel.mesh import (
+    GRAPH_AXIS, PlacedBatch, ResidentSplit, normalize_device, place_split,
+)
 from gptst_tpu_torch.train.loss import build_loss
 from gptst_tpu_torch.train.step import (
     StepGraph, make_loss_terms, model_forwards, step_inputs, train_step,
@@ -417,7 +431,12 @@ class Trainer:
                                            self.cfg, forward)
         self.batch_seen = 0
         self.k = 16 if self.cfg.scan_steps == 0 else self.cfg.scan_steps
-        # (x, y) of the train split on the device, or None: the host path
+        # whether the model reads the labels (CCRNN's teacher forcing):
+        # the resident split then gathers y on every data row's ranks
+        self._targets = any(getattr(m, "takes_targets", False)
+                            for m in self.model.modules())
+        # the train split on the devices: (x, y) on the device, or under
+        # a mesh a `ResidentSplit`; None: the host path
         self.train_split = (self._place_split()
                             if self.cfg.device_data and self.k > 1 else None)
         # the epoch's generator, re-seeded in place every epoch (a
@@ -425,7 +444,9 @@ class Trainer:
         # of `_stage`, made at the first epoch
         self._train_gen = self._generator(0)
         self._step_kw: dict = {}
-        self._step_in = self._losses = self._order = None
+        self._step_in = self._losses = None
+        # the epoch's order on each device that holds a part of the split
+        self._orders: dict[torch.device, torch.Tensor] = {}
         self._host = None
         self._runner = None
         self.chunked, self.captured = self._dispatch()
@@ -462,31 +483,59 @@ class Trainer:
             return float(v)
         return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
 
-    def _put(self, arr) -> torch.Tensor:
+    def _put(self, arr):
         """A numpy array copied to the device, or a tensor moved there
         (no copy where it lies there already, as the resident split's
-        batches do)."""
+        batches do); a `PlacedBatch` stays where it lies."""
+        if isinstance(arr, PlacedBatch):
+            return arr
         if isinstance(arr, torch.Tensor):
             return arr.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _place_split(self) -> tuple[torch.Tensor, torch.Tensor] | None:
-        """The train split's (x, y) on the device (under a mesh, its
-        root: the data rows take their slices of each gathered batch
-        there); None, with a warning, where the device runs out of
-        memory. Any other error propagates."""
+    def _place_split(self):
+        """The train split on the devices: (x, y) on the device, or under
+        a mesh laid out as the JAX trainer's `_put_split` lays it
+        (`parallel/mesh.place_split`: the node axis over 'graph', the
+        windows replicated over 'data'). None, with a warning, where a
+        device runs out of memory; across processes, where one does on
+        any process (every process must take the same path: the paths'
+        step counts differ). Any other error propagates."""
+        arrays = (self.dataset.x_train, self.dataset.y_train)
+        split, short = None, False
         try:
-            return (self._put(self.dataset.x_train),
-                    self._put(self.dataset.y_train))
+            split = (tuple(self._put(a) for a in arrays) if self.mesh is None
+                     else place_split(arrays, self.mesh))
         except torch.OutOfMemoryError:
-            if self.device.type == "cuda":    # x, if placed, is freed
-                torch.cuda.empty_cache()
-            self.logger.warning(
-                "The train split (%d bytes) does not fit on %s; its "
-                "batches go from the host",
-                self.dataset.x_train.nbytes + self.dataset.y_train.nbytes,
-                self.device)
-            return None
+            short = True
+        if self.processes > 1:
+            short = collectives.any_process(short, self.device)
+        if not short:
+            return split
+        split = None
+        if torch.cuda.is_available():     # what was placed is freed
+            torch.cuda.empty_cache()
+        self.logger.warning(
+            "The train split (%d bytes) does not fit on %s; its batches "
+            "go from the host", sum(a.nbytes for a in arrays),
+            self.device if self.mesh is None else
+            f"the devices of the {dict(self.mesh.shape)} mesh")
+        return None
+
+    def split_layout(self) -> str:
+        """Where the train split lies, and its bytes on each device."""
+        split = self.train_split
+        if split is None:
+            return "on the host (each batch copied at its step)"
+        if isinstance(split, tuple):
+            return f"on {self.device}: {sum(t.nbytes for t in split)} bytes"
+        rows = "; ".join(
+            f"row {r}: " + ", ".join(f"{dev} {b} bytes" for dev, b in zip(
+                sh.devices, per)) for r, (sh, per) in enumerate(
+                zip(split.rows, split.rank_bytes())))
+        how = ("node-sharded over 'graph'" if split.rows[0].parts > 1
+               else "whole on each data row's first device")
+        return f"{how} ({rows})"
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -515,27 +564,40 @@ class Trainer:
     def _one_steps(self, batches: range, order: np.ndarray) -> None:
         """The batches one step at a time (`_train_batch`): gathered on
         the host, or from the resident split by the order on the
-        device."""
+        devices."""
         bs = self.cfg.batch_size
         for b in batches:
             if self.train_split is None:
                 sel = order[b * bs:(b + 1) * bs]
                 xb, yb = self.dataset.x_train[sel], self.dataset.y_train[sel]
             else:
-                sel = self._order[b * bs:(b + 1) * bs]
-                xb, yb = (t.index_select(0, sel) for t in self.train_split)
+                xb, yb = self._resident_batch(
+                    lambda o: o[b * bs:(b + 1) * bs])
             self._train_batch(xb, yb)
+
+    def _resident_batch(self, pick: Callable[[torch.Tensor], torch.Tensor]):
+        """The batch of the windows `pick(order)` from the resident split:
+        (x, y) gathered on the device, or under a mesh `PlacedBatch`es
+        gathered on each rank from its own part (`ResidentSplit.batch`),
+        each device reading its own copy of the order."""
+        split = self.train_split
+        if isinstance(split, ResidentSplit):
+            return split.batch(lambda dev: pick(self._orders[dev]),
+                               self._targets, 0 if self.pretrain else 1,
+                               self.cfg.output_dim)
+        sel = pick(self._orders[self.device])
+        return tuple(t.index_select(0, sel) for t in split)
 
     def _gathered_step(self):
         """A step on the resident split's batch at the optimizer's slot,
-        gathered by the epoch's order on the device."""
+        gathered by the epoch's order on the devices."""
         bs = self.cfg.batch_size
         full = self.dataset.x_train.shape[0] // bs
-        sel = self._order[: full * bs].view(full, bs).index_select(
-            0, self.optimizer.slot.view(1)).view(-1)
-        x, y = self.train_split
-        return self._step(self._put(x.index_select(0, sel)),
-                          self._put(y.index_select(0, sel)))
+        at = self.optimizer.slot.view(1)
+        xb, yb = self._resident_batch(
+            lambda o: o[: full * bs].view(full, bs).index_select(
+                0, at.to(o.device)).view(-1))
+        return self._step(self._put(xb), self._put(yb))
 
     def _train_steps(self, batches: range, order: np.ndarray, epoch: int):
         """A chunk of full batches through `StepGraph` (one replay a step
@@ -571,7 +633,8 @@ class Trainer:
 
     def _stage(self, counts: list[int], order: np.ndarray) -> None:
         """The epoch's buffers, in place: the optimizer's scalars, the
-        step inputs of `counts`, the losses and (resident) the order."""
+        step inputs of `counts`, the losses and (resident) the order, on
+        each device that holds a part of the split."""
         n = len(counts)
         self.optimizer.stage(n)
         table = step_inputs(self.model, counts)
@@ -581,11 +644,15 @@ class Trainer:
             self._losses = torch.zeros(n, 2, dtype=torch.float64,
                                        device=self.device)
         self._step_in.copy_(table)
-        if self.train_split is not None:
-            if self._order is None:
-                self._order = torch.empty(order.shape, dtype=torch.long,
-                                          device=self.device)
-            self._order.copy_(torch.from_numpy(order))
+        split = self.train_split
+        if split is not None:
+            host = torch.from_numpy(order)
+            for dev in (split.devices if isinstance(split, ResidentSplit)
+                        else [self.device]):
+                if dev not in self._orders:
+                    self._orders[dev] = torch.empty(
+                        order.shape, dtype=torch.long, device=dev)
+                self._orders[dev].copy_(host)
 
     def _chunks(self) -> list[range]:
         """The epoch's batches (by index in the epoch's order) in the

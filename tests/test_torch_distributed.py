@@ -4,7 +4,7 @@ and the data-parallel step and trainer over a process group.
 Two processes (gloo on the CPU, the process group joined through a
 FileStore in a temporary directory) run `tests/torch_distributed_child.py`,
 which imports only the port; the test starts them with a deadline and
-kills them past it. One spawn runs cases (b) to (g), each checked by its
+kills them past it. One spawn runs cases (b) to (h), each checked by its
 own test while the one-process side is computed here:
 
   (a) without a process group: no group made, the coordinator, and
@@ -38,7 +38,12 @@ own test while the one-process side is computed here:
       every chunk under a dispatch mode that raises on a host read (as
       a CUDA graph capture would refuse one): against the one-process
       (2, 1) trainer (rtol 1e-5);
-  (e) after (b) to (g), rank 1 raises in a forward: rank 0, waiting
+  (h) the trainer of (d) for one epoch on a global (2, 2) mesh: the
+      train split resident (each process's two graph ranks holding
+      their nodes), then with rank 1 out of memory where the split is
+      placed: both processes take the host path, and its steps' losses
+      are the resident run's, on both;
+  (e) after (b) to (h), rank 1 raises in a forward: rank 0, waiting
       for it in a collective, fails too, within the deadline.
 
 In (b) to (d), (f) and (g) both processes end with the same
@@ -145,8 +150,8 @@ class Spawn:
 
 @pytest.fixture(scope="module")
 def steps(tmp_path_factory):
-    """Cases (b) to (g) in one spawn of two processes."""
-    spawn = Spawn("steps,fail", tmp_path_factory.mktemp("steps"))
+    """Cases (b) to (h) in one spawn of two processes."""
+    spawn = Spawn("steps,oom,fail", tmp_path_factory.mktemp("steps"))
     yield spawn
     spawn.kill()
 
@@ -336,10 +341,22 @@ def test_gwn_chunks_across_processes_read_nothing_on_the_host(steps):
                          child.GWN_K4["epochs"])
 
 
+# --- (h) out of memory on one process ---------------------------------------
+
+def test_out_of_memory_on_one_process_takes_the_host_path_on_both(steps):
+    results = steps.results("oom")
+    for res in results:
+        got = res["oom"]
+        assert got["resident"] == [True, False]
+        assert len(got["losses"][0]) == 7
+        assert got["losses"][1] == got["losses"][0]
+    assert results[1]["oom"] == results[0]["oom"]
+
+
 # --- (e) a failing process --------------------------------------------------
 
 def test_a_failing_process_fails_its_peer(steps):
-    steps.results("gwn_k4")         # (b) to (g) ran before it
+    steps.results("oom")            # (b) to (h) ran before it
     rcs = steps.wait()
     assert "rank 1 fails" in steps.log(1)
     # rank 0 failed in the gather of the outputs, where it waited

@@ -29,6 +29,7 @@ from gptst_tpu_torch.core.distributed import (  # noqa: E402
 )
 from gptst_tpu_torch.data.pipeline import build_dataset  # noqa: E402
 from gptst_tpu_torch.models.build import build_model  # noqa: E402
+from gptst_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from gptst_tpu_torch.parallel.spmd import run_one_step  # noqa: E402
 from gptst_tpu_torch.train.loss import build_loss  # noqa: E402
 from gptst_tpu_torch.train.step import (  # noqa: E402
@@ -196,6 +197,35 @@ def case_steps(rank: int, out: str) -> dict:
     return res
 
 
+def case_oom(rank: int, out: str) -> dict:
+    """(h) TRAIN's trainer for one epoch on a global (2, 2) mesh (each
+    process one data row of two graph ranks): with the train split
+    resident, each rank holding its nodes, then with rank 1's devices
+    out of memory where the split is placed. Whether each run was
+    resident, and its per-step losses."""
+    cfg = default_config("PEMS08", **dict(TRAIN, epochs=1))
+    ds = build_dataset(cfg, num_steps=NUM_STEPS, seed=cfg.seed)
+    resident, losses, put = [], [], tmesh.put_array
+
+    def short(a, device):
+        raise torch.OutOfMemoryError("out of memory")
+
+    for oom in (False, True):
+        mesh = global_mesh(2, devices=["cpu"] * 2)
+        model = build_model(cfg, device="cpu", seed=4, mesh=mesh)
+        if oom and rank == 1:
+            tmesh.put_array = short
+        try:
+            tr = Trainer(model=model, cfg=cfg, dataset=ds, seed=cfg.seed,
+                         device="cpu", mesh=mesh)
+        finally:
+            tmesh.put_array = put
+        tr.train_epoch(1)
+        resident.append(tr.train_split is not None)
+        losses.append(tr._losses[:, 0].tolist())
+    return {"oom": {"resident": resident, "losses": losses}}
+
+
 def case_fail(rank: int, out: str) -> dict:
     """Rank 1 raises in its forward; rank 0 waits for it in the
     gather of the outputs until the process group fails."""
@@ -213,7 +243,7 @@ def case_fail(rank: int, out: str) -> dict:
     return {}
 
 
-CASES = {"steps": case_steps, "fail": case_fail}
+CASES = {"steps": case_steps, "oom": case_oom, "fail": case_fail}
 
 
 def main(cases: str, rank: int, world: int, store: str, out: str) -> int:
